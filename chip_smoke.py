@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from ``csrc/`` (nvcc, first use), then:
+It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
 
 1. device   -- a CUDA device must be visible; otherwise exit 1, no result;
 2. kernel   -- the fused score + bucket-max kernel against its plain PyTorch
@@ -27,8 +27,35 @@ It builds the port's CUDA kernel from ``csrc/`` (nvcc, first use), then:
                encoded on the card and on the CPU with the same weights
                must agree.
 
-The second-to-last line is a JSON object describing each kernel (launches
-counted during phase 4, the main path); the last line is
+5. packed kernel -- K4 (csrc/packed_scores_bmax.cu) against its plain
+               version: a ragged case (q=37, three 2048-row pack blocks,
+               250 and 384 bits, valid_count 5003, 10% masked) and the bench
+               point (q=1024, n=2^20, 256 bits, bf16 scores); scores and
+               bucket maxes equal, top-k distances equal; CUDA-event times;
+6. hamming kernel -- K5 (csrc/hamming_bucket_min.cu) against its plain
+               version on the same codes packed row-major, its time beside
+               K4's at the same shape, and ops.hamming.hamming_topk (K5's
+               path) giving the same top-100 distances as K4;
+7. binary index -- BinaryIndex(250 bits, 2^20 rows), packed (K4) and sign
+               (K1) modes, 1024 queries at k=100: sorted distances equal a
+               plain f32 product over the same codes;
+8. two-stage index -- TwoStageIndex(1600-d, 2^20 rows, 'itq' 250-bit codes
+               fitted on a 32,768-row sample, packed stage 1, pool 128, bf16
+               rows), 1024 queries planted at cosine ~0.9 to stored rows:
+               stage-1 distances equal the plain version's, the top-100
+               equals the exact re-rank of the pool within 1e-5, every
+               planted row is the top-1; stage-1, re-rank and total times;
+9. two-stage engine -- SessionSearchEngine at Config() width with
+               prefilter='itq', stage1='packed', pool=512 (projector fitted
+               on phase 4's 8,192 embeddings): ingest, search 256 sessions,
+               top-1 within two bf16 ulps of 1.0, K4 launched, K4 against its
+               plain version on the engine's own codes.
+
+Before phase 4 the shared native graph builder must load (built without
+OpenMP where the compiler has no OpenMP runtime; the build used is printed).
+The second-to-last line is a JSON object describing each kernel, with the
+launches counted on its path (K1: phase 4's engine; K4: phase 9's engine;
+K5: phase 6's hamming_topk); the last line is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
 """
 
@@ -267,9 +294,7 @@ def phase_engine(torch, mips, topk_mod, dev):
     data = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0).dataset(8192)
     eng = port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,
                                    capacity=65536, device=dev)
-    # warm-up, counted as set-up: in a fresh checkout the first graph batch
-    # builds the native graph builder (make), and cuBLAS picks its kernels
-    eng.embed(data[:8])
+    eng.embed(data[:8])  # warm-up, counted as set-up: cuBLAS picks its kernels
     setup_s = time.perf_counter() - t0
 
     mips.launch_count = 0  # count the main path's launches from here
@@ -330,7 +355,289 @@ def phase_engine(torch, mips, topk_mod, dev):
           f"{bm_err:.3g}, scores max_abs_err {s_err:.3g}, top-100 max_abs_err "
           f"{v_err:.3g}, search() top-100 vs plain max_abs_err {d_err:.3g}")
     print(f"engine stats: {json.dumps(stats)}")
-    return launches, bm_err
+    corpus = eng.index.reconstruct_batch(np.arange(eng.index.ntotal))
+    return launches, bm_err, (cfg, tok, enc, data, corpus)
+
+
+def random_signs(torch, g, rows, bits, dev):
+    return torch.where(torch.rand(rows, bits, generator=g, device=dev) < 0.5, 1.0, -1.0)
+
+
+def plain_packed_topk(torch, packed, mips, q, words, k, n_bits, vc=None, pen=None):
+    """K4's top-k through its plain version: the same selection and
+    distance rule as ``packed.packed_topk``."""
+    sd = torch.bfloat16 if n_bits <= 256 else torch.float32
+    s, bm = packed.packed_scores_with_bucket_max_ref(q, words, vc, pen, sd)
+    return packed.dots_to_hamming(*mips.select_topk(s, bm, k), n_bits)
+
+
+def sorted_equal(torch, a, b) -> bool:
+    return torch.equal(torch.sort(a, dim=1).values, torch.sort(b, dim=1).values)
+
+
+def packed_case(torch, hamming, g, q_n, n, n_bits, dev):
+    """Seeded sign codes: queries +-1 bf16 [q, bits_pad] with zero pad
+    columns, the corpus transposed-packed, and the same signs row-major."""
+    bits_pad = -(-n_bits // 128) * 128
+    corpus = torch.empty(n // 32, bits_pad, dtype=torch.int32, device=dev)
+    rows_major = torch.empty(n, -(-n_bits // 32), dtype=torch.int32, device=dev)
+    for s in range(0, n, 1 << 16):  # n is a multiple of 2048
+        signs = random_signs(torch, g, min(1 << 16, n - s), n_bits, dev)
+        corpus[s // 32: (s + len(signs)) // 32] = hamming.pack_bits_t(
+            torch.nn.functional.pad(signs, (0, bits_pad - n_bits), value=-1.0))
+        rows_major[s: s + len(signs)] = hamming.pack_bits(signs)
+    q_signs = random_signs(torch, g, q_n, n_bits, dev)
+    q = torch.nn.functional.pad(q_signs, (0, bits_pad - n_bits)).bfloat16()
+    return q, corpus, hamming.pack_bits(q_signs), rows_major
+
+
+def phase_packed_kernel(torch, dev):
+    from sessionsimilaritysearch_tpu_torch.ops import hamming, mips, packed
+
+    errs, out = [], {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    for n_bits in (250, 384):  # bf16 scores, then f32 (codes over 256 bits)
+        q, words, _, _ = packed_case(torch, hamming, g, 37, 6144, n_bits, dev)
+        pen = torch.where(torch.rand(6144, generator=g, device=dev) < 0.1,
+                          float("-inf"), 0.0)
+        sd = torch.bfloat16 if n_bits <= 256 else torch.float32
+        ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max(
+            q, words, 5003, pen, sd), 20)
+        plain_ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max_ref(
+            q, words, 5003, pen, sd), 20)
+        s, bm = packed.packed_scores_with_bucket_max(q, words, 5003, pen, sd)
+        s_ref, bm_ref = packed.packed_scores_with_bucket_max_ref(q, words, 5003, pen, sd)
+        d, _ = packed.packed_topk(q, words, 10, n_bits, 5003, pen)
+        d_ref, _ = plain_packed_topk(torch, packed, mips, q, words, 10, n_bits, 5003, pen)
+        # +-1 products are integers: both sides exact, so equal
+        check(torch.equal(s, s_ref), f"packed ragged {n_bits} bits: scores differ")
+        check(torch.equal(bm, bm_ref), f"packed ragged {n_bits} bits: bmax differs")
+        check(torch.equal(d, d_ref), f"packed ragged {n_bits} bits: top-10 distances differ")
+        fin = torch.isfinite(s_ref)
+        errs.append((s.float()[fin] - s_ref.float()[fin]).abs().max().item())
+        print(f"packed kernel ragged q=37 n=6144 {n_bits} bits ({str(sd)[6:]} scores, "
+              f"valid_count 5003, 10% masked): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms; scores, bmax and top-10 distances equal")
+
+    q_n, n, n_bits = 1024, 1 << 20, 256
+    q, words, q_rows, c_rows = packed_case(torch, hamming, g, q_n, n, n_bits, dev)
+    ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max(q, words), 5)
+    plain_ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max_ref(q, words), 3)
+    s, bm = packed.packed_scores_with_bucket_max(q, words)
+    s_ref, bm_ref = packed.packed_scores_with_bucket_max_ref(q, words)
+    check(torch.equal(s, s_ref), "packed bench point: scores differ")
+    check(torch.equal(bm, bm_ref), "packed bench point: bmax differs")
+    errs.append((bm - bm_ref).abs().max().item())
+    del s, s_ref, bm, bm_ref
+    d, _ = packed.packed_topk(q, words, 100, n_bits)
+    d_ref, _ = plain_packed_topk(torch, packed, mips, q, words, 100, n_bits)
+    check(torch.equal(d, d_ref), "packed bench point: top-100 distances differ")
+    tflops = 2 * q_n * n * n_bits / (ms * 1e-3) / 1e12
+    print(f"packed kernel bench point q={q_n} n={n} {n_bits} bits bf16 scores: kernel "
+          f"{ms:.3f} ms ({tflops:.1f} TFLOP/s of +-1 products), plain {plain_ms:.3f} ms; "
+          f"scores, bmax and top-100 distances equal")
+    torch.cuda.empty_cache()
+    out.update(err=max(errs), ms=ms, plain_ms=plain_ms)
+    return out, (q_rows, c_rows, d)
+
+
+def phase_hamming_kernel(torch, dev, bench, k4_ms):
+    from sessionsimilaritysearch_tpu_torch.ops import hamming, popcount
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    _, _, q, c = packed_case(torch, hamming, g, 37, 6144, 250, dev)
+    live = torch.rand(6144, generator=g, device=dev) >= 0.1
+    live[5003:] = False
+    pen = torch.where(live, 0, popcount.PENALTY).to(torch.int32)
+    ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min(q, c, pen), 20)
+    plain_ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min_ref(q, c, pen), 5)
+    check(torch.equal(popcount.hamming_bucket_min(q, c, pen),
+                      popcount.hamming_bucket_min_ref(q, c, pen)),
+          "hamming ragged: bmin differs")
+    check(torch.equal(popcount.hamming_bucket_min(q, c[:5003]),
+                      popcount.hamming_bucket_min_ref(q, c[:5003])),
+          "hamming ragged n=5003: bmin differs")
+    d, i = hamming.hamming_topk(q, c, 10, valid_count=5003, row_mask=live)
+    d_ref, _ = hamming.hamming_topk(q.cpu(), c.cpu(), 10, valid_count=5003,
+                                    row_mask=live.cpu())
+    check(torch.equal(d.cpu(), d_ref), "hamming ragged: top-10 distances differ")
+    check(bool(live[i].all()), "hamming ragged: a dead row ranked")
+    print(f"hamming kernel ragged q=37 n=6144 250 bits (valid_count 5003, 10% masked): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bmin and top-10 distances equal")
+
+    q, c, d_k4 = bench  # the bench point's codes, row-major
+    ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min(q, c), 5)
+    plain_ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min_ref(q, c), 1)
+    err = (popcount.hamming_bucket_min(q, c)
+           - popcount.hamming_bucket_min_ref(q, c)).abs().max().item()
+    check(err == 0, f"hamming bench point: bmin max_abs_err {err}")
+    popcount.launch_count = 0  # K5's path: the public op hamming_topk
+    t0 = time.perf_counter()
+    d, _ = hamming.hamming_topk(q, c, 100)
+    torch.cuda.synchronize()
+    topk_s = time.perf_counter() - t0
+    launches = popcount.launch_count
+    check(launches >= 1, "hamming_topk never launched the kernel")
+    check(sorted_equal(torch, d, d_k4), "hamming_topk and K4 top-100 distances differ")
+    print(f"hamming kernel bench point q={q.shape[0]} n={c.shape[0]} 256 bits: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K4 at the same shape {k4_ms:.3f} ms; "
+          f"bmin equal; hamming_topk k=100 {topk_s * 1e3:.1f} ms, {launches} launch, "
+          f"distances equal K4's")
+    del bench, c
+    torch.cuda.empty_cache()
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches}
+
+
+def phase_binary_index(torch, dev):
+    from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
+
+    n, n_bits, q_n, k = 1 << 20, 250, 1024, 100
+    g = torch.Generator(device=dev).manual_seed(4)
+    codes = random_signs(torch, g, n, n_bits, dev)
+    queries = random_signs(torch, g, q_n, n_bits, dev)
+    # the plain version: an f32 product of the +-1 codes, exact for integers
+    dots = queries @ codes.T
+    want = ((n_bits - torch.topk(dots, k, dim=1).values) * 0.5).to(torch.int32)
+    del dots
+    for mode in ("packed", "sign"):
+        idx = BinaryIndex(n_bits, n, mode, device=dev)
+        for s in range(0, n, 1 << 16):
+            idx.add(codes[s: s + (1 << 16)])
+        d, i = idx.search_device(queries, k)  # warm-up
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            d, i = idx.search(queries, k)  # numpy: includes the sync
+            times.append(time.perf_counter() - t0)
+        got = torch.from_numpy(d).to(dev)
+        check(sorted_equal(torch, got, want), f"binary index {mode}: distances differ")
+        check(bool(((i >= 0) & (i < n)).all()), f"binary index {mode}: bad ids")
+        ids = torch.from_numpy(i[:, :5]).to(dev)
+        true = ((n_bits - (queries[:, None, :] * codes[ids]).sum(-1)) * 0.5).to(torch.int32)
+        check(torch.equal(true, got[:, :5]), f"binary index {mode}: ids do not "
+              "have their distances")
+        best = min(times)
+        print(f"binary index {mode} 2^20 x {n_bits} bits: search 1024 queries k={k} "
+              f"{best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); sorted distances "
+              f"equal the plain product's")
+        del idx
+    del codes
+    torch.cuda.empty_cache()
+
+
+def phase_twostage_index(torch, dev):
+    from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
+    from sessionsimilaritysearch_tpu_torch.ops import mips, packed
+    from sessionsimilaritysearch_tpu_torch.ops.projection import fit_itq
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize, rerank_topk
+
+    n, d, q_n, k, pool, n_bits = 1 << 20, 1600, 1024, 100, 128, 250
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = torch.empty(n, d, dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, 1 << 16):
+        r = torch.randn(1 << 16, d, generator=g, device=dev)
+        rows[s: s + (1 << 16)] = (r / r.norm(dim=1, keepdim=True)).bfloat16()
+    t0 = time.perf_counter()
+    proj = fit_itq(rows[: 1 << 15].float().cpu().numpy(), n_bits)
+    fit_s = time.perf_counter() - t0
+    idx = TwoStageIndex(d, n, device=dev, prefilter="itq", projector=proj,
+                        stage1="packed", pool=pool)
+    t0 = time.perf_counter()
+    for s in range(0, n, 1 << 16):
+        idx.add(rows[s: s + (1 << 16)])
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    planted = torch.arange(q_n, device=dev) * (n // q_n) + 7
+    # cosine ~0.9 to the planted row: unit row plus noise of norm 0.484
+    noise = torch.randn(q_n, d, generator=g, device=dev)
+    queries = rows[planted].float() + 0.4843 * noise / noise.norm(dim=1, keepdim=True)
+
+    D, I = idx.search_device(queries, k)  # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        D, I = idx.search(queries, k)
+        times.append(time.perf_counter() - t0)
+    qn = l2_normalize(queries)
+    t_s1 = cuda_ms(torch, lambda: idx._stage1(qn, pool), 3)
+    cand = idx._stage1(qn, pool)
+    t_rr = cuda_ms(torch, lambda: rerank_topk(qn, idx._buf, cand, k), 3)
+
+    # gate 1: stage-1 distances against the plain version
+    ci = idx._codes_index
+    q_codes = torch.nn.functional.pad(idx._codes(qn), (0, ci.bits_pad - n_bits))
+    d1, _ = ci.search_device(idx._codes(qn), pool)
+    d1_ref, _ = plain_packed_topk(torch, packed, mips, q_codes, ci._buf, pool, n_bits,
+                                  ci.size)
+    check(sorted_equal(torch, d1, d1_ref), "two-stage index: stage-1 distances differ")
+    # gate 2: the top-k is the exact (f64) re-rank of the pool
+    exact = torch.bmm(idx._buf[cand].double(), qn.double()[..., None])[..., 0]
+    want = torch.topk(exact, k, dim=1).values
+    err = float(np.abs(D - want.cpu().numpy()).max())
+    check(err <= 1e-5, f"two-stage index: top-{k} vs exact re-rank of the pool {err}")
+    # gate 3: every planted row is the top-1
+    hits = float((I[:, 0] == planted.cpu().numpy()).mean())
+    check(hits == 1.0, f"two-stage index: planted rows at top-1 {hits}")
+    best = min(times)
+    print(f"two-stage index 2^20 x {d} bf16, itq {n_bits} bits (fit on 32,768 rows "
+          f"{fit_s:.1f} s, fill {fill_s:.2f} s), pool {pool}: search 1024 queries k={k} "
+          f"{best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); stage 1 {t_s1:.3f} ms, "
+          f"re-rank {t_rr:.3f} ms (CUDA events); stage-1 distances equal the plain "
+          f"version's, top-{k} vs exact re-rank of the pool max_abs_err {err:.3g}, "
+          f"planted top-1 {hits}")
+    del idx, rows
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_twostage_engine(torch, dev, parts):
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.ops import packed
+    from sessionsimilaritysearch_tpu_torch.ops.projection import fit_itq
+
+    cfg, tok, enc, data, corpus = parts
+    t0 = time.perf_counter()
+    proj = fit_itq(corpus, cfg.code_len)
+    fit_s = time.perf_counter() - t0
+    eng = port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,
+                                   capacity=65536, device=dev, prefilter="itq",
+                                   stage1="packed", projector=proj, pool=512)
+    packed.launch_count = 0  # count the path's launches from ingest on
+    t0 = time.perf_counter()
+    eng.add_sessions(data)
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    D, I = eng.search(data[:256], k=100)
+    search_s = time.perf_counter() - t0
+    launches = packed.launch_count
+    check(eng.index.ntotal == len(data), f"two-stage engine: ntotal {eng.index.ntotal}")
+    check(D.shape == (256, 100) and np.isfinite(D).all(), "two-stage engine: bad result")
+    top1_err = float(np.abs(D[:, 0] - 1.0).max())
+    check(top1_err <= 2 * 2.0**-8, f"two-stage engine: top-1 score off 1.0 by {top1_err}")
+    check(launches >= 1, "two-stage engine: K4 never launched")
+
+    # K4 against its plain version on the engine's own codes
+    idx = eng.index
+    ci = idx._codes_index
+    qn = idx._rows(eng.embed(data[:256], out="device"))  # as search() takes them
+    q = torch.nn.functional.pad(idx._codes(qn), (0, ci.bits_pad - ci.n_bits))
+    used = -(-ci.size // ci.block_rows) * (ci.block_rows // 32)
+    words = ci._buf[:used]
+    ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max(q, words, ci.size), 10)
+    plain_ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max_ref(
+        q, words, ci.size), 10)
+    s, bm = packed.packed_scores_with_bucket_max(q, words, ci.size)
+    s_ref, bm_ref = packed.packed_scores_with_bucket_max_ref(q, words, ci.size)
+    check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+          "two-stage engine: K4 differs from its plain version on the engine's codes")
+    print(f"two-stage engine Config() itq {ci.n_bits} bits (fit {fit_s:.1f} s), pool 512: "
+          f"ingest {len(data)} sessions {ingest_s:.2f} s ({len(data) / ingest_s:.0f} "
+          f"sessions/s); search 256 k=100 {search_s * 1e3:.1f} ms; top-1 |score-1| max "
+          f"{top1_err:.3g}, self-hit ids {float((I[:, 0] == np.arange(256)).mean()):.4f}; "
+          f"K4 launches {launches}; engine's codes q=256 n={used * 32}, kernel {ms:.4f} "
+          f"ms vs plain {plain_ms:.4f} ms, scores and bmax equal")
+    print(f"two-stage engine stats: {json.dumps(eng.stats())}")
+    return launches
 
 
 def main() -> int:
@@ -370,27 +677,49 @@ def main() -> int:
     for line in (info or {}).get("ptxas", []):
         print(f"  {line}")
 
+    from sessionsimilaritysearch_tpu import native
+    from sessionsimilaritysearch_tpu_torch import native_build
+
+    native_kind = native_build.ensure_native_library()
+    check(native.load() is not None,
+          f"the native graph builder did not load ({native_kind} build)")
+    print(f"native graph builder: loaded ({native_kind} build)")
+
     err_ragged = run_phase(torch, "kernel ragged", phase_kernel_ragged,
                            torch, mips, topk_mod, dev)
     err_bench, ms, plain_ms = run_phase(torch, "kernel bench point",
                                         phase_kernel_bench, torch, mips,
                                         topk_mod, dev)
     err_index = run_phase(torch, "index", phase_index, torch, mips, topk_mod, dev)
-    launches, err_engine = run_phase(torch, "engine", phase_engine, torch, mips,
-                                     topk_mod, dev)
+    launches, err_engine, parts = run_phase(torch, "engine", phase_engine, torch,
+                                            mips, topk_mod, dev)
+    k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
+    k5 = run_phase(torch, "hamming kernel", phase_hamming_kernel, torch, dev,
+                   bench, k4["ms"])
+    del bench
+    run_phase(torch, "binary index", phase_binary_index, torch, dev)
+    run_phase(torch, "two-stage index", phase_twostage_index, torch, dev)
+    k4_launches = run_phase(torch, "two-stage engine", phase_twostage_engine,
+                            torch, dev, parts)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules),
           "JAX was imported")
-    print(json.dumps({"kernels": [{
-        "name": "scores_bmax",
-        "route": "cuda",
-        "source": "sessionsimilaritysearch_tpu_torch/csrc/scores_bmax.cu",
-        "replaces": "sessionsimilaritysearch_tpu/ops/pallas_mips.py:144",
-        "launches": launches,
-        "max_abs_err": max(err_ragged, err_bench, err_index, err_engine),
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    src = "sessionsimilaritysearch_tpu_torch/csrc/"
+    tpu = "sessionsimilaritysearch_tpu/ops/pallas_mips.py:"
+    print(json.dumps({"kernels": [
+        {"name": "scores_bmax", "route": "cuda", "source": src + "scores_bmax.cu",
+         "replaces": tpu + "144", "launches": launches,
+         "max_abs_err": max(err_ragged, err_bench, err_index, err_engine),
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "packed_scores_bmax", "route": "cuda",
+         "source": src + "packed_scores_bmax.cu", "replaces": tpu + "863",
+         "launches": k4_launches, "max_abs_err": k4["err"], "ms": k4["ms"],
+         "plain_ms": k4["plain_ms"]},
+        {"name": "hamming_bucket_min", "route": "cuda",
+         "source": src + "hamming_bucket_min.cu", "replaces": tpu + "619",
+         "launches": k5["launches"], "max_abs_err": k5["err"], "ms": k5["ms"],
+         "plain_ms": k5["plain_ms"]},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

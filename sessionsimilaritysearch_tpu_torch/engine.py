@@ -1,8 +1,9 @@
-"""SessionSearchEngine: the serving facade, single-GPU dense path
-(counterpart of ``sessionsimilaritysearch_tpu/engine.py:151``).
+"""SessionSearchEngine: the serving facade on one GPU (counterpart of
+``sessionsimilaritysearch_tpu/engine.py:151``).
 
-Encode sessions with the encoder, keep the embedding corpus as a flat
-``DenseIndex`` on the device, stream-insert new sessions, answer exact top-k
+Encode sessions with the encoder, keep the embedding corpus on the device
+(a flat ``DenseIndex``, or a ``TwoStageIndex`` with a packed binary
+prefilter), stream-insert new sessions, answer top-k
 queries (optionally deduplicated and filtered by a session predicate), and
 report timing counters. The per-row metadata helpers (``_session_key``,
 ``_GrowArr``, ``_dedup_topk``, ``_where_mask``) are copied
@@ -23,6 +24,7 @@ from sessionsimilaritysearch_tpu.evalharness import metrics as metrics_mod
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.evalharness.harness import EmbeddingPipeline
 from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
+from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
 from sessionsimilaritysearch_tpu_torch.utils.profiling import PhaseTimer
 
 
@@ -74,10 +76,20 @@ class SessionSearchEngine:
         device); required, with no fallback.
       metric: 'cos' or 'ip'.
       batch_size: encoder batch (the last batch is wrap-padded).
-      dtype: corpus storage dtype (float32 default, or bfloat16).
-    The JAX engine's mesh, prefilter, quantize and center options are not
-    ported yet, and neither are hybrid fusion, async ingest, removal,
-    expiry, range search or save/restore (ROADMAP.md Queue 1 item 5).
+      prefilter: None (a flat ``DenseIndex``) or 'binary' / 'itq' -- two-stage
+        serving (``index.twostage.TwoStageIndex``): an exact Hamming top-
+        ``pool`` over packed sign codes, then an exact re-rank of the pool
+        at full width. Needs ``stage1='packed'``; 'matmul', 'int8x8' and
+        'pca' are not ported (ROADMAP.md Queue 1 item 2).
+      pool: stage-1 candidates per query (two-stage mode).
+      projector: fitted ITQ projector for ``prefilter='itq'``
+        (``ops.projection.fit_itq``, or the JAX package's as it is).
+      stage1: two-stage code scan; only 'packed' is ported.
+      dtype: corpus storage dtype; None keeps each index's default (float32
+        dense, bfloat16 for the two-stage full-width rows).
+    The JAX engine's mesh, quantize and center options are not ported yet,
+    and neither are hybrid fusion, async ingest, removal, expiry, range
+    search or save/restore (ROADMAP.md Queue 1 item 5).
     """
 
     def __init__(
@@ -91,7 +103,11 @@ class SessionSearchEngine:
         device,
         metric: str = "cos",
         batch_size: int = 256,
-        dtype: torch.dtype = torch.float32,
+        prefilter: Optional[str] = None,
+        pool: int = 512,
+        projector=None,
+        stage1: str = "matmul",
+        dtype: Optional[torch.dtype] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -103,10 +119,18 @@ class SessionSearchEngine:
         # canonical content id per inserted session, for query-time dedup
         self._key_to_id: dict = {}
         self._canon_ids = _GrowArr(np.int64)
-        self.index = DenseIndex(
-            dim=dim, capacity=capacity, device=self.device, metric=metric,
-            dtype=dtype,
-        )
+        if prefilter is None:
+            self.index = DenseIndex(
+                dim=dim, capacity=capacity, device=self.device, metric=metric,
+                **({} if dtype is None else {"dtype": dtype}),
+            )
+        else:
+            self.index = TwoStageIndex(
+                dim=dim, capacity=capacity, device=self.device, metric=metric,
+                prefilter=prefilter, pool=pool, projector=projector,
+                stage1=stage1,
+                **({} if dtype is None else {"store_dtype": dtype}),
+            )
 
     # ------------------------------------------------------------------
     def embed(self, data: Sequence, out: str = "np"):

@@ -13,6 +13,7 @@ from sessionsimilaritysearch_tpu.config import Config
 from sessionsimilaritysearch_tpu.data.graph import SessionGraph
 from sessionsimilaritysearch_tpu.data.loader import SessionGraphLoader
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
+from sessionsimilaritysearch_tpu_torch.native_build import ensure_native_library
 
 
 def to_device(batch: SessionGraph, device: torch.device) -> SessionGraph:
@@ -42,6 +43,7 @@ class EmbeddingPipeline:
         self.encode_fn = encode_fn
         self.device = resolve_device(device)
         self.batch_size = batch_size
+        ensure_native_library()  # before the loader first loads it
 
     def __call__(self, data: Sequence, out: str = "np"):
         """``data``: (prefix, future) pairs or bare sessions. ``out``: 'np'

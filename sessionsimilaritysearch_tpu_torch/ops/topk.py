@@ -1,7 +1,8 @@
 """Top-k helpers of the exact search, and the numpy oracle that gates it.
 
 Counterparts of ``sessionsimilaritysearch_tpu/ops/topk.py``: ``l2_normalize``
-(:31) and ``merge_topk`` (:38) as torch ops; ``oracle_topk_np``,
+(:31), ``merge_topk`` (:38) and ``rerank_topk`` (:357) as torch ops;
+``oracle_topk_np``,
 ``recall_at_k``, ``value_recall_at_k`` and ``value_recall_from_scores``
 (:459-557) copied as they are, since they are numpy functions in a module
 that imports JAX.
@@ -35,6 +36,51 @@ def merge_topk(
     idx = torch.cat([idx_a, idx_b], dim=-1)
     top_vals, top_pos = torch.topk(vals, k, dim=-1)
     return top_vals, torch.gather(idx, -1, top_pos)
+
+
+def rerank_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    cand_idx: torch.Tensor,
+    k: int,
+    metric: str = "ip",
+    corpus_scales=None,
+    q_chunk: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-scoring of per-query candidate pools (stage 2 of two-stage
+    serving, ``ops/topk.py:357``): gather each query's ``pool`` rows from the
+    full-precision corpus and rank them by an f32 product (TF32 off), in
+    tiles of ``q_chunk`` queries so the gathered [q_chunk, pool, d] block
+    stays bounded.
+
+    queries: [q, d] (normalized by the caller for 'cos'); corpus: [n, d];
+    cand_idx: [q, pool] ids, -1 for missing slots. Returns (values [q, k]
+    f32 descending, ids [q, k] int64); missing slots are (-inf, -1).
+    ``metric='l2'`` and int8 ``corpus_scales`` are not ported yet (ROADMAP.md
+    Queue 1 item 2)."""
+    if metric == "l2" or corpus_scales is not None:
+        what = "metric='l2'" if metric == "l2" else "corpus_scales"
+        raise NotImplementedError(
+            f"rerank_topk {what} is not ported yet (ROADMAP.md Queue 1 item 2)"
+        )
+    if metric not in ("ip", "cos"):
+        raise ValueError(f"unknown metric {metric!r}")
+    q, pool = cand_idx.shape
+    kk = min(k, pool)
+    vals = torch.empty((q, kk), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((q, kk), dtype=torch.int64, device=queries.device)
+    for s in range(0, q, q_chunk):
+        c = cand_idx[s: s + q_chunk].to(torch.int64)
+        rows = corpus[c.clamp(min=0)].float()                    # [qc, pool, d]
+        scores = torch.bmm(rows, queries[s: s + q_chunk].float()[..., None])[..., 0]
+        scores = scores.masked_fill(c < 0, float("-inf"))
+        v, pos = torch.topk(scores, kk, dim=1)
+        vals[s: s + q_chunk] = v
+        idx[s: s + q_chunk] = torch.gather(c, 1, pos).masked_fill(~torch.isfinite(v), -1)
+    if kk < k:
+        vals = torch.nn.functional.pad(vals, (0, k - kk), value=float("-inf"))
+        idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
+    return vals, idx
 
 
 def oracle_topk_np(

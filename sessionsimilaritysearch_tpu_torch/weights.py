@@ -1,6 +1,7 @@
-"""Flax parameters of the JAX package -> ``state_dict`` of the port.
+"""State of the JAX package -> the port: the encoder's Flax parameters as a
+``state_dict``, and the two-stage index's SimHash projection.
 
-Input: the params pytree of ``sessionsimilaritysearch_tpu.models``' Flax
+The encoder's input is the params pytree of ``sessionsimilaritysearch_tpu.models``' Flax
 ``GraphLevelEncoder`` with numpy leaves, i.e.
 ``jax.tree.map(np.asarray, enc.init(...))`` (with or without the top-level
 ``'params'`` collection). Output: a ``state_dict`` for the port's
@@ -74,3 +75,17 @@ def flax_to_state_dict(params) -> Dict[str, torch.Tensor]:
         arr = np.asarray(arr, np.float32)
         out[torch_key(path)] = torch.tensor(arr.T if path[-1] == "kernel" else arr)
     return out
+
+
+def simhash_projection(jax_projection) -> torch.Tensor:
+    """The JAX ``TwoStageIndex(prefilter='binary')`` projection, i.e.
+    ``np.asarray(jax.random.normal(PRNGKey(seed), (d, n_bits)))``
+    (``index/twostage.py:53``), as the float32 [d, n_bits] tensor the port's
+    ``TwoStageIndex(projection=...)`` takes. torch cannot draw JAX's random
+    stream, so an index that must reproduce the JAX codes is given this
+    array. A JAX snapshot stores only the seed (``twostage.py:408``): to load
+    one, the projection has to be carried across too."""
+    arr = np.asarray(jax_projection, np.float32)
+    if arr.ndim != 2:
+        raise ValueError(f"projection must be [d, n_bits], got {arr.shape}")
+    return torch.from_numpy(arr.copy())

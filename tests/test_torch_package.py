@@ -30,8 +30,10 @@ def _port_modules():
 
 def test_port_never_imports_jax():
     mods = _port_modules()
-    assert "sessionsimilaritysearch_tpu_torch.engine" in mods
-    assert "sessionsimilaritysearch_tpu_torch.weights" in mods
+    for name in ("engine", "weights", "native_build", "index.binary",
+                 "index.twostage", "ops.hamming", "ops.packed", "ops.popcount",
+                 "ops.projection"):
+        assert f"sessionsimilaritysearch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -91,7 +93,8 @@ def test_library_path_is_keyed_on_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libsss_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()  # stable for unchanged sources
-    assert (_build.CSRC / "scores_bmax.cu").exists()
+    for src in ("scores_bmax.cu", "packed_scores_bmax.cu", "hamming_bucket_min.cu"):
+        assert (_build.CSRC / src).exists()
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -11,19 +11,21 @@ stores."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 import __graft_entry__
 from sessionsimilaritysearch_tpu.config import tiny_test_config
 from sessionsimilaritysearch_tpu.data.synthetic import SyntheticSessionGenerator
 from sessionsimilaritysearch_tpu.engine import SessionSearchEngine as JaxEngine
 from sessionsimilaritysearch_tpu.models import build_graph_encoder as flax_build
+from sessionsimilaritysearch_tpu.ops.projection import fit_itq
 from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
 from sessionsimilaritysearch_tpu_torch.engine import (
     SessionSearchEngine,
     _session_key,
 )
 from sessionsimilaritysearch_tpu_torch.models.encoder import build_graph_encoder
-from sessionsimilaritysearch_tpu_torch.ops import mips
+from sessionsimilaritysearch_tpu_torch.ops import mips, packed
 from sessionsimilaritysearch_tpu_torch.ops.topk import value_recall_at_k
 from sessionsimilaritysearch_tpu_torch.weights import flax_to_state_dict
 
@@ -126,9 +128,35 @@ def test_where_filter(parts):
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"quantize": "int8"},
                                 {"prefilter": "binary"}, {"center": "auto"}])
 def test_unported_engine_options_raise(parts, kw):
-    # the port's engine has no such options yet: a call that sets one is
-    # rejected, never served by the plain dense path
+    # the port's engine has no mesh, quantize or center options yet: a call
+    # that sets one is rejected, never served by the plain dense path; a
+    # prefilter with the default stage1='matmul' (approximate selection)
+    # raises naming its ROADMAP item
     cfg, tok, _, _, tenc = parts
-    with pytest.raises(TypeError, match=next(iter(kw))):
+    err, match = ((NotImplementedError, "Queue 1 item 2") if "prefilter" in kw
+                  else (TypeError, next(iter(kw))))
+    with pytest.raises(err, match=match):
         SessionSearchEngine(cfg, tok, tenc, dim=cfg.session_emb_dim,
                             capacity=8, device="cpu", **kw)
+
+
+def test_twostage_itq_engine_matches_jax(parts):
+    # both engines serve prefilter='itq', stage1='packed' with one projector,
+    # fitted by the JAX fit_itq on the JAX embeddings; the pool holds the
+    # whole corpus, so both return the exact dense result over bf16 rows
+    cfg, tok, data, encode_fn, tenc = parts
+    emb = JaxEngine(cfg, tok, encode_fn, dim=cfg.session_emb_dim, capacity=64,
+                    batch_size=8).embed(data)
+    proj = fit_itq(emb / np.linalg.norm(emb, axis=1, keepdims=True), 32)
+    kw = dict(dim=cfg.session_emb_dim, capacity=64, batch_size=8,
+              prefilter="itq", stage1="packed", projector=proj, pool=64)
+    j = JaxEngine(cfg, tok, encode_fn, **kw)
+    t = SessionSearchEngine(cfg, tok, tenc, device="cpu", **kw)
+    j.add_sessions(data)
+    t.add_sessions(data)
+    assert t.index.store_dtype == torch.bfloat16  # dtype=None: the default
+    Dj, Ij = j.search(data[:10], k=5)
+    Dt, It = t.search(data[:10], k=5)
+    np.testing.assert_allclose(Dt, Dj, atol=TOL, rtol=0)
+    np.testing.assert_array_equal(It[:, 0], np.arange(10))  # self top-1
+    assert packed.launch_count == 0  # CPU tensors take the plain version
