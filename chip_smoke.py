@@ -49,14 +49,46 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                prefilter='itq', stage1='packed', pool=512 (projector fitted
                on phase 4's 8,192 embeddings): ingest, search 256 sessions,
                top-1 within two bf16 ulps of 1.0, K4 launched, K4 against its
-               plain version on the engine's own codes.
+               plain version on the engine's own codes;
+10. int8 kernel -- K2 (csrc/scores_bmax_int8.cu) against its plain version:
+               a ragged case (q=37, n=5003, d=200, valid_count 4037, 10%
+               masked; f32 and bf16 scores) and the bench point (q=1024,
+               n=2^20, d=1600 int8; bf16 and f32 scores); scores and bucket
+               maxes equal; CUDA-event times beside torch._int_mm;
+11. int8 index -- DenseIndex(1600, 2^20) with quantize='int8x8' and 'int8'
+               filled with the same 2^20 seeded rows, 1024 queries planted at
+               cosine ~0.9 to stored rows, k=100: every planted row top-1, K2
+               launched once per chunk (int8x8; never for int8),
+               value-recall@10 >= 0.999 against the f64 oracle over the
+               dequantized rows and query codes, K2 equal to its plain
+               version on one 65,536-row chunk; best-of-3 search times;
+12. int8x8 engine -- SessionSearchEngine at Config() width with
+               quantize='int8x8' (phase 4's encoder and sessions): ingest,
+               search 256 sessions, top-1 within the int8 rounding bound of
+               1.0, K2 launched once per chunk and equal to its plain version
+               on the engine's own codes;
+13. bucket max kernel -- K3 (csrc/bucket_max.cu) against its plain version
+               on a ragged case, then mips.bucketed_topk at q=8 and 64,
+               n=2^20, d=1600 bf16, k=100: values within 1e-5 relative of
+               mips.exact_topk's (f32 scores), value-recall@10 1.0, times
+               beside exact_topk's;
+14. scores matmul kernel -- K6 (csrc/scores_matmul.cu) against its plain
+               version on a ragged case and at q=1024, n=2^20, d=1600 bf16
+               -> f32 (max_abs_err <= 1e-5 on unit rows), beside one cuBLAS
+               GEMM with f32 output.
 
 Before phase 4 the shared native graph builder must load (built without
 OpenMP where the compiler has no OpenMP runtime; the build used is printed).
-The second-to-last line is a JSON object describing each kernel, with the
-launches counted on its path (K1: phase 4's engine; K4: phase 9's engine;
-K5: phase 6's hamming_topk); the last line is
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero.
+The second-to-last line is a JSON object describing each of the six
+kernels: the launches counted on its path (K1: phase 4's engine; K4: phase
+9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine; K3: phase
+13's bucketed_topk; K6: phase 14's scores_matmul), its largest error
+against its plain version, its time, the plain version's, the bound (the
+larger of bytes over 3.35 TB/s and operations over the published peak of
+their type; K5's popcounts at 16 per clock per SM at the card's maximum SM
+clock) and the time of one library call computing the same product (null
+where there is none). The last line is ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -71,6 +103,13 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 2 * 2.0**-8  # two bf16 ulps, relative to the per-query scale
+# published H100 SXM peaks (dense, at the 700 W limit): bytes and operations
+# per second; a kernel's bound is the larger of its bytes and its operations
+# over these
+PEAK_BYTES = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+SMS = 132
 
 
 def check(cond: bool, what: str) -> None:
@@ -92,6 +131,34 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, ops: float, ops_rate: float) -> dict:
+    """The least time the card could take: the bytes moved (each input read
+    once, each output written once) over the memory rate, or the operations
+    over their peak rate, whichever is larger."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES * 1e3, ops / ops_rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.split()
+    check(bool(out), "nvidia-smi did not read the SM clock")
+    return float(out[0]) * 1e6
+
+
+def unit_rows(torch, g, n, d, dev):
+    """n seeded unit rows [n, d] in bf16, drawn 65,536 at a time."""
+    rows = torch.empty(n, d, dtype=torch.bfloat16, device=dev)
+    for s in range(0, n, 1 << 16):
+        r = torch.randn(min(1 << 16, n - s), d, generator=g, device=dev)
+        rows[s: s + len(r)] = (r / r.norm(dim=1, keepdim=True)).bfloat16()
+    return rows
 
 
 def run_phase(torch, name, fn, *args):
@@ -181,6 +248,9 @@ def phase_kernel_bench(torch, mips, topk_mod, dev):
         queries, corpus, score_dtype=bf), 5)
     plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(
         queries, corpus, score_dtype=bf), 3)
+    # the library yardstick: one cuBLAS bf16 GEMM of the same operands (its
+    # bf16 output has no mask and no bucket max)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(queries, corpus.T), 5)
     s, bm = mips.scores_with_bucket_max(queries, corpus, score_dtype=bf)
     s_ref, bm_ref = mips.scores_with_bucket_max_ref(queries, corpus, score_dtype=bf)
     torch.cuda.synchronize()
@@ -202,12 +272,15 @@ def phase_kernel_bench(torch, mips, topk_mod, dev):
     check(v_err <= 2.0**-8, f"bench point: top-{k} values max_abs_err {v_err}")
     check(rec == 1.0, f"bench point: value-recall@{k} {rec}")
     print(f"kernel bench point q={q_n} n={n} d={d} bf16->bf16: kernel {ms:.3f} ms "
-          f"({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms; bmax max_abs_err "
+          f"({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS bf16 GEMM "
+          f"{lib_ms:.3f} ms; bmax max_abs_err "
           f"{bm_err:.3g}, scores max_abs_err {s_err:.3g}, top-{k} max_abs_err "
           f"{v_err:.3g}, value-recall@{k} {rec}")
     del corpus, queries
     torch.cuda.empty_cache()
-    return bm_err, ms, plain_ms
+    bound = bound_ms(q_n * d * 2 + n * d * 2 + q_n * n * 2 + q_n * (n // 128) * 4,
+                     2 * q_n * n * d, PEAK_BF16)
+    return bm_err, {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bound}
 
 
 def phase_index(torch, mips, topk_mod, dev):
@@ -423,6 +496,10 @@ def phase_packed_kernel(torch, dev):
     q, words, q_rows, c_rows = packed_case(torch, hamming, g, q_n, n, n_bits, dev)
     ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max(q, words), 5)
     plain_ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max_ref(q, words), 3)
+    # the library yardstick: a cuBLAS bf16 GEMM with the unpacked +-1 rows
+    rows = packed.unpack_bits_t(words)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(q, rows.T), 5)
+    del rows
     s, bm = packed.packed_scores_with_bucket_max(q, words)
     s_ref, bm_ref = packed.packed_scores_with_bucket_max_ref(q, words)
     check(torch.equal(s, s_ref), "packed bench point: scores differ")
@@ -434,10 +511,13 @@ def phase_packed_kernel(torch, dev):
     check(torch.equal(d, d_ref), "packed bench point: top-100 distances differ")
     tflops = 2 * q_n * n * n_bits / (ms * 1e-3) / 1e12
     print(f"packed kernel bench point q={q_n} n={n} {n_bits} bits bf16 scores: kernel "
-          f"{ms:.3f} ms ({tflops:.1f} TFLOP/s of +-1 products), plain {plain_ms:.3f} ms; "
-          f"scores, bmax and top-100 distances equal")
+          f"{ms:.3f} ms ({tflops:.1f} TFLOP/s of +-1 products), plain {plain_ms:.3f} ms, "
+          f"cuBLAS bf16 GEMM on the unpacked rows {lib_ms:.3f} ms; scores, bmax and "
+          f"top-100 distances equal")
     torch.cuda.empty_cache()
-    out.update(err=max(errs), ms=ms, plain_ms=plain_ms)
+    out.update(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **bound_ms(q_n * n_bits * 2 + n * n_bits // 8 + q_n * n * 2
+                          + q_n * (n // 128) * 4, 2 * q_n * n * n_bits, PEAK_BF16))
     return out, (q_rows, c_rows, d)
 
 
@@ -483,9 +563,15 @@ def phase_hamming_kernel(torch, dev, bench, k4_ms):
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K4 at the same shape {k4_ms:.3f} ms; "
           f"bmin equal; hamming_topk k=100 {topk_s * 1e3:.1f} ms, {launches} launch, "
           f"distances equal K4's")
+    q_n, n, words = q.shape[0], c.shape[0], c.shape[1]
     del bench, c
     torch.cuda.empty_cache()
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches}
+    # bound: one XOR + popcount per word pair, at 16 popcounts per clock per SM
+    popc_rate = 16 * SMS * sm_clock_hz()
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches,
+            "library_ms": None,
+            **bound_ms((q_n + n) * words * 4 + q_n * (n // 128) * 4,
+                       q_n * n * words, popc_rate)}
 
 
 def phase_binary_index(torch, dev):
@@ -639,6 +725,325 @@ def phase_twostage_engine(torch, dev, parts):
     print(f"two-stage engine stats: {json.dumps(eng.stats())}")
     return launches
 
+def int8_case(torch, mips_int8, g, q_n, n, d, dev):
+    """Seeded int8 codes and scales: unit rows quantized per row."""
+    codes = torch.empty(n, d, dtype=torch.int8, device=dev)
+    scales = torch.empty(n, dtype=torch.float32, device=dev)
+    for s in range(0, n, 1 << 16):
+        r = torch.randn(min(1 << 16, n - s), d, generator=g, device=dev)
+        codes[s: s + len(r)], scales[s: s + len(r)] = mips_int8.quantize_rows_int8(
+            r / r.norm(dim=1, keepdim=True))
+    q = torch.randn(q_n, d, generator=g, device=dev)
+    q_codes, _ = mips_int8.quantize_rows_int8(q / q.norm(dim=1, keepdim=True))
+    return q_codes, codes, scales
+
+
+def phase_int8_kernel(torch, dev):
+    from sessionsimilaritysearch_tpu_torch.ops import mips_int8
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    for sd in (torch.float32, torch.bfloat16):
+        q, c, sc = int8_case(torch, mips_int8, g, 37, 5003, 200, dev)
+        pen = torch.where(torch.rand(5003, generator=g, device=dev) < 0.1,
+                          float("-inf"), 0.0)
+        ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8(
+            q, c, sc, 4037, pen, sd), 20)
+        plain_ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8_ref(
+            q, c, sc, 4037, pen, sd), 20)
+        s, bm = mips_int8.scores_with_bucket_max_int8(q, c, sc, 4037, pen, sd)
+        s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q, c, sc, 4037, pen, sd)
+        # exact int32 dots on both sides, then the same two f32 roundings
+        check(torch.equal(s, s_ref), f"int8 ragged {sd}: scores differ")
+        check(torch.equal(bm, bm_ref), f"int8 ragged {sd}: bmax differs")
+        print(f"int8 kernel ragged q=37 n=5003 d=200 {str(sd)[6:]} scores (valid_count "
+              f"4037, 10% masked): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; scores "
+              f"and bmax equal")
+
+    q_n, n, d = 1024, 1 << 20, 1600
+    q, c, sc = int8_case(torch, mips_int8, g, q_n, n, d, dev)
+    out = {"err": 0.0}
+    for sd in (torch.bfloat16, torch.float32):
+        ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8(
+            q, c, sc, score_dtype=sd), 5)
+        plain_ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8_ref(
+            q, c, sc, score_dtype=sd), 2)
+        s, bm = mips_int8.scores_with_bucket_max_int8(q, c, sc, score_dtype=sd)
+        s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q, c, sc, score_dtype=sd)
+        check(torch.equal(s, s_ref), f"int8 bench point {sd}: scores differ")
+        check(torch.equal(bm, bm_ref), f"int8 bench point {sd}: bmax differs")
+        del s, s_ref, bm, bm_ref
+        tops = 2 * q_n * n * d / (ms * 1e-3) / 1e12
+        print(f"int8 kernel bench point q={q_n} n={n} d={d} int8 -> {str(sd)[6:]} scores: "
+              f"kernel {ms:.3f} ms ({tops:.1f} TOP/s), plain {plain_ms:.3f} ms; scores "
+              f"and bmax equal")
+        out[str(sd)[6:]] = {"ms": ms, "plain_ms": plain_ms}
+    # the library yardstick: torch._int_mm of the same codes, int32 out
+    lib_ms = cuda_ms(torch, lambda: torch._int_mm(q, c.T), 5)
+    print(f"int8 bench point: torch._int_mm (int32 out) {lib_ms:.3f} ms")
+    del q, c, sc
+    torch.cuda.empty_cache()
+    # the main path (the int8x8 engine) stores f32 scores
+    out.update(out.pop("float32"), library_ms=lib_ms,
+               **bound_ms(q_n * d + n * d + n * 4 + q_n * n * 4 + q_n * (n // 128) * 4,
+                          2 * q_n * n * d, PEAK_INT8))
+    return out
+
+
+def oracle_topk(torch, q, rows_of, n, k, step=1 << 16):
+    """f64 top-k values of q [m, d] against n rows, ``rows_of(lo, hi)``
+    giving rows [lo, hi) in f64, 65,536 at a time."""
+    best = None
+    for lo in range(0, n, step):
+        s = q @ rows_of(lo, min(lo + step, n)).T
+        best = s if best is None else torch.cat([best, s], dim=1)
+        best = torch.topk(best, k, dim=1).values
+    return best
+
+
+def phase_int8_index(torch, topk_mod, dev):
+    from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
+    from sessionsimilaritysearch_tpu_torch.ops import mips_int8
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+
+    n, d, q_n, k = 1 << 20, 1600, 1024, 100
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = {m: DenseIndex(d, n, device=dev, quantize=m) for m in ("int8x8", "int8")}
+    t0 = time.perf_counter()
+    for s in range(0, n, 1 << 16):
+        r = torch.randn(min(1 << 16, n - s), d, generator=g, device=dev)
+        for i in idx.values():
+            i.add(r)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    x8 = idx["int8x8"]
+    planted = torch.arange(q_n, device=dev) * (n // q_n) + 7
+    # cosine ~0.9 to the planted row (as stored, dequantized) plus noise
+    rows = x8._buf[planted].float() * x8._scales[planted][:, None]
+    noise = torch.randn(q_n, d, generator=g, device=dev)
+    queries = (rows / rows.norm(dim=1, keepdim=True)
+               + 0.4843 * noise / noise.norm(dim=1, keepdim=True))
+
+    res = {}
+    for name, i in idx.items():
+        i.search(queries, k)  # warm-up
+        mips_int8.launch_count = 0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            D, I = i.search(queries, k)  # numpy: includes the sync
+            times.append(time.perf_counter() - t0)
+        launches = mips_int8.launch_count
+        check(np.isfinite(D).all() and (np.diff(D, axis=1) <= 0).all(),
+              f"{name} index: scores not finite and descending")
+        hits = float((I[:, 0] == planted.cpu().numpy()).mean())
+        check(hits == 1.0, f"{name} index: planted rows at top-1 {hits}")
+        res[name] = (min(times), launches, D, I, hits)
+    chunks = -(-n // x8.chunk_size)
+    check(res["int8x8"][1] == 3 * chunks,
+          f"int8x8 index: {res['int8x8'][1]} K2 launches in 3 searches of {chunks} chunks")
+    check(res["int8"][1] == 0, "int8 index: the bf16 x int8 scan launched K2")
+
+    # value-recall@10 of int8x8 against the f64 oracle over the dequantized
+    # rows and the dequantized query codes (what the index ranks exactly)
+    qb = l2_normalize(queries.bfloat16()).bfloat16()
+    q_codes, q_scales = mips_int8.quantize_rows_int8(qb)
+    q_deq = q_codes.double() * q_scales.double()[:, None]
+
+    def deq(lo, hi):
+        return x8._buf[lo:hi].double() * x8._scales[lo:hi].double()[:, None]
+
+    oracle = oracle_topk(torch, q_deq, deq, n, 10)
+    I8 = torch.from_numpy(res["int8x8"][3][:, :10]).to(dev)
+    got = (q_deq[:, None, :] * (x8._buf[I8].double()
+                                * x8._scales[I8].double()[..., None])).sum(-1)
+    rec = topk_mod.value_recall_from_scores(
+        got.cpu().numpy(), oracle.cpu().numpy(), 1e-5 * oracle[:, 0].abs().cpu().numpy())
+    check(rec >= 0.999, f"int8x8 index: value-recall@10 {rec}")
+
+    # K2 against its plain version on one chunk as search() passes it
+    chunk = slice(0, x8.chunk_size)
+    s, bm = mips_int8.scores_with_bucket_max_int8(q_codes, x8._buf[chunk],
+                                                  x8._scales[chunk])
+    s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q_codes, x8._buf[chunk],
+                                                              x8._scales[chunk])
+    check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+          "int8x8 index chunk: K2 differs from its plain version")
+    for name, (best, launches, _, _, hits) in res.items():
+        print(f"{name} index 2^20 x {d} (fill both {fill_s:.2f} s): search {q_n} queries "
+              f"k={k} {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS), "
+              f"{launches} K2 launches in 3 searches; planted top-1 {hits}")
+    print(f"int8x8 index: value-recall@10 {rec} against the f64 oracle over the "
+          f"dequantized rows; one {x8.chunk_size}-row chunk: K2 scores and bmax equal "
+          f"its plain version's")
+    del idx, x8, s, s_ref
+    torch.cuda.empty_cache()
+
+
+def phase_int8_engine(torch, dev, parts):
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.ops import mips_int8
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+
+    cfg, tok, enc, data, _ = parts
+    eng = port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,
+                                   capacity=65536, device=dev, quantize="int8x8")
+    mips_int8.launch_count = 0  # count the path's launches from ingest on
+    t0 = time.perf_counter()
+    eng.add_sessions(data)
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    D, I = eng.search(data[:256], k=100)
+    search_s = time.perf_counter() - t0
+    launches = mips_int8.launch_count
+    idx = eng.index
+    check(idx.ntotal == len(data), f"int8x8 engine: ntotal {idx.ntotal}")
+    check(D.shape == (256, 100) and np.isfinite(D).all(), "int8x8 engine: bad result")
+    check(launches == -(-idx.ntotal // idx.chunk_size),
+          f"int8x8 engine: {launches} K2 launches")
+    # a session's own row: its stored codes and its query codes each carry a
+    # rounding error of norm <= sqrt(d) * step / 2 (step = the row's scale);
+    # with unit rows the score is off 1.0 by at most their sum and product,
+    # plus the bf16 rounding of the query (2^-8 relative)
+    qb = l2_normalize(eng.embed(data[:256], out="device").bfloat16()).bfloat16()
+    q_codes, q_scales = mips_int8.quantize_rows_int8(qb)
+    e = np.sqrt(cfg.session_emb_dim) / 2 * float(
+        torch.maximum(q_scales.max(), idx._scales[: idx.ntotal].max()))
+    tol = 2 * e + e * e + 2.0**-8
+    top1_err = float(np.abs(D[:, 0] - 1.0).max())
+    check(top1_err <= tol, f"int8x8 engine: top-1 score off 1.0 by {top1_err} > {tol}")
+
+    # K2 against its plain version on the engine's own codes
+    codes, scales = idx._buf[: idx.ntotal], idx._scales[: idx.ntotal]
+    ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8(
+        q_codes, codes, scales), 10)
+    plain_ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8_ref(
+        q_codes, codes, scales), 10)
+    s, bm = mips_int8.scores_with_bucket_max_int8(q_codes, codes, scales)
+    s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q_codes, codes, scales)
+    check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+          "int8x8 engine: K2 differs from its plain version on the engine's codes")
+    print(f"int8x8 engine Config(): ingest {len(data)} sessions {ingest_s:.2f} s "
+          f"({len(data) / ingest_s:.0f} sessions/s); search 256 k=100 "
+          f"{search_s * 1e3:.1f} ms; top-1 |score-1| max {top1_err:.3g} (tolerance "
+          f"{tol:.3g}), self-hit ids {float((I[:, 0] == np.arange(256)).mean()):.4f}; "
+          f"K2 launches {launches}; engine's codes q=256 n={idx.ntotal}, kernel "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, scores and bmax equal")
+    print(f"int8x8 engine stats: {json.dumps(eng.stats())}")
+    return launches
+
+
+def phase_bucket_max(torch, topk_mod, dev):
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(37, 200, generator=g, device=dev).to(dt)
+        c = torch.randn(5003, 200, generator=g, device=dev).to(dt)
+        bm = mips.scores_bucket_max(q, c, 4037)
+        bm_ref = mips.scores_bucket_max_ref(q, c, 4037)
+        check(torch.equal(torch.isneginf(bm), torch.isneginf(bm_ref)),
+              f"bucket max ragged {dt}: -inf pattern differs")
+        fin = torch.isfinite(bm_ref)
+        err = (bm[fin] - bm_ref[fin]).abs().max().item()
+        # f32 sums of 200 terms (|s| ~ 15) in another order
+        check(err <= 1e-3, f"bucket max ragged {dt}: max_abs_err {err}")
+        errs.append(err)
+        print(f"bucket max kernel ragged q=37 n=5003 d=200 {str(dt)[6:]} (valid_count "
+              f"4037): bmax max_abs_err {err:.3g}")
+
+    n, d, k = 1 << 20, 1600, 100
+    corpus = unit_rows(torch, g, n, d, dev)
+    queries = unit_rows(torch, g, 64, d, dev)
+    out = {}
+    mips.bucket_max_launch_count = 0  # K3's path: bucketed_topk at q=8 and 64
+    results = {q_n: mips.bucketed_topk(queries[:q_n], corpus, k) for q_n in (8, 64)}
+    launches = mips.bucket_max_launch_count
+    for q_n, (v, i) in results.items():
+        qs = queries[:q_n]
+        v_ex, _ = mips.exact_topk(qs, corpus, k, score_dtype=torch.float32)
+        rel = ((v - v_ex).abs() / v_ex.abs()).max().item()
+        # the two differ only in the order of f32 sums over unit rows
+        check(rel <= 1e-5, f"bucketed_topk q={q_n}: values off exact_topk by {rel}")
+        exact, _ = mips.scores_with_bucket_max_ref(qs, corpus)
+        rec = value_recall(torch, topk_mod, exact, i[:, :10], 10, 1e-5)
+        check(rec == 1.0, f"bucketed_topk q={q_n}: value-recall@10 {rec}")
+        bm = mips.scores_bucket_max(qs, corpus)
+        bm_err = (bm - mips.bucket_max(exact)).abs().max().item()
+        check(bm_err <= 1e-5, f"bucket max q={q_n}: bmax max_abs_err {bm_err}")
+        errs.append(bm_err)
+        del exact
+        out[q_n] = {
+            "ms": cuda_ms(torch, lambda: mips.scores_bucket_max(qs, corpus), 10),
+            "plain_ms": cuda_ms(torch, lambda: mips.scores_bucket_max_ref(qs, corpus), 3),
+            "topk_ms": cuda_ms(torch, lambda: mips.bucketed_topk(qs, corpus, k), 5),
+            "exact_ms": cuda_ms(torch, lambda: mips.exact_topk(
+                qs, corpus, k, score_dtype=torch.float32), 5),
+        }
+        print(f"bucket max kernel q={q_n} n={n} d={d} bf16: kernel {out[q_n]['ms']:.3f} ms, "
+              f"plain {out[q_n]['plain_ms']:.3f} ms; bucketed_topk k={k} "
+              f"{out[q_n]['topk_ms']:.3f} ms vs exact_topk (K1, f32 scores) "
+              f"{out[q_n]['exact_ms']:.3f} ms; values within {rel:.3g} relative, "
+              f"value-recall@10 {rec}, bmax max_abs_err {bm_err:.3g}")
+    check(launches == 2, f"bucketed_topk: {launches} K3 launches in 2 calls")
+    del corpus, queries
+    torch.cuda.empty_cache()
+    q_n = 64
+    return {"err": max(errs), "launches": launches, "ms": out[q_n]["ms"],
+            "plain_ms": out[q_n]["plain_ms"], "library_ms": None,
+            **bound_ms(q_n * d * 2 + n * d * 2 + q_n * (n // 128) * 4,
+                       2 * q_n * n * d, PEAK_BF16)}
+
+
+def phase_scores_matmul(torch, dev):
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(37, 200, generator=g, device=dev).to(dt)
+        c = torch.randn(5003, 200, generator=g, device=dev).to(dt)
+        err = (mips.scores_matmul(q, c) - mips.scores_matmul_ref(q, c)).abs().max().item()
+        # f32 sums of 200 terms (|s| ~ 15) in another order
+        check(err <= 1e-3, f"scores matmul ragged {dt}: max_abs_err {err}")
+        errs.append(err)
+        print(f"scores matmul kernel ragged q=37 n=5003 d=200 {str(dt)[6:]}: max_abs_err "
+              f"{err:.3g}")
+
+    q_n, n, d = 1024, 1 << 20, 1600
+    corpus = unit_rows(torch, g, n, d, dev)
+    queries = unit_rows(torch, g, q_n, d, dev)
+    mips.scores_matmul_launch_count = 0  # K6's path: its own entry point
+    s = mips.scores_matmul(queries, corpus)
+    launches = mips.scores_matmul_launch_count
+    s_ref = mips.scores_matmul_ref(queries, corpus)
+    err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item()
+              for r in range(0, q_n, 64))
+    # unit rows, |s| <= 1: f32 sums of exact bf16 products in another order
+    check(err <= 1e-5, f"scores matmul bench point: max_abs_err {err}")
+    errs.append(err)
+    del s, s_ref
+    ms = cuda_ms(torch, lambda: mips.scores_matmul(queries, corpus), 5)
+    plain_ms = cuda_ms(torch, lambda: mips.scores_matmul_ref(queries, corpus), 3)
+    # the library yardstick: one cuBLAS GEMM with f32 output where torch
+    # takes out_dtype, else the bf16-output matmul
+    try:
+        lib_ms = cuda_ms(torch, lambda: torch.mm(queries, corpus.T,
+                                                 out_dtype=torch.float32), 5)
+        lib = "torch.mm(out_dtype=float32)"
+    except (TypeError, RuntimeError):
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(queries, corpus.T), 5)
+        lib = "torch.matmul, bf16 output"
+    tflops = 2 * q_n * n * d / (ms * 1e-3) / 1e12
+    print(f"scores matmul kernel bench point q={q_n} n={n} d={d} bf16 -> f32: kernel "
+          f"{ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {lib} "
+          f"{lib_ms:.3f} ms; max_abs_err {err:.3g}; {launches} launch")
+    del corpus, queries
+    torch.cuda.empty_cache()
+    return {"err": max(errs), "launches": launches, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            **bound_ms(q_n * d * 2 + n * d * 2 + q_n * n * 4, 2 * q_n * n * d, PEAK_BF16)}
+
 
 def main() -> int:
     try:
@@ -677,8 +1082,7 @@ def main() -> int:
     for line in (info or {}).get("ptxas", []):
         print(f"  {line}")
 
-    from sessionsimilaritysearch_tpu import native
-    from sessionsimilaritysearch_tpu_torch import native_build
+    from sessionsimilaritysearch_tpu_torch import native, native_build
 
     native_kind = native_build.ensure_native_library()
     check(native.load() is not None,
@@ -687,9 +1091,8 @@ def main() -> int:
 
     err_ragged = run_phase(torch, "kernel ragged", phase_kernel_ragged,
                            torch, mips, topk_mod, dev)
-    err_bench, ms, plain_ms = run_phase(torch, "kernel bench point",
-                                        phase_kernel_bench, torch, mips,
-                                        topk_mod, dev)
+    err_bench, k1 = run_phase(torch, "kernel bench point", phase_kernel_bench,
+                              torch, mips, topk_mod, dev)
     err_index = run_phase(torch, "index", phase_index, torch, mips, topk_mod, dev)
     launches, err_engine, parts = run_phase(torch, "engine", phase_engine, torch,
                                             mips, topk_mod, dev)
@@ -701,24 +1104,32 @@ def main() -> int:
     run_phase(torch, "two-stage index", phase_twostage_index, torch, dev)
     k4_launches = run_phase(torch, "two-stage engine", phase_twostage_engine,
                             torch, dev, parts)
+    k2 = run_phase(torch, "int8 kernel", phase_int8_kernel, torch, dev)
+    run_phase(torch, "int8 index", phase_int8_index, torch, topk_mod, dev)
+    k2_launches = run_phase(torch, "int8x8 engine", phase_int8_engine, torch, dev, parts)
+    k3 = run_phase(torch, "bucket max kernel", phase_bucket_max, torch, topk_mod, dev)
+    k6 = run_phase(torch, "scores matmul kernel", phase_scores_matmul, torch, dev)
 
-    check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax") for m in sys.modules),
-          "JAX was imported")
+    check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "sessionsimilaritysearch_tpu")
+                  for m in sys.modules),
+          "JAX or the JAX package was imported")
     src = "sessionsimilaritysearch_tpu_torch/csrc/"
     tpu = "sessionsimilaritysearch_tpu/ops/pallas_mips.py:"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def entry(name, replaces, launches, err, m):
+        return {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+                "replaces": tpu + replaces, "launches": launches, "max_abs_err": err,
+                **{key: m[key] for key in keys}}
+
     print(json.dumps({"kernels": [
-        {"name": "scores_bmax", "route": "cuda", "source": src + "scores_bmax.cu",
-         "replaces": tpu + "144", "launches": launches,
-         "max_abs_err": max(err_ragged, err_bench, err_index, err_engine),
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "packed_scores_bmax", "route": "cuda",
-         "source": src + "packed_scores_bmax.cu", "replaces": tpu + "863",
-         "launches": k4_launches, "max_abs_err": k4["err"], "ms": k4["ms"],
-         "plain_ms": k4["plain_ms"]},
-        {"name": "hamming_bucket_min", "route": "cuda",
-         "source": src + "hamming_bucket_min.cu", "replaces": tpu + "619",
-         "launches": k5["launches"], "max_abs_err": k5["err"], "ms": k5["ms"],
-         "plain_ms": k5["plain_ms"]},
+        entry("scores_bmax", "144", launches,
+              max(err_ragged, err_bench, err_index, err_engine), k1),
+        entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4),
+        entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5),
+        entry("scores_bmax_int8", "428", k2_launches, k2["err"], k2),
+        entry("bucket_max", "56", k3["launches"], k3["err"], k3),
+        entry("scores_matmul", "247", k6["launches"], k6["err"], k6),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

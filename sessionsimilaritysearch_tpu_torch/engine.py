@@ -19,8 +19,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from sessionsimilaritysearch_tpu.config import Config
-from sessionsimilaritysearch_tpu.evalharness import metrics as metrics_mod
+from sessionsimilaritysearch_tpu_torch.config import Config
+from sessionsimilaritysearch_tpu_torch.evalharness import metrics as metrics_mod
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.evalharness.harness import EmbeddingPipeline
 from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
@@ -87,9 +87,13 @@ class SessionSearchEngine:
       stage1: two-stage code scan; only 'packed' is ported.
       dtype: corpus storage dtype; None keeps each index's default (float32
         dense, bfloat16 for the two-stage full-width rows).
-    The JAX engine's mesh, quantize and center options are not ported yet,
-    and neither are hybrid fusion, async ingest, removal, expiry, range
-    search or save/restore (ROADMAP.md Queue 1 item 5).
+      quantize: None, 'int8' or 'int8x8' -- int8-code corpus storage in the
+        flat ``DenseIndex`` (a quarter of the f32 corpus memory); 'int8x8'
+        also quantizes the queries and scans through the int8 kernel K2.
+        Not combined with a prefilter, which stores its own codes.
+    The JAX engine's mesh and center options are not ported yet, and
+    neither are hybrid fusion, async ingest, removal, expiry, range search
+    or save/restore (ROADMAP.md Queue 1 item 5).
     """
 
     def __init__(
@@ -108,6 +112,7 @@ class SessionSearchEngine:
         projector=None,
         stage1: str = "matmul",
         dtype: Optional[torch.dtype] = None,
+        quantize: Optional[str] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -122,8 +127,10 @@ class SessionSearchEngine:
         if prefilter is None:
             self.index = DenseIndex(
                 dim=dim, capacity=capacity, device=self.device, metric=metric,
-                **({} if dtype is None else {"dtype": dtype}),
+                quantize=quantize, **({} if dtype is None else {"dtype": dtype}),
             )
+        elif quantize is not None:
+            raise ValueError("two-stage mode stores its own code buffers; drop quantize")
         else:
             self.index = TwoStageIndex(
                 dim=dim, capacity=capacity, device=self.device, metric=metric,

@@ -1,1 +1,1 @@
-"""Embedding pipeline of the port (counterpart of ``sessionsimilaritysearch_tpu.evalharness``)."""
+"""Embedding pipeline and retrieval metrics of the port (counterpart of ``sessionsimilaritysearch_tpu.evalharness``)."""

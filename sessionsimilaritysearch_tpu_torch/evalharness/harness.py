@@ -9,9 +9,9 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from sessionsimilaritysearch_tpu.config import Config
-from sessionsimilaritysearch_tpu.data.graph import SessionGraph
-from sessionsimilaritysearch_tpu.data.loader import SessionGraphLoader
+from sessionsimilaritysearch_tpu_torch.config import Config
+from sessionsimilaritysearch_tpu_torch.data.graph import SessionGraph
+from sessionsimilaritysearch_tpu_torch.data.loader import SessionGraphLoader
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.native_build import ensure_native_library
 

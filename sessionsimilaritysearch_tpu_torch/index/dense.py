@@ -3,9 +3,15 @@
 
 The index IS the corpus: a fixed-capacity [capacity, dim] device buffer that
 streaming adds append into. ``search`` scans the filled rows in
-``chunk_size`` slices with the fused score + bucket-max kernel
-(``ops/mips.py``, ``csrc/scores_bmax.cu``) and merges the per-chunk top-k,
-so the score buffer stays [q, chunk_size] whatever the corpus size.
+``chunk_size`` slices and merges the per-chunk top-k, so the score buffer
+stays [q, chunk_size] whatever the corpus size. The scan of each chunk:
+
+- float rows (f32 or bf16): the fused score + bucket-max kernel K1
+  (``ops/mips.py``, ``csrc/scores_bmax.cu``);
+- ``quantize='int8x8'`` (int8 codes on both sides): the int8 kernel K2
+  (``ops/mips_int8.py``, ``csrc/scores_bmax_int8.cu``);
+- ``quantize='int8'`` (bf16 queries, int8 rows): torch ops, as the JAX
+  package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import numpy as np
 import torch
 
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
-from sessionsimilaritysearch_tpu_torch.ops import mips
+from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8
 from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize, merge_topk
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -37,6 +43,13 @@ class DenseIndex:
     kernel stores scores in (float32 = exact ranking; bfloat16 = exact at
     bf16 precision). Search results follow ``faiss.Index.search``: scores
     descending, missing slots (-inf, -1).
+
+    quantize: None, 'int8' or 'int8x8' (JAX ``index/dense.py:188-192``).
+    Rows are stored as per-row int8 codes and an f32 scale (normalized in
+    f32 first under 'cos'), and ``dtype`` is not used. 'int8' scores bf16
+    queries against the codes; 'int8x8' quantizes the queries per row too
+    and runs the int8 kernel K2. Ranking is exact over the dequantized
+    rows (and, for 'int8x8', the dequantized query codes).
     """
 
     def __init__(
@@ -53,11 +66,13 @@ class DenseIndex:
         center=None,
     ):
         if metric == "l2":
+            if quantize is not None:
+                raise ValueError("an int8 corpus supports 'ip'/'cos' only")
             raise _not_ported("metric='l2'")
         if metric not in ("cos", "ip"):
             raise ValueError(f"unknown metric {metric!r}")
-        if quantize is not None:
-            raise _not_ported(f"quantize={quantize!r}")
+        if quantize not in (None, "int8", "int8x8"):
+            raise ValueError(f"unknown quantize {quantize!r}")
         if center is not None:
             raise _not_ported("center=")
         if dtype not in _DTYPES or score_dtype not in _DTYPES:
@@ -70,45 +85,56 @@ class DenseIndex:
         self.dim = dim
         self.capacity = capacity
         self.metric = metric
-        self.dtype = dtype
+        self.quantize = quantize
+        self.dtype = torch.int8 if quantize else dtype
         self.score_dtype = score_dtype
         self.chunk_size = chunk_size
         self.device = resolve_device(device)
-        self._buf = torch.zeros((capacity, dim), dtype=dtype, device=self.device)
+        self._buf = torch.zeros((capacity, dim), dtype=self.dtype, device=self.device)
+        # per-row dequantization scales (int8 modes): row ~= code * scale
+        self._scales = (torch.zeros(capacity, dtype=torch.float32, device=self.device)
+                        if quantize else None)
         self.size = 0
 
     @property
     def ntotal(self) -> int:  # FAISS-compatible name
         return self.size
 
-    def _as_rows(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+    def _as_rows(self, x, dtype: torch.dtype) -> torch.Tensor:
+        x = torch.as_tensor(x).to(device=self.device, dtype=dtype)
         if x.dim() != 2 or x.shape[1] != self.dim:
             raise ValueError(f"expected [m, {self.dim}] rows, got {tuple(x.shape)}")
         return x
 
     def add(self, emb) -> None:
         """Append embeddings [m, d] (numpy or tensor); under 'cos' rows are
-        normalized in the storage dtype first."""
-        emb = self._as_rows(emb)
+        normalized first, in the storage dtype (f32 when quantized)."""
+        emb = self._as_rows(emb, torch.float32 if self.quantize else self.dtype)
         m = emb.shape[0]
         if self.size + m > self.capacity:
             raise ValueError(
                 f"index full: {self.size}+{m} > capacity {self.capacity}"
             )
         if self.metric == "cos":
-            emb = l2_normalize(emb).to(self.dtype)
+            emb = l2_normalize(emb)
+        if self.quantize:
+            emb, scales = mips_int8.quantize_rows_int8(emb)
+            self._scales[self.size: self.size + m] = scales
         self._buf[self.size: self.size + m] = emb
         self.size += m
 
     def reconstruct_batch(self, ids) -> np.ndarray:
         """Stored rows by position, [m, d] float32, exactly as the index
-        scores them (unit-normalized under 'cos')."""
+        scores them (unit-normalized under 'cos'; code x scale when
+        quantized)."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         if ids.size and (ids.min() < 0 or ids.max() >= self.size):
             raise IndexError(f"reconstruct ids must lie in [0, {self.size})")
-        rows = self._buf[torch.from_numpy(ids).to(self.device)]
-        return rows.float().cpu().numpy()
+        pos = torch.from_numpy(ids).to(self.device)
+        rows = self._buf[pos].float()
+        if self.quantize:
+            rows *= self._scales[pos][:, None]
+        return rows.cpu().numpy()
 
     def _penalty(self, row_mask) -> torch.Tensor:
         """Bool mask over the current rows (length ``size`` or
@@ -132,23 +158,35 @@ class DenseIndex:
         never rank. The scan covers rows [0, size) only: the rows past
         ``size`` would all score -inf, so leaving them out changes no
         result."""
-        queries = self._as_rows(queries)
+        qdtype = torch.bfloat16 if self.quantize else self.dtype
+        queries = self._as_rows(queries, qdtype)
         if self.metric == "cos":
-            queries = l2_normalize(queries).to(self.dtype)
+            queries = l2_normalize(queries).to(qdtype)
         queries = queries.contiguous()
+        if self.quantize == "int8x8":
+            queries, q_scales = mips_int8.quantize_rows_int8(queries)
         nq = queries.shape[0]
         penalty = None if row_mask is None else self._penalty(row_mask)
         vals = torch.full((nq, k), float("-inf"), device=self.device)
         idx = torch.full((nq, k), -1, dtype=torch.int64, device=self.device)
         for base in range(0, self.size, self.chunk_size):
-            rows = min(self.chunk_size, self.size - base)
-            c_vals, c_idx = mips.exact_topk(
-                queries,
-                self._buf[base: base + rows],
-                k,
-                penalty=None if penalty is None else penalty[base: base + rows],
-                score_dtype=self.score_dtype,
-            )
+            rows = slice(base, min(base + self.chunk_size, self.size))
+            pen = None if penalty is None else penalty[rows]
+            if self.quantize == "int8x8":
+                c_vals, c_idx = mips_int8.int8_exact_topk(
+                    queries, self._buf[rows], k, q_scales, self._scales[rows],
+                    penalty=pen, score_dtype=self.score_dtype,
+                )
+            elif self.quantize == "int8":
+                c_vals, c_idx = mips_int8.int8_corpus_topk(
+                    queries, self._buf[rows], k, self._scales[rows],
+                    penalty=pen, score_dtype=self.score_dtype,
+                )
+            else:
+                c_vals, c_idx = mips.exact_topk(
+                    queries, self._buf[rows], k, penalty=pen,
+                    score_dtype=self.score_dtype,
+                )
             c_idx = torch.where(c_idx >= 0, c_idx + base, c_idx)
             vals, idx = merge_topk(vals, idx, c_vals, c_idx, k)
         return vals.cpu().numpy(), idx.cpu().numpy()

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from sessionsimilaritysearch_tpu.config import Config
+from sessionsimilaritysearch_tpu_torch.config import Config
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.models.embedding import (
     NodeAsinEmbedding,

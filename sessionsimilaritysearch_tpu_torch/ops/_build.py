@@ -132,8 +132,28 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, i32,             # q, n, words
                 ptr,                       # stream
             ]
+            lib.sss_scores_bmax_int8.argtypes = [
+                ptr, ptr, ptr, ptr,        # q codes, corpus codes, scales, penalty
+                ptr, ptr,                  # scores, bmax
+                i32, i32, i32, i32,        # q, n, d, valid_count
+                i32,                       # out_bf16
+                ptr,                       # stream
+            ]
+            lib.sss_bucket_max.argtypes = [
+                ptr, ptr, ptr,             # queries, corpus, bmax
+                i32, i32, i32, i32,        # q, n, d, valid_count
+                i32,                       # in_bf16
+                ptr,                       # stream
+            ]
+            lib.sss_scores_matmul.argtypes = [
+                ptr, ptr, ptr,             # queries, corpus, scores
+                i32, i32, i32,             # q, n, d
+                i32,                       # in_bf16
+                ptr,                       # stream
+            ]
             for fn in (lib.sss_scores_bmax, lib.sss_packed_scores_bmax,
-                       lib.sss_hamming_bucket_min):
+                       lib.sss_hamming_bucket_min, lib.sss_scores_bmax_int8,
+                       lib.sss_bucket_max, lib.sss_scores_matmul):
                 fn.restype = i32
             _lib = lib
         return _lib

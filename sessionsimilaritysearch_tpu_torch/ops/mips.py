@@ -1,15 +1,25 @@
-"""Fused score scan with bucket max, and the exact top-k built on it.
+"""The float dense scans: fused score scan with bucket max and the exact
+top-k built on it (K1), the bucket-max-only scan and its re-ranking top-k
+(K3), and the plain score matmul (K6).
 
-Port of the TPU kernel K1 (``sessionsimilaritysearch_tpu/ops/pallas_mips.py``
-:144 ``_scores_bmax_kernel`` -> :177 ``scores_with_bucket_max`` -> :377
-``pallas_exact_topk`` with the selection :408 ``_select_exact_from_scores``).
-The kernel is ``csrc/scores_bmax.cu``; :func:`scores_with_bucket_max_ref` is
-its plain PyTorch version. Buckets are 128 contiguous corpus rows, the layout
-of the JAX ``DenseIndex`` (``ops/topk.py:130``); the TPU kernel's strided
-layout was a Mosaic store constraint that a GPU does not have.
+Ports of the TPU kernels of ``sessionsimilaritysearch_tpu/ops/pallas_mips.py``:
 
-:func:`scores_with_bucket_max` takes the plain version for CPU tensors only.
-For a CUDA tensor it launches the kernel or raises: no path falls back.
+- K1: :144 ``_scores_bmax_kernel`` -> :177 ``scores_with_bucket_max`` -> :377
+  ``pallas_exact_topk`` with the selection :408 ``_select_exact_from_scores``;
+  kernel ``csrc/scores_bmax.cu``, plain version
+  :func:`scores_with_bucket_max_ref`.
+- K3: :56 ``_bucket_max_kernel`` -> :88 ``scores_bucket_max`` -> :322
+  ``pallas_bucketed_topk``; kernel ``csrc/bucket_max.cu``, plain version
+  :func:`scores_bucket_max_ref`, top-k :func:`bucketed_topk`.
+- K6: :247 ``_scores_kernel`` -> :259 ``scores_matmul``; kernel
+  ``csrc/scores_matmul.cu``, plain version :func:`scores_matmul_ref`.
+
+Buckets are 128 contiguous corpus rows, the layout of the JAX
+``DenseIndex`` (``ops/topk.py:130``); the TPU kernels' strided layout was a
+Mosaic store constraint that a GPU does not have.
+
+Each wrapper takes its plain version for CPU tensors only. For a CUDA
+tensor it launches its kernel or raises: no path falls back.
 """
 
 from __future__ import annotations
@@ -24,13 +34,20 @@ from sessionsimilaritysearch_tpu_torch.ops import _build
 BUCKET = 128
 _DTYPES = (torch.float32, torch.bfloat16)
 
-# Kernel launches made by scores_with_bucket_max, counted where the kernel
-# is launched and nowhere else (CPU tensors never count). A run resets it to
-# 0 and reads it back to show that the main path went through the kernel.
+# Kernel launches made by each wrapper (K1 scores_with_bucket_max, K3
+# scores_bucket_max, K6 scores_matmul), counted where the kernel is launched
+# and nowhere else (CPU tensors never count). A run resets them to 0 and
+# reads them back to show that its path went through the kernels.
 launch_count = 0
+bucket_max_launch_count = 0
+scores_matmul_launch_count = 0
+
+# gathered corpus rows (and their f32 copy) per query tile of bucketed_topk
+GATHER_BYTES = 1 << 30
 
 
-def _check(queries, corpus, valid_count, penalty, score_dtype) -> int:
+def _check(queries, corpus, valid_count, penalty, score_dtype,
+           dtypes=_DTYPES) -> int:
     if queries.dim() != 2 or corpus.dim() != 2:
         raise ValueError(
             f"queries and corpus must be 2-D, got {tuple(queries.shape)} and "
@@ -41,9 +58,9 @@ def _check(queries, corpus, valid_count, penalty, score_dtype) -> int:
             f"depth mismatch: queries d={queries.shape[1]}, corpus "
             f"d={corpus.shape[1]}"
         )
-    if queries.dtype not in _DTYPES or corpus.dtype != queries.dtype:
+    if queries.dtype not in dtypes or corpus.dtype != queries.dtype:
         raise TypeError(
-            "queries and corpus must share one dtype of float32/bfloat16, "
+            f"queries and corpus must share one dtype of {dtypes}, "
             f"got {queries.dtype} and {corpus.dtype}"
         )
     if score_dtype not in _DTYPES:
@@ -68,6 +85,42 @@ def _check(queries, corpus, valid_count, penalty, score_dtype) -> int:
     return vc
 
 
+def _cuda_call(fn, name: str, dev: torch.device, *args) -> None:
+    """Launch ``fn(*args, stream)`` on ``dev``'s current stream; raise on a
+    refused launch."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _kernel_device(queries, corpus) -> Optional[torch.device]:
+    """None for CPU tensors (the caller takes the plain version), the CUDA
+    device otherwise; raises for any other device or an int32 overflow."""
+    dev = queries.device
+    if dev.type == "cpu":
+        return None
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    q, d = queries.shape
+    n = corpus.shape[0]
+    if max(q, n, d) >= 2**31:
+        raise ValueError(f"shape too large for int32 indexing: q={q} n={n} d={d}")
+    return dev
+
+
+def bucket_max(scores: torch.Tensor) -> torch.Tensor:
+    """[q, n] f32 scores -> [q, ceil(n/128)] max of each 128 contiguous
+    columns (a ragged last bucket is padded with -inf)."""
+    q, n = scores.shape
+    nb = -(-n // BUCKET)
+    if nb * BUCKET != n:
+        scores = torch.nn.functional.pad(scores, (0, nb * BUCKET - n),
+                                         value=float("-inf"))
+    return scores.view(q, nb, BUCKET).amax(dim=-1)
+
+
 def scores_with_bucket_max_ref(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -80,17 +133,11 @@ def scores_with_bucket_max_ref(
     ``valid_count`` score -inf, then ``penalty`` [n] is added; bmax is the
     max of each 128 contiguous f32 scores, taken before rounding."""
     vc = _check(queries, corpus, valid_count, penalty, score_dtype)
-    q, n = queries.shape[0], corpus.shape[0]
     s = queries.float() @ corpus.float().T
     s[:, vc:] = float("-inf")
     if penalty is not None:
         s += penalty
-    nb = -(-n // BUCKET)
-    padded = s
-    if nb * BUCKET != n:
-        padded = torch.nn.functional.pad(s, (0, nb * BUCKET - n), value=float("-inf"))
-    bmax = padded.view(q, nb, BUCKET).amax(dim=-1)
-    return s.to(score_dtype), bmax
+    return s.to(score_dtype), bucket_max(s)
 
 
 def scores_with_bucket_max(
@@ -105,37 +152,22 @@ def scores_with_bucket_max(
     :func:`scores_with_bucket_max_ref`."""
     global launch_count
     vc = _check(queries, corpus, valid_count, penalty, score_dtype)
-    dev = queries.device
-    if dev.type == "cpu":
+    dev = _kernel_device(queries, corpus)
+    if dev is None:
         return scores_with_bucket_max_ref(
             queries, corpus, vc, penalty, score_dtype
         )
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     q, d = queries.shape
     n = corpus.shape[0]
-    if max(q, n, d) >= 2**31:
-        raise ValueError(f"shape too large for int32 indexing: q={q} n={n} d={d}")
-    lib = _build.load_library()
-    nb = -(-n // BUCKET)
     scores = torch.empty((q, n), dtype=score_dtype, device=dev)
-    bmax = torch.empty((q, nb), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sss_scores_bmax(
-            queries.data_ptr(), corpus.data_ptr(),
-            None if penalty is None else penalty.data_ptr(),
-            scores.data_ptr(), bmax.data_ptr(),
-            q, n, d, vc,
-            int(queries.dtype == torch.bfloat16),
-            int(score_dtype == torch.bfloat16),
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"scores_bmax kernel launch failed: CUDA error {err} "
-            f"(q={q} n={n} d={d} {queries.dtype} -> {score_dtype})"
-        )
+    bmax = torch.empty((q, -(-n // BUCKET)), dtype=torch.float32, device=dev)
+    _cuda_call(
+        _build.load_library().sss_scores_bmax, "scores_bmax", dev,
+        queries.data_ptr(), corpus.data_ptr(),
+        None if penalty is None else penalty.data_ptr(),
+        scores.data_ptr(), bmax.data_ptr(), q, n, d, vc,
+        int(queries.dtype == torch.bfloat16), int(score_dtype == torch.bfloat16),
+    )
     launch_count += 1
     return scores, bmax
 
@@ -158,11 +190,17 @@ def select_topk(
         vals, pos = torch.topk(cand, k, dim=1)
         idx = torch.gather(cols, 1, pos)
     else:
-        kk = min(k, n)
-        vals, idx = torch.topk(scores.float(), kk, dim=1)
-        if kk < k:
-            vals = torch.nn.functional.pad(vals, (0, k - kk), value=float("-inf"))
-            idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
+        vals, idx = torch.topk(scores.float(), min(k, n), dim=1)
+    return _missing_slots(vals, idx, k)
+
+
+def _missing_slots(vals, idx, k: int):
+    """Pad a [q, <= k] top-k to k columns and mark every slot whose value
+    is -inf as (-inf, -1)."""
+    if vals.shape[1] < k:
+        vals = torch.nn.functional.pad(vals, (0, k - vals.shape[1]),
+                                       value=float("-inf"))
+        idx = torch.nn.functional.pad(idx, (0, k - idx.shape[1]), value=-1)
     idx = torch.where(torch.isfinite(vals), idx, torch.full_like(idx, -1))
     return vals, idx
 
@@ -183,3 +221,98 @@ def exact_topk(
         queries, corpus, valid_count, penalty, score_dtype
     )
     return select_topk(scores, bmax, k)
+
+
+def scores_bucket_max_ref(
+    queries: torch.Tensor, corpus: torch.Tensor, valid_count: Optional[int] = None
+) -> torch.Tensor:
+    """Plain PyTorch version of K3: bucket maxes [q, ceil(n/128)] f32 of an
+    f32 matmul where rows at or past ``valid_count`` score -inf."""
+    vc = _check(queries, corpus, valid_count, None, torch.float32)
+    s = queries.float() @ corpus.float().T
+    s[:, vc:] = float("-inf")
+    return bucket_max(s)
+
+
+def scores_bucket_max(
+    queries: torch.Tensor, corpus: torch.Tensor, valid_count: Optional[int] = None
+) -> torch.Tensor:
+    """K3 (``csrc/bucket_max.cu``) for CUDA tensors; its plain version for
+    CPU tensors. Returns the bucket maxes only: the score matrix never
+    reaches device memory."""
+    global bucket_max_launch_count
+    vc = _check(queries, corpus, valid_count, None, torch.float32)
+    dev = _kernel_device(queries, corpus)
+    if dev is None:
+        return scores_bucket_max_ref(queries, corpus, vc)
+    q, d = queries.shape
+    n = corpus.shape[0]
+    bmax = torch.empty((q, -(-n // BUCKET)), dtype=torch.float32, device=dev)
+    _cuda_call(
+        _build.load_library().sss_bucket_max, "bucket_max", dev,
+        queries.data_ptr(), corpus.data_ptr(), bmax.data_ptr(), q, n, d, vc,
+        int(queries.dtype == torch.bfloat16),
+    )
+    bucket_max_launch_count += 1
+    return bmax
+
+
+def bucketed_topk(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    k: int,
+    valid_count: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact inner-product top-k with no score matrix in device memory
+    (counterpart of ``pallas_bucketed_topk`` :322): K3's bucket maxes pick
+    the top-k buckets, then the dots of their k * 128 corpus rows are
+    recomputed and ranked: products of the stored values summed in f32,
+    over query tiles whose gathered rows (and their f32 copy) stay within
+    ``GATHER_BYTES``. Returns (values [q, k] f32
+    descending, ids [q, k] int64); rows at or past ``valid_count`` and
+    missing slots are (-inf, -1). Floating corpora only."""
+    vc = _check(queries, corpus, valid_count, None, torch.float32)
+    bmax = scores_bucket_max(queries, corpus, vc)
+    q, d = queries.shape
+    n = corpus.shape[0]
+    kb = min(k, bmax.shape[1])
+    _, b_idx = torch.topk(bmax, kb, dim=1)                          # [q, kb]
+    cols = (b_idx[..., None] * BUCKET
+            + torch.arange(BUCKET, device=corpus.device)).view(q, kb * BUCKET)
+    qf = queries.float()
+    per_query = kb * BUCKET * d * (corpus.element_size() + 4)
+    tile = max(1, GATHER_BYTES // max(per_query, 1))
+    cand = torch.empty((q, kb * BUCKET), dtype=torch.float32, device=corpus.device)
+    for t0 in range(0, q, tile):
+        rows = corpus[cols[t0: t0 + tile].clamp(max=n - 1)].float()  # [t, kb*128, d]
+        cand[t0: t0 + tile] = torch.bmm(rows, qf[t0: t0 + tile, :, None])[..., 0]
+    cand = cand.masked_fill(cols >= vc, float("-inf"))
+    vals, pos = torch.topk(cand, min(k, kb * BUCKET), dim=1)
+    return _missing_slots(vals, torch.gather(cols, 1, pos), k)
+
+
+def scores_matmul_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K6: [q, n] f32 = queries @ corpus.T."""
+    _check(queries, corpus, None, None, torch.float32)
+    return queries.float() @ corpus.float().T
+
+
+def scores_matmul(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """K6 (``csrc/scores_matmul.cu``) for CUDA tensors; its plain version
+    for CPU tensors. [q, n] f32 scores from f32 or bf16 operands, summed
+    in f32."""
+    global scores_matmul_launch_count
+    _check(queries, corpus, None, None, torch.float32)
+    dev = _kernel_device(queries, corpus)
+    if dev is None:
+        return scores_matmul_ref(queries, corpus)
+    q, d = queries.shape
+    n = corpus.shape[0]
+    scores = torch.empty((q, n), dtype=torch.float32, device=dev)
+    _cuda_call(
+        _build.load_library().sss_scores_matmul, "scores_matmul", dev,
+        queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), q, n, d,
+        int(queries.dtype == torch.bfloat16),
+    )
+    scores_matmul_launch_count += 1
+    return scores

@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1 scores_bmax,
-K4 packed_scores_bmax, K5 hamming_bucket_min) against their plain PyTorch
-versions, and the indexes and engine on the card against the CPU.
+K2 scores_bmax_int8, K3 bucket_max, K4 packed_scores_bmax, K5
+hamming_bucket_min, K6 scores_matmul) against their plain PyTorch versions,
+and the indexes and engine on the card against the CPU.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so on a
@@ -17,7 +18,7 @@ import sessionsimilaritysearch_tpu_torch as port
 from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
 from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
 from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
-from sessionsimilaritysearch_tpu_torch.ops import hamming, mips, packed, popcount
+from sessionsimilaritysearch_tpu_torch.ops import hamming, mips, mips_int8, packed, popcount
 
 pytestmark = pytest.mark.cuda
 
@@ -188,3 +189,95 @@ def test_twostage_index_launches_kernel(dev):
     Dc, _ = on_cpu.search(rows[:16], 5, pool=4096)
     np.testing.assert_allclose(D, Dc, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(I[:, 0], np.arange(16))
+
+
+def _int8_case(g, q, n, d, dev):
+    qc = torch.randint(-127, 128, (q, d), generator=g, device=dev).to(torch.int8)
+    cc = torch.randint(-127, 128, (n, d), generator=g, device=dev).to(torch.int8)
+    return qc, cc, torch.rand(n, generator=g, device=dev) * 0.01
+
+
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [200, 37])  # 37: no 16-byte rows, byte loads
+def test_int8_kernel_matches_plain(dev, d, score_dtype):
+    g = torch.Generator(device=dev).manual_seed(2)
+    qc, cc, sc = _int8_case(g, 37, 5003, d, dev)
+    pen = torch.where(torch.rand(5003, device=dev, generator=g) < 0.1,
+                      float("-inf"), 0.0)
+    before = mips_int8.launch_count
+    s, bmax = mips_int8.scores_with_bucket_max_int8(qc, cc, sc, 4037, pen, score_dtype)
+    torch.cuda.synchronize()
+    assert mips_int8.launch_count == before + 1
+    s_ref, bmax_ref = mips_int8.scores_with_bucket_max_int8_ref(
+        qc, cc, sc, 4037, pen, score_dtype)
+    # exact int32 dots on both sides, then the same two f32 roundings
+    assert torch.equal(s, s_ref) and torch.equal(bmax, bmax_ref)
+
+
+@pytest.mark.parametrize("bad", ["scales_len", "scales_dtype", "float_codes",
+                                 "not_contiguous", "penalty_len"])
+def test_int8_kernel_rejects_what_it_does_not_take(dev, bad):
+    g = torch.Generator(device=dev).manual_seed(3)
+    qc, cc, sc = _int8_case(g, 4, 300, 64, dev)
+    kw = {}
+    if bad == "scales_len":
+        sc = sc[:299]
+    elif bad == "scales_dtype":
+        sc = sc.double()
+    elif bad == "float_codes":
+        qc = qc.float()
+    elif bad == "not_contiguous":
+        cc = torch.randint(-127, 128, (64, 300), generator=g, device=dev).to(torch.int8).T
+    else:
+        kw["penalty"] = torch.zeros(299, device=dev)
+    before = mips_int8.launch_count
+    with pytest.raises((TypeError, ValueError)):
+        mips_int8.scores_with_bucket_max_int8(qc, cc, sc, **kw)
+    assert mips_int8.launch_count == before
+
+
+def test_int8x8_index_launches_kernel_per_chunk(dev):
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((3000, 64)).astype(np.float32)
+    on_card = DenseIndex(64, 4096, device=dev, chunk_size=1024, quantize="int8x8")
+    on_cpu = DenseIndex(64, 4096, device="cpu", chunk_size=1024, quantize="int8x8")
+    on_card.add(rows)
+    on_cpu.add(rows)
+    assert torch.equal(on_card._buf.cpu(), on_cpu._buf)
+    mask = rng.random(3000) < 0.5
+    before = mips_int8.launch_count
+    D, I = on_card.search(rows[:16], 5, row_mask=mask)
+    assert mips_int8.launch_count == before + 3  # one launch per 1024-row chunk
+    Dc, _ = on_cpu.search(rows[:16], 5, row_mask=mask)
+    np.testing.assert_allclose(D, Dc, rtol=1e-6, atol=0)
+    assert mask[I].all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bucket_max_and_matmul_kernels_match_plain(dev, dtype):
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn(37, 200, device=dev, generator=g).to(dtype)
+    c = torch.randn(5003, 200, device=dev, generator=g).to(dtype)
+    b3, b6 = mips.bucket_max_launch_count, mips.scores_matmul_launch_count
+    bmax = mips.scores_bucket_max(q, c, 4037)
+    s = mips.scores_matmul(q, c)
+    torch.cuda.synchronize()
+    assert mips.bucket_max_launch_count == b3 + 1
+    assert mips.scores_matmul_launch_count == b6 + 1
+    # f32 sums of 200 terms (|s| ~ 15) in another order
+    torch.testing.assert_close(bmax, mips.scores_bucket_max_ref(q, c, 4037),
+                               atol=1e-3, rtol=0)
+    torch.testing.assert_close(s, mips.scores_matmul_ref(q, c), atol=1e-3, rtol=0)
+
+
+def test_bucketed_topk_matches_exact_topk(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    c = torch.nn.functional.normalize(torch.randn(20000, 128, device=dev, generator=g))
+    q = c[:8].bfloat16()
+    before = mips.bucket_max_launch_count
+    v, i = mips.bucketed_topk(q, c.bfloat16(), 20, valid_count=19000)
+    assert mips.bucket_max_launch_count == before + 1
+    v_ex, _ = mips.exact_topk(q, c.bfloat16(), 20, valid_count=19000)
+    # the two differ only in the order of f32 sums over unit rows
+    torch.testing.assert_close(v, v_ex, atol=1e-5, rtol=1e-5)
+    assert (i < 19000).all() and torch.equal(i[:, 0], torch.arange(8, device=dev))

@@ -129,6 +129,16 @@ def test_capacity_and_bounds():
 @pytest.mark.parametrize("kw", [{"metric": "l2"}, {"quantize": "int8"},
                                 {"center": "auto"}])
 def test_unported_options_raise(kw):
+    if "quantize" in kw:
+        # ported since: the option builds and searches (parity with the JAX
+        # index in tests/test_torch_int8.py)
+        rows = np.random.default_rng(0).standard_normal((50, DIM)).astype(np.float32)
+        t = DenseIndex(DIM, CAP, device="cpu", **kw)
+        t.add(rows)
+        D, I = t.search(rows[:5], 3)
+        np.testing.assert_array_equal(I[:, 0], np.arange(5))
+        assert np.isfinite(D).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DenseIndex(DIM, CAP, device="cpu", **kw)
 

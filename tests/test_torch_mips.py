@@ -1,9 +1,11 @@
-"""Parity of the port's fused score + bucket-max op and exact top-k
-(sessionsimilaritysearch_tpu_torch/ops/mips.py) with the JAX package: the
-Pallas kernel K1 in interpret mode (as tests/test_pallas.py runs it) and the
-XLA ``chunked_topk``. On the CPU the port's wrapper runs the kernel's plain
-PyTorch version; the kernel itself is compared with it on the card by
-tests/test_torch_cuda.py and chip_smoke.py."""
+"""Parity of the port's float dense scans (sessionsimilaritysearch_tpu_torch
+/ops/mips.py) with the JAX package: the fused score + bucket-max op and
+exact top-k (K1), the bucket-max-only op and ``bucketed_topk`` (K3), and the
+score matmul (K6), against the Pallas kernels in interpret mode (as
+tests/test_pallas.py runs them) and the XLA ``chunked_topk``. On the CPU the
+port's wrappers run the kernels' plain PyTorch versions; the kernels
+themselves are compared with them on the card by tests/test_torch_cuda.py
+and chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,11 +42,24 @@ def _contiguous_bmax(s: np.ndarray) -> np.ndarray:
     return pad.reshape(q, nb, 128).max(axis=-1)
 
 
+def _strided_as_contiguous(corpus: np.ndarray, rows_per_bucket: int) -> np.ndarray:
+    """Permute corpus rows so that each of the port's contiguous 128-row
+    buckets holds 128 / rows_per_bucket whole strided JAX buckets:
+    [G, S, 128, d] -> [G, 128, S, d]."""
+    n, d = corpus.shape
+    s = rows_per_bucket
+    return corpus.reshape(n // (128 * s), s, 128, d).transpose(0, 2, 1, 3).reshape(n, d)
+
+
+_COUNTERS = ("launch_count", "bucket_max_launch_count", "scores_matmul_launch_count")
+
+
 @pytest.fixture(autouse=True)
 def _no_kernel_launch_on_cpu():
-    before = mips.launch_count
+    before = [getattr(mips, c) for c in _COUNTERS]
     yield
-    assert mips.launch_count == before  # CPU tensors never launch the kernel
+    # CPU tensors never launch a kernel
+    assert [getattr(mips, c) for c in _COUNTERS] == before
 
 
 class TestScoresWithBucketMax:
@@ -195,6 +210,102 @@ class TestExactTopk:
         np.testing.assert_array_equal(i.numpy()[:, :kk], want_i)
         assert (i.numpy()[:, kk:] == -1).all()
         assert np.isneginf(v.numpy()[:, kk:]).all()
+
+
+class TestBucketMax:
+    def test_bmax_matches_pallas_kernel(self, data):
+        q, c = data
+        with pltpu.force_tpu_interpret_mode():
+            bm_j = pallas_mips.scores_bucket_max(
+                jnp.asarray(q), jnp.asarray(c), rows_per_bucket=32,
+                block_q=128, block_c=1024,
+            )
+        # on the permuted corpus each contiguous port bucket holds four whole
+        # strided JAX buckets, so its max is theirs
+        bm = mips.scores_bucket_max(_t(q), _t(_strided_as_contiguous(c, 32)))
+        want = np.asarray(bm_j).reshape(256, -1, 4).max(axis=-1)
+        # f32 sums of 256 terms in another order: atol 1e-3 on |s| ~ 16
+        np.testing.assert_allclose(bm.numpy(), want, atol=1e-3, rtol=0)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_ragged_shape_and_valid_count(self, dtype):
+        rng = np.random.default_rng(7)
+        q = _t(rng.standard_normal((37, 64)).astype(np.float32)).to(dtype)
+        c = _t(rng.standard_normal((5003, 64)).astype(np.float32)).to(dtype)
+        bm = mips.scores_bucket_max(q, c, valid_count=4037)
+        want = q.double().numpy() @ c.double().numpy().T
+        want[:, 4037:] = -np.inf
+        assert bm.shape == (37, 40) and bm.dtype == torch.float32
+        assert np.isneginf(bm.numpy()[:, 32:]).all()  # buckets past 4037 + ragged
+        np.testing.assert_allclose(bm.numpy(), _contiguous_bmax(want.astype(np.float32)),
+                                   atol=1e-4, rtol=0)
+
+    def test_bucketed_topk_matches_pallas(self, data):
+        q, c = data
+        with pltpu.force_tpu_interpret_mode():
+            v_j, _ = pallas_mips.pallas_bucketed_topk(
+                jnp.asarray(q), jnp.asarray(c), 10, rows_per_bucket=32,
+            )
+        v, i = mips.bucketed_topk(_t(q), _t(c), 10)
+        np.testing.assert_allclose(v.numpy(), np.asarray(v_j), atol=1e-3, rtol=0)
+        # the returned ids carry their reported scores
+        true = np.take_along_axis(q.astype(np.float64) @ c.T.astype(np.float64),
+                                  i.numpy(), 1)
+        np.testing.assert_allclose(true, v.numpy(), atol=1e-3, rtol=0)
+
+    @pytest.mark.parametrize("k,n,vc", [(10, 300, 300), (10, 5, 5), (10, 300, 7),
+                                        (3, 700, 520)])
+    def test_bucketed_topk_valid_count_and_missing_slots(self, k, n, vc):
+        rng = np.random.default_rng(8)
+        q = rng.standard_normal((6, 16)).astype(np.float32)
+        c = rng.standard_normal((n, 16)).astype(np.float32)
+        v, i = mips.bucketed_topk(_t(q), _t(c), k, valid_count=vc)
+        kk = min(k, vc)
+        want_v, want_i = ttopk.oracle_topk_np(q, c[:vc], kk)
+        np.testing.assert_allclose(v.numpy()[:, :kk], want_v, atol=1e-4, rtol=0)
+        np.testing.assert_array_equal(i.numpy()[:, :kk], want_i)
+        assert (i.numpy()[:, kk:] == -1).all() and np.isneginf(v.numpy()[:, kk:]).all()
+
+    def test_bucketed_topk_query_tiles(self, data, monkeypatch):
+        # a gather budget of two queries' rows: the re-rank runs in tiles and
+        # must return what one tile returns
+        q, c = _t(data[0][:7]).to(torch.bfloat16), _t(data[1]).to(torch.bfloat16)
+        v1, i1 = mips.bucketed_topk(q, c, 10)
+        monkeypatch.setattr(mips, "GATHER_BYTES", 2 * 10 * 128 * 256 * (2 + 4))
+        v2, i2 = mips.bucketed_topk(q, c, 10)
+        # the product may sum in another order for another batch shape
+        torch.testing.assert_close(v2, v1, atol=1e-4, rtol=0)
+        true = q.double() @ c.double().T  # exact bf16 products
+        torch.testing.assert_close(torch.gather(true, 1, i2).float(), v2,
+                                   atol=1e-4, rtol=0)
+
+    def test_bucketed_topk_rejects_int8(self):
+        c = torch.zeros(300, 8, dtype=torch.int8)
+        with pytest.raises(TypeError):
+            mips.bucketed_topk(c[:4], c, 3)
+
+
+class TestScoresMatmul:
+    def test_matches_pallas_kernel(self, data):
+        q, c = data
+        with pltpu.force_tpu_interpret_mode():
+            s_j = pallas_mips.scores_matmul(jnp.asarray(q), jnp.asarray(c),
+                                            block_q=128, block_c=1024)
+        s = mips.scores_matmul(_t(q), _t(c))
+        assert s.dtype == torch.float32 and s.shape == (256, 8192)
+        # f32 sums of 256 terms in another order: atol 1e-3 on |s| ~ 16
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_j), atol=1e-3, rtol=0)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_ragged_shape(self, dtype):
+        # no divisibility constraint, unlike the Pallas kernel's q % block_q
+        rng = np.random.default_rng(9)
+        q = _t(rng.standard_normal((37, 48)).astype(np.float32)).to(dtype)
+        c = _t(rng.standard_normal((5003, 48)).astype(np.float32)).to(dtype)
+        s = mips.scores_matmul(q, c)
+        want = q.double().numpy() @ c.double().numpy().T  # exact bf16 products
+        assert s.shape == (37, 5003) and s.dtype == torch.float32
+        np.testing.assert_allclose(s.numpy(), want, atol=1e-4, rtol=0)
 
 
 class TestNumpyHelpers:

@@ -1,35 +1,39 @@
-"""The port's build of the shared native graph builder
-(``sessionsimilaritysearch_tpu_torch/native_build.py``): built without
-OpenMP from a copy of the sources, the library loads and builds the same
-graph batches as the Python builder."""
+"""The port's build of its native graph builder
+(``sessionsimilaritysearch_tpu_torch/native_build.py``, sources in
+``sessionsimilaritysearch_tpu_torch/native/``): built without OpenMP from a
+copy of the sources, the library loads and builds the same graph batches as
+the Python builder."""
 
 import shutil
 
 import numpy as np
 import pytest
 
-from sessionsimilaritysearch_tpu import native
-from sessionsimilaritysearch_tpu.config import tiny_test_config
-from sessionsimilaritysearch_tpu.data import (
+from sessionsimilaritysearch_tpu_torch import native, native_build
+from sessionsimilaritysearch_tpu_torch.config import tiny_test_config
+from sessionsimilaritysearch_tpu_torch.data import (
     SessionGraph,
     SyntheticSessionGenerator,
     batch_graphs,
     build_graph_batch,
     sequence_to_graph,
 )
-from sessionsimilaritysearch_tpu.tokenizer import get_tokenizer
-from sessionsimilaritysearch_tpu_torch import native_build
+from sessionsimilaritysearch_tpu_torch.tokenizer import get_tokenizer
 
 
 @pytest.fixture
-def serial_library(tmp_path, monkeypatch):
+def toolchain():
     if shutil.which("make") is None or shutil.which("g++") is None:
         pytest.skip("needs make and a C++ compiler (g++)")
-    for src in native_build.NATIVE_DIR.iterdir():
-        if src.suffix in (".cpp", ".h") or src.name == "Makefile":
-            shutil.copy(src, tmp_path / src.name)
+
+
+@pytest.fixture
+def serial_library(toolchain, tmp_path, monkeypatch):
+    for name in native_build.SOURCES:
+        shutil.copy(native_build.NATIVE_DIR / name, tmp_path / name)
     assert native_build.build_native_library(tmp_path, openmp=False)
-    # point the shared loader at the copy; monkeypatch restores it after
+    assert not list(tmp_path.glob("*.o"))  # built in a scratch copy
+    # point the port's loader at the copy; monkeypatch restores it after
     monkeypatch.setattr(native, "_SO", str(tmp_path / native_build.LIBRARY))
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", False)
@@ -56,7 +60,10 @@ def test_serial_flags_are_the_makefile_flags_without_openmp():
     assert native_build.SERIAL_CXXFLAGS.split() == [f for f in flags if f != "-fopenmp"]
 
 
-def test_ensure_reports_the_present_library():
-    if not (native_build.NATIVE_DIR / native_build.LIBRARY).exists():
-        pytest.skip("the shared library was not built in this checkout")
-    assert native_build.ensure_native_library() in ("present", "openmp", "serial")
+def test_ensure_reports_the_present_library(toolchain):
+    # builds the library into the port's own native/ directory when it is
+    # missing; the JAX package's directory is never written
+    kind = native_build.ensure_native_library()
+    assert kind in ("present", "openmp", "serial")
+    assert (native_build.NATIVE_DIR / native_build.LIBRARY).exists()
+    assert native_build.NATIVE_DIR.parent.name == "sessionsimilaritysearch_tpu_torch"

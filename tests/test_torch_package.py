@@ -1,9 +1,9 @@
-"""Package-level rules of the PyTorch port: it never imports JAX, it has no
-CPU fallback for a CUDA device, its kernel build fails loudly, and
-chip_smoke.py refuses to run without a card."""
+"""Package-level rules of the PyTorch port: it imports neither JAX nor the
+JAX package, it has no CPU fallback for a CUDA device, its kernel build
+fails loudly, and chip_smoke.py refuses to run without a card."""
 
+import ast
 import os
-import pkgutil
 import shutil
 import subprocess
 import sys
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import sessionsimilaritysearch_tpu_torch as port
-from sessionsimilaritysearch_tpu.config import tiny_test_config
+from sessionsimilaritysearch_tpu_torch.config import tiny_test_config
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
 from sessionsimilaritysearch_tpu_torch.models.encoder import build_graph_encoder
@@ -23,16 +23,22 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _port_modules():
-    return sorted(
-        m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")
-    )
+    # from the .py files: the package directory also holds the native
+    # library, which is no Python module
+    root = Path(port.__path__[0])
+    mods = []
+    for f in sorted(root.rglob("*.py")):
+        parts = f.relative_to(root.parent).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
 
 
 def test_port_never_imports_jax():
     mods = _port_modules()
     for name in ("engine", "weights", "native_build", "index.binary",
                  "index.twostage", "ops.hamming", "ops.packed", "ops.popcount",
-                 "ops.projection"):
+                 "ops.projection", "ops.mips_int8", "config", "tokenizer",
+                 "data.graph", "data.loader", "native", "evalharness.metrics"):
         assert f"sessionsimilaritysearch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -46,6 +52,59 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def _jax_package_or_jax(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "flax", "optax", "sessionsimilaritysearch_tpu")
+
+
+def test_serving_on_the_cpu_loads_no_jax_package():
+    # a fresh interpreter builds and searches a tiny dense and int8x8 engine
+    # on the CPU; neither the JAX package nor JAX may be loaded afterwards
+    code = (
+        "import sys\n"
+        "import sessionsimilaritysearch_tpu_torch as port\n"
+        "cfg = port.tiny_test_config()\n"
+        "tok = port.get_tokenizer(cfg.vocab_size)\n"
+        "data = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0).dataset(24)\n"
+        "enc = port.build_graph_encoder(cfg, 'cpu')\n"
+        "for quantize in (None, 'int8x8'):\n"
+        "    eng = port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,\n"
+        "                                   capacity=32, batch_size=8, device='cpu',\n"
+        "                                   quantize=quantize)\n"
+        "    eng.add_sessions(data)\n"
+        "    D, I = eng.search(data[:4], k=3)\n"
+        "    assert (I[:, 0] == range(4)).all(), I\n"
+        "    eng.report(data[:4], I, D)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'sessionsimilaritysearch_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_no_source_imports_the_jax_package():
+    # every module of the port and chip_smoke.py, read as source: no import
+    # statement names JAX or the JAX package, at any depth of the file
+    files = sorted(Path(port.__path__[0]).rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{f.relative_to(REPO)}:{node.lineno} {n}" for n in names
+                    if _jax_package_or_jax(n)]
+    assert not bad, bad
 
 
 def test_cuda_without_a_card_raises():
@@ -93,7 +152,9 @@ def test_library_path_is_keyed_on_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libsss_kernels_") and path.suffix == ".so"
     assert path == _build.library_path()  # stable for unchanged sources
-    for src in ("scores_bmax.cu", "packed_scores_bmax.cu", "hamming_bucket_min.cu"):
+    for src in ("scores_bmax.cu", "packed_scores_bmax.cu", "hamming_bucket_min.cu",
+                "scores_bmax_int8.cu", "bucket_max.cu", "scores_matmul.cu",
+                "score_tile.cuh"):
         assert (_build.CSRC / src).exists()
 
 

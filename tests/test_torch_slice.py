@@ -8,6 +8,8 @@ sums in another order through the whole encoder); cosine scores 1e-5; the
 port's ids must reach value-recall 1.0 at rel_tol 1e-5 against the rows it
 stores."""
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -25,7 +27,9 @@ from sessionsimilaritysearch_tpu_torch.engine import (
     _session_key,
 )
 from sessionsimilaritysearch_tpu_torch.models.encoder import build_graph_encoder
-from sessionsimilaritysearch_tpu_torch.ops import mips, packed
+from sessionsimilaritysearch_tpu_torch.config import tiny_test_config as port_tiny_config
+from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+from sessionsimilaritysearch_tpu_torch.tokenizer import get_tokenizer as port_tokenizer
 from sessionsimilaritysearch_tpu_torch.ops.topk import value_recall_at_k
 from sessionsimilaritysearch_tpu_torch.weights import flax_to_state_dict
 
@@ -47,11 +51,19 @@ def parts():
     return cfg, tok, data, encode_fn, tenc
 
 
-def _engines(parts, data):
+def _port_side(cfg):
+    """The port's own config and tokenizer, equal to the JAX package's
+    (tests/test_torch_shared.py), for the port's engines."""
+    pcfg = port_tiny_config()
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(cfg)
+    return pcfg, port_tokenizer(pcfg.vocab_size)
+
+
+def _engines(parts, data, **opts):
     cfg, tok, _, encode_fn, tenc = parts
-    kw = dict(dim=cfg.session_emb_dim, capacity=64, batch_size=8)
+    kw = dict(dim=cfg.session_emb_dim, capacity=64, batch_size=8, **opts)
     j = JaxEngine(cfg, tok, encode_fn, **kw)
-    t = SessionSearchEngine(cfg, tok, tenc, device="cpu", **kw)
+    t = SessionSearchEngine(*_port_side(cfg), tenc, device="cpu", **kw)
     j.add_sessions(data)
     t.add_sessions(data)
     return j, t
@@ -128,11 +140,23 @@ def test_where_filter(parts):
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"quantize": "int8"},
                                 {"prefilter": "binary"}, {"center": "auto"}])
 def test_unported_engine_options_raise(parts, kw):
-    # the port's engine has no mesh, quantize or center options yet: a call
-    # that sets one is rejected, never served by the plain dense path; a
-    # prefilter with the default stage1='matmul' (approximate selection)
-    # raises naming its ROADMAP item
-    cfg, tok, _, _, tenc = parts
+    # the port's engine has no mesh or center options yet: a call that sets
+    # one is rejected, never served by the plain dense path; a prefilter
+    # with the default stage1='matmul' (approximate selection) raises naming
+    # its ROADMAP item. quantize is ported since: it builds and searches.
+    cfg, tok, data, _, tenc = parts
+    if "quantize" in kw:
+        t = SessionSearchEngine(*_port_side(cfg), tenc, dim=cfg.session_emb_dim,
+                                capacity=64, batch_size=8, device="cpu", **kw)
+        t.add_sessions(data[:20])
+        _, It = t.search(data[:5], k=3)
+        assert t.index.quantize == "int8"
+        np.testing.assert_array_equal(It[:, 0], np.arange(5))
+        with pytest.raises(ValueError, match="drop quantize"):
+            SessionSearchEngine(*_port_side(cfg), tenc, dim=cfg.session_emb_dim,
+                                capacity=8, device="cpu", prefilter="itq",
+                                stage1="packed", **kw)
+        return
     err, match = ((NotImplementedError, "Queue 1 item 2") if "prefilter" in kw
                   else (TypeError, next(iter(kw))))
     with pytest.raises(err, match=match):
@@ -151,7 +175,7 @@ def test_twostage_itq_engine_matches_jax(parts):
     kw = dict(dim=cfg.session_emb_dim, capacity=64, batch_size=8,
               prefilter="itq", stage1="packed", projector=proj, pool=64)
     j = JaxEngine(cfg, tok, encode_fn, **kw)
-    t = SessionSearchEngine(cfg, tok, tenc, device="cpu", **kw)
+    t = SessionSearchEngine(*_port_side(cfg), tenc, device="cpu", **kw)
     j.add_sessions(data)
     t.add_sessions(data)
     assert t.index.store_dtype == torch.bfloat16  # dtype=None: the default
@@ -160,3 +184,29 @@ def test_twostage_itq_engine_matches_jax(parts):
     np.testing.assert_allclose(Dt, Dj, atol=TOL, rtol=0)
     np.testing.assert_array_equal(It[:, 0], np.arange(10))  # self top-1
     assert packed.launch_count == 0  # CPU tensors take the plain version
+
+
+def test_int8x8_engine_matches_jax(parts):
+    # both engines store int8 codes and quantize the queries per row: the
+    # same embeddings (to 1e-5) give the same codes, so the scores agree to
+    # 1e-5; the port's are also checked against the rows it stores
+    _, _, data, _, _ = parts
+    j, t = _engines(parts, data, quantize="int8x8")
+    assert t.index.quantize == "int8x8" and t.index._buf.dtype == torch.int8
+    Dj, Ij = j.search(data[:10], k=5)
+    Dt, It = t.search(data[:10], k=5)
+    np.testing.assert_array_equal(It[:, 0], np.arange(10))  # self top-1
+    np.testing.assert_allclose(Dt, Dj, atol=TOL, rtol=0)
+    assert (It == Ij).mean() > 0.9  # ties may swap
+    # the port's own values: its dequantized query codes against its rows
+    q = t.embed(data[:10])
+    qb = torch.from_numpy(q).bfloat16()
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+
+    codes, scales = mips_int8.quantize_rows_int8(l2_normalize(qb).bfloat16())
+    deq = (codes.double() * scales.double()[:, None]).numpy()
+    stored = t.reconstruct(np.arange(t.index.ntotal))
+    true = np.take_along_axis(deq @ stored.T.astype(np.float64), It, axis=1)
+    np.testing.assert_allclose(Dt, true, rtol=1e-5, atol=0)
+    assert value_recall_at_k(It, deq, stored, 5, rel_tol=TOL) == 1.0
+    assert mips_int8.launch_count == 0  # CPU tensors take the plain version
