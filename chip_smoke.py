@@ -8,24 +8,38 @@ Run from the repository root on a machine with one NVIDIA GPU:
 It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
 
 1. device   -- a CUDA device must be visible; otherwise exit 1, no result;
-2. kernel   -- the fused score + bucket-max kernel against its plain PyTorch
-               version: a ragged case (q=37, n=5003, d=200; f32 and bf16;
-               valid_count mid-bucket; 10% of rows masked by the penalty)
-               and the bench point (q=1024, n=2^20, d=1600, bf16, k=100),
-               both timed with CUDA events;
+2. kernel   -- K1, the fused score + bucket-max kernel, against its plain
+               PyTorch version: a ragged case (q=37, n=5003, d=200; f32
+               operands on the tile variant csrc/scores_bmax.cu, bf16 on the
+               wgmma variant csrc/scores_bmax_sm90.cu; valid_count
+               mid-bucket; 10% of rows masked by the penalty) and the bench
+               point (q=1024, n=2^20, d=1600, bf16, k=100, wgmma variant)
+               beside one cuBLAS bf16 GEMM, timed with CUDA events;
 3. index    -- DenseIndex(1600, 2^20, bf16 storage and scores) filled with
-               2^20 seeded unit rows, searched with 1024 queries at k=100;
-               value-recall@10 >= 0.999 against the f64 numpy oracle on a
-               65,536-row subcorpus at two bf16 ulps; the kernel against its
-               plain version on one 65,536-row chunk as search() passes it;
+               2^20 seeded unit rows, searched with 1024 queries at k=100:
+               the wgmma K1 launched 16 times per search (one per
+               65,536-row chunk); value-recall@10 >= 0.999 against the f64
+               numpy oracle on a 65,536-row subcorpus at two bf16 ulps; the
+               kernel against its plain version on one chunk as search()
+               passes it;
 4. engine   -- the flagship GraphLevelEncoder at Config() width with seeded
-               random weights inside SessionSearchEngine: ingest 8,192
-               synthetic sessions, search 256 of them at k=100 (every top-1
-               score within 1e-3 of 1.0); the kernel against its plain
-               version on the engine's own f32 queries and corpus (d=1600),
-               and search()'s scores against the plain top-100; 8 sessions
+               random weights inside SessionSearchEngine (f32 storage, the
+               default): ingest 8,192 synthetic sessions, search 256 of them
+               at k=100 (every top-1 score within 1e-3 of 1.0); K1's f32
+               tile variant only (no wgmma launch), against its plain
+               version on the engine's own f32 queries and corpus (d=1600)
+               beside cuBLAS SGEMM (TF32 off) and its 67 TFLOP/s bound, and
+               search()'s scores against the plain top-100; 8 sessions
                encoded on the card and on the CPU with the same weights
-               must agree.
+               must agree;
+4b. bf16 engine -- the same encoder and sessions in an engine with
+               dtype=torch.bfloat16: ingest, search 256 at k=100 (top-1
+               within two bf16 ulps of 1.0), every K1 launch the wgmma
+               variant, which equals its plain version on the engine's own
+               bf16 queries and rows (beside a cuBLAS bf16 GEMM);
+4c. f32 kernel -- K1's f32 instantiation at q=1024, n=2^20, d=1600 f32 ->
+               f32 against its plain version, beside cuBLAS SGEMM (TF32 off)
+               and its 67 TFLOP/s bound;
 
 5. packed kernel -- K4 (csrc/packed_scores_bmax.cu) against its plain
                version: a ragged case (q=37, three 2048-row pack blocks,
@@ -37,7 +51,7 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                K4's at the same shape, and ops.hamming.hamming_topk (K5's
                path) giving the same top-100 distances as K4;
 7. binary index -- BinaryIndex(250 bits, 2^20 rows), packed (K4) and sign
-               (K1) modes, 1024 queries at k=100: sorted distances equal a
+               (K1's tile variant: 250-wide rows are no TMA stride) modes, 1024 queries at k=100: sorted distances equal a
                plain f32 product over the same codes;
 8. two-stage index -- TwoStageIndex(1600-d, 2^20 rows, 'itq' 250-bit codes
                fitted on a 32,768-row sample, packed stage 1, pool 128, bf16
@@ -80,7 +94,9 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
 Before phase 4 the shared native graph builder must load (built without
 OpenMP where the compiler has no OpenMP runtime; the build used is printed).
 The second-to-last line is a JSON object describing each of the six
-kernels: the launches counted on its path (K1: phase 4's engine; K4: phase
+kernels: the launches counted on its path (K1: phase 4's f32 engine, and
+``wgmma_launches`` phase 4b's bf16 engine; K1's times and bound are the
+wgmma variant's at the bench point, ``tile_f32`` the f32 instantiation's; K4: phase
 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine; K3: phase
 13's bucketed_topk; K6: phase 14's scores_matmul), its largest error
 against its plain version, its time, the plain version's, the bound (the
@@ -109,6 +125,7 @@ BF16_TOL = 2 * 2.0**-8  # two bf16 ulps, relative to the per-query scale
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
+PEAK_F32 = 67e12  # outside the tensor cores: K1's exact f32 loop
 SMS = 132
 
 
@@ -194,6 +211,11 @@ def phase_kernel_ragged(torch, mips, topk_mod, dev):
         pen = torch.where(torch.rand(5003, generator=g, device=dev) < 0.1,
                           float("-inf"), 0.0)
         vc = 4037  # mid-bucket: 4037 = 31 * 128 + 69
+        variant = mips.k1_variant(dev.type, dt, 200, (q.data_ptr(), c.data_ptr()))
+        w0 = mips.wgmma_launch_count
+        mips.scores_with_bucket_max(q, c, vc, pen, dt)
+        check(mips.wgmma_launch_count - w0 == (variant == "wgmma"),
+              f"ragged {dt}: the {variant} variant was not the one launched")
         ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(q, c, vc, pen, dt), 20)
         plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(
             q, c, vc, pen, dt), 20)
@@ -226,7 +248,8 @@ def phase_kernel_ragged(torch, mips, topk_mod, dev):
                            1e-5 if dt == torch.float32 else BF16_TOL)
         check(rec == 1.0, f"ragged {dt}: value-recall@10 {rec}")
         errs.append(bm_err)
-        print(f"kernel ragged q=37 n=5003 d=200 {str(dt)[6:]}: kernel {ms:.4f} ms, "
+        print(f"kernel ragged q=37 n=5003 d=200 {str(dt)[6:]} ({variant} variant): "
+              f"kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms; bmax max_abs_err {bm_err:.3g}, scores max "
               f"rel err {s_rel:.3g}, top-10 max_abs_err {v_err:.3g}, "
               f"value-recall@10 {rec}")
@@ -243,9 +266,13 @@ def phase_kernel_bench(torch, mips, topk_mod, dev):
     queries = torch.randn(q_n, d, generator=g, device=dev)
     queries = (queries / queries.norm(dim=1, keepdim=True)).bfloat16()
     bf = torch.bfloat16
+    check(mips.k1_variant(dev.type, bf, d, (queries.data_ptr(), corpus.data_ptr()))
+          == "wgmma", "bench point: not the wgmma variant")
 
+    w0 = mips.wgmma_launch_count
     ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(
         queries, corpus, score_dtype=bf), 5)
+    check(mips.wgmma_launch_count - w0 == 6, "bench point: the wgmma variant did not run")
     plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(
         queries, corpus, score_dtype=bf), 3)
     # the library yardstick: one cuBLAS bf16 GEMM of the same operands (its
@@ -271,7 +298,8 @@ def phase_kernel_bench(torch, mips, topk_mod, dev):
     check(s_err <= 2.0**-8, f"bench point: scores max_abs_err {s_err}")
     check(v_err <= 2.0**-8, f"bench point: top-{k} values max_abs_err {v_err}")
     check(rec == 1.0, f"bench point: value-recall@{k} {rec}")
-    print(f"kernel bench point q={q_n} n={n} d={d} bf16->bf16: kernel {ms:.3f} ms "
+    print(f"kernel bench point q={q_n} n={n} d={d} bf16->bf16 (wgmma variant, "
+          f"csrc/scores_bmax_sm90.cu): kernel {ms:.3f} ms "
           f"({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS bf16 GEMM "
           f"{lib_ms:.3f} ms; bmax max_abs_err "
           f"{bm_err:.3g}, scores max_abs_err {s_err:.3g}, top-{k} max_abs_err "
@@ -299,15 +327,18 @@ def phase_index(torch, mips, topk_mod, dev):
     queries = torch.randn(q_n, d, generator=g, device=dev)
     queries = queries / queries.norm(dim=1, keepdim=True)
 
-    mips.launch_count = 0
+    mips.launch_count = mips.wgmma_launch_count = 0
     D, I = idx.search(queries, 100)  # warm-up
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
         D, I = idx.search(queries, 100)  # returns numpy: includes the sync
         times.append(time.perf_counter() - t0)
-    launches = mips.launch_count
-    check(launches >= 4 * (n // idx.chunk_size), f"index: launch count {launches}")
+    launches, wgmma = mips.launch_count, mips.wgmma_launch_count
+    chunks = n // idx.chunk_size
+    check(launches >= 4 * chunks, f"index: launch count {launches}")
+    check(wgmma == 4 * chunks, f"index: {wgmma} wgmma K1 launches in 4 searches of "
+          f"{chunks} chunks")
     check(np.isfinite(D).all() and (np.diff(D, axis=1) <= 0).all(),
           "index: scores not finite and descending")
     check(((I >= 0) & (I < n)).all(), "index: ids out of range")
@@ -346,7 +377,8 @@ def phase_index(torch, mips, topk_mod, dev):
     best = min(times)
     print(f"index 2^20 x 1600 bf16/bf16: fill {fill_s:.2f} s; search 1024 queries "
           f"k=100: {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS), "
-          f"{launches} kernel launches; value-recall@10 {rec} (set recall "
+          f"{launches} kernel launches ({wgmma // 4} wgmma K1 launches per search); "
+          f"value-recall@10 {rec} (set recall "
           f"{set_rec}) on the 65,536-row subcorpus; one {idx.chunk_size}-row chunk, "
           f"kernel vs plain: bmax max_abs_err {bm_err:.3g}, scores max_abs_err "
           f"{s_err:.3g}, top-100 max_abs_err {v_err:.3g}")
@@ -370,7 +402,7 @@ def phase_engine(torch, mips, topk_mod, dev):
     eng.embed(data[:8])  # warm-up, counted as set-up: cuBLAS picks its kernels
     setup_s = time.perf_counter() - t0
 
-    mips.launch_count = 0  # count the main path's launches from here
+    mips.launch_count = mips.wgmma_launch_count = 0  # the main path's launches
     t0 = time.perf_counter()
     eng.add_sessions(data)
     ingest_s = time.perf_counter() - t0
@@ -378,6 +410,7 @@ def phase_engine(torch, mips, topk_mod, dev):
     D, I = eng.search(data[:256], k=100)
     search_s = time.perf_counter() - t0
     launches = mips.launch_count
+    check(mips.wgmma_launch_count == 0, "engine: the f32 engine launched the wgmma K1")
 
     check(eng.index.ntotal == 8192, f"engine: ntotal {eng.index.ntotal}")
     check(D.shape == (256, 100) and np.isfinite(D).all(), "engine: bad result")
@@ -394,6 +427,11 @@ def phase_engine(torch, mips, topk_mod, dev):
     corpus = eng.index._buf[: eng.index.ntotal]
     ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(qs, corpus), 10)
     plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(qs, corpus), 10)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(qs, corpus.T), 10)  # SGEMM, TF32 off
+    q_n, n_c, d = qs.shape[0], corpus.shape[0], qs.shape[1]
+    f32_small = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                 **bound_ms(4 * (q_n * d + n_c * d + q_n * n_c) + q_n * (n_c // 128) * 4,
+                            2 * q_n * n_c * d, PEAK_F32)}
     s, bm = mips.scores_with_bucket_max(qs, corpus)
     s_ref, bm_ref = mips.scores_with_bucket_max_ref(qs, corpus)
     bm_err = (bm - bm_ref).abs().max().item()
@@ -423,13 +461,109 @@ def phase_engine(torch, mips, topk_mod, dev):
           f"top-1 |score-1| max {top1_err:.3g}, self-hit ids {self_hits:.4f}; "
           f"card vs CPU encoder max_abs_err {enc_err:.3g} of scale {scale:.3g}; "
           f"kernel launches {launches}")
-    print(f"engine search shape q=256 n=8192 d=1600 f32->f32, kernel vs plain: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bmax max_abs_err "
+    print(f"engine search shape q=256 n=8192 d=1600 f32->f32 (tile variant, "
+          f"csrc/scores_bmax.cu; 0 wgmma launches on the path), kernel vs plain: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul f32 (TF32 off) "
+          f"{lib_ms:.4f} ms, bound {f32_small['bound_ms']:.4f} ms "
+          f"({f32_small['bound_by']}); bmax max_abs_err "
           f"{bm_err:.3g}, scores max_abs_err {s_err:.3g}, top-100 max_abs_err "
           f"{v_err:.3g}, search() top-100 vs plain max_abs_err {d_err:.3g}")
     print(f"engine stats: {json.dumps(stats)}")
     corpus = eng.index.reconstruct_batch(np.arange(eng.index.ntotal))
-    return launches, bm_err, (cfg, tok, enc, data, corpus)
+    return launches, bm_err, f32_small, (cfg, tok, enc, data, corpus)
+
+
+def phase_bf16_engine(torch, mips, topk_mod, dev, parts):
+    import sessionsimilaritysearch_tpu_torch as port
+
+    cfg, tok, enc, data, _ = parts
+    eng = port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,
+                                   capacity=65536, device=dev, dtype=torch.bfloat16)
+    mips.launch_count = mips.wgmma_launch_count = 0  # the path's launches from ingest on
+    t0 = time.perf_counter()
+    eng.add_sessions(data)
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    D, I = eng.search(data[:256], k=100)
+    search_s = time.perf_counter() - t0
+    launches, wgmma = mips.launch_count, mips.wgmma_launch_count
+    idx = eng.index
+    chunks = -(-idx.ntotal // idx.chunk_size)
+    check(idx.ntotal == len(data), f"bf16 engine: ntotal {idx.ntotal}")
+    check(D.shape == (256, 100) and np.isfinite(D).all(), "bf16 engine: bad result")
+    check(wgmma == chunks and launches == chunks,
+          f"bf16 engine: {wgmma} wgmma K1 launches of {launches} for {chunks} chunk(s)")
+    # a session's own bf16 row against its bf16 query: two bf16 ulps of 1.0
+    top1_err = float(np.abs(D[:, 0] - 1.0).max())
+    check(top1_err <= BF16_TOL, f"bf16 engine: top-1 score off 1.0 by {top1_err}")
+
+    # the wgmma K1 against its plain version on the engine's own inputs: the
+    # queries cast and normalized in bf16 as search() takes them, and the
+    # stored bf16 rows
+    bf = torch.bfloat16
+    qb = topk_mod.l2_normalize(eng.embed(data[:256], out="device").to(bf)).to(bf).contiguous()
+    corpus = idx._buf[: idx.ntotal]
+    sd = idx.score_dtype
+    ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(qb, corpus, score_dtype=sd), 10)
+    plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(
+        qb, corpus, score_dtype=sd), 10)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(qb, corpus.T), 10)
+    s, bm = mips.scores_with_bucket_max(qb, corpus, score_dtype=sd)
+    s_ref, bm_ref = mips.scores_with_bucket_max_ref(qb, corpus, score_dtype=sd)
+    bm_err = (bm - bm_ref).abs().max().item()
+    s_err = (s.float() - s_ref.float()).abs().max().item()
+    v_ref, _ = mips.select_topk(s_ref, bm_ref, 100)
+    d_err = float(np.abs(D - v_ref.cpu().numpy()).max())
+    # unit rows, |s| <= 1: f32 sums of exact bf16 products in another order
+    check(bm_err <= 1e-5, f"bf16 engine: bmax max_abs_err {bm_err}")
+    check(s_err <= 1e-5, f"bf16 engine: scores max_abs_err {s_err}")
+    check(d_err <= 1e-5, f"bf16 engine: search() vs plain top-100 max_abs_err {d_err}")
+    print(f"bf16 engine Config() (dtype=bfloat16, {str(sd)[6:]} scores): ingest "
+          f"{len(data)} sessions {ingest_s:.2f} s ({len(data) / ingest_s:.0f} sessions/s); "
+          f"search 256 k=100 {search_s * 1e3:.1f} ms; top-1 |score-1| max {top1_err:.3g}, "
+          f"self-hit ids {float((I[:, 0] == np.arange(256)).mean()):.4f}; K1 launches "
+          f"{launches}, all wgmma variant ({wgmma}); engine's inputs q=256 n={idx.ntotal} "
+          f"d={qb.shape[1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuBLAS bf16 GEMM "
+          f"{lib_ms:.4f} ms; bmax max_abs_err {bm_err:.3g}, scores max_abs_err "
+          f"{s_err:.3g}, search() top-100 vs plain {d_err:.3g}")
+    print(f"bf16 engine stats: {json.dumps(eng.stats())}")
+    return wgmma, bm_err
+
+
+def phase_f32_kernel(torch, mips, dev):
+    """K1's f32 instantiation (the tile variant, exact FMA) at the bench
+    point, beside cuBLAS SGEMM with TF32 off."""
+    q_n, n, d = 1024, 1 << 20, 1600
+    g = torch.Generator(device=dev).manual_seed(10)
+    corpus = unit_rows(torch, g, n, d, dev).float()
+    queries = unit_rows(torch, g, q_n, d, dev).float()
+    check(mips.k1_variant(dev.type, queries.dtype, d, (queries.data_ptr(), corpus.data_ptr()))
+          == "tile", "f32 bench point: not the tile variant")
+    check(not torch.backends.cuda.matmul.allow_tf32, "f32 bench point: TF32 is on")
+    w0 = mips.wgmma_launch_count
+    ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(queries, corpus), 2)
+    check(mips.wgmma_launch_count == w0, "f32 bench point: the wgmma K1 ran")
+    plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(queries, corpus), 2)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(queries, corpus.T), 3)
+    s, bm = mips.scores_with_bucket_max(queries, corpus)
+    s_ref, bm_ref = mips.scores_with_bucket_max_ref(queries, corpus)
+    bm_err = (bm - bm_ref).abs().max().item()
+    s_err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item()
+                for r in range(0, q_n, 64))
+    # unit rows, |s| <= 1: f32 sums of f32 products in another order
+    check(bm_err <= 1e-5, f"f32 bench point: bmax max_abs_err {bm_err}")
+    check(s_err <= 1e-5, f"f32 bench point: scores max_abs_err {s_err}")
+    del s, s_ref, bm, bm_ref, corpus, queries
+    torch.cuda.empty_cache()
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           **bound_ms(4 * (q_n * d + n * d + q_n * n) + q_n * (n // 128) * 4,
+                      2 * q_n * n * d, PEAK_F32)}
+    print(f"f32 kernel bench point q={q_n} n={n} d={d} f32->f32 (tile variant): kernel "
+          f"{ms:.3f} ms ({2 * q_n * n * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+          f"{plain_ms:.3f} ms, torch.matmul f32 (cuBLAS SGEMM, TF32 off) {lib_ms:.3f} ms, "
+          f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}, 67 TFLOP/s); bmax "
+          f"max_abs_err {bm_err:.3g}, scores max_abs_err {s_err:.3g}")
+    return max(bm_err, s_err), out
 
 
 def random_signs(torch, g, rows, bits, dev):
@@ -576,6 +710,7 @@ def phase_hamming_kernel(torch, dev, bench, k4_ms):
 
 def phase_binary_index(torch, dev):
     from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
+    from sessionsimilaritysearch_tpu_torch.ops import mips
 
     n, n_bits, q_n, k = 1 << 20, 250, 1024, 100
     g = torch.Generator(device=dev).manual_seed(4)
@@ -589,7 +724,14 @@ def phase_binary_index(torch, dev):
         idx = BinaryIndex(n_bits, n, mode, device=dev)
         for s in range(0, n, 1 << 16):
             idx.add(codes[s: s + (1 << 16)])
+        k1, k1w = mips.launch_count, mips.wgmma_launch_count
         d, i = idx.search_device(queries, k)  # warm-up
+        variant = ("" if mode == "packed" else
+                   f" (K1 tile variant: {mips.launch_count - k1} launch, "
+                   f"{mips.wgmma_launch_count - k1w} wgmma)")
+        if mode == "sign":
+            check(mips.launch_count > k1 and mips.wgmma_launch_count == k1w,
+                  "binary index sign: not K1's tile variant")
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -603,9 +745,9 @@ def phase_binary_index(torch, dev):
         check(torch.equal(true, got[:, :5]), f"binary index {mode}: ids do not "
               "have their distances")
         best = min(times)
-        print(f"binary index {mode} 2^20 x {n_bits} bits: search 1024 queries k={k} "
-              f"{best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); sorted distances "
-              f"equal the plain product's")
+        print(f"binary index {mode} 2^20 x {n_bits} bits{variant}: search 1024 queries "
+              f"k={k} {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); sorted "
+              f"distances equal the plain product's")
         del idx
     del codes
     torch.cuda.empty_cache()
@@ -1094,8 +1236,11 @@ def main() -> int:
     err_bench, k1 = run_phase(torch, "kernel bench point", phase_kernel_bench,
                               torch, mips, topk_mod, dev)
     err_index = run_phase(torch, "index", phase_index, torch, mips, topk_mod, dev)
-    launches, err_engine, parts = run_phase(torch, "engine", phase_engine, torch,
-                                            mips, topk_mod, dev)
+    launches, err_engine, f32_small, parts = run_phase(torch, "engine", phase_engine, torch,
+                                                       mips, topk_mod, dev)
+    wgmma_launches, err_bf16_engine = run_phase(torch, "bf16 engine", phase_bf16_engine,
+                                                torch, mips, topk_mod, dev, parts)
+    err_f32, f32_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch, mips, dev)
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
     k5 = run_phase(torch, "hamming kernel", phase_hamming_kernel, torch, dev,
                    bench, k4["ms"])
@@ -1117,14 +1262,23 @@ def main() -> int:
     tpu = "sessionsimilaritysearch_tpu/ops/pallas_mips.py:"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
-    def entry(name, replaces, launches, err, m):
-        return {"name": name, "route": "cuda", "source": f"{src}{name}.cu",
+    def entry(name, replaces, launches, err, m, source=None):
+        return {"name": name, "route": "cuda", "source": src + (source or f"{name}.cu"),
                 "replaces": tpu + replaces, "launches": launches, "max_abs_err": err,
                 **{key: m[key] for key in keys}}
 
+    # K1: the bench point's numbers are the wgmma variant's; `launches` is the
+    # f32 engine's (the tile variant), `wgmma_launches` the bf16 engine's;
+    # `tile_f32` holds the f32 instantiation at the bench point and at the
+    # f32 engine's shape
+    k1_entry = entry("scores_bmax", "144", launches,
+                     max(err_ragged, err_bench, err_index, err_engine, err_bf16_engine,
+                         err_f32), k1, "scores_bmax_sm90.cu")
+    k1_entry.update(wgmma_launches=wgmma_launches, tile_source=f"{src}scores_bmax.cu",
+                    tile_f32={"q1024_n1048576_d1600": f32_bench,
+                              "q256_n8192_d1600": f32_small})
     print(json.dumps({"kernels": [
-        entry("scores_bmax", "144", launches,
-              max(err_ragged, err_bench, err_index, err_engine), k1),
+        k1_entry,
         entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4),
         entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5),
         entry("scores_bmax_int8", "428", k2_launches, k2["err"], k2),

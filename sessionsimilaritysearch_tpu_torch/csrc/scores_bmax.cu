@@ -24,12 +24,13 @@
 // What bounds it on an H100: at q=1024, n=2^20, d=1600 in bf16 the call is
 // 3.4 TFLOP against ~3.4 GB of corpus reads and ~2.1 GB of bf16 score writes,
 // so it is compute-bound; at a few queries it is bound by the corpus read.
-// This first version is simple on purpose: the tile loop of score_tile.cuh
-// (bf16 on the tensor cores through WMMA, fed by a two-stage cp.async
-// pipeline; f32 as an exact FMA loop, no TF32). Queries are the fastest
-// grid dimension, so the blocks that share a corpus tile run together and the
-// tile comes from HBM once and from L2 after. wgmma, TMA and persistent
-// blocks are later work.
+// The tile loop of score_tile.cuh (bf16 on the tensor cores through WMMA,
+// fed by a two-stage cp.async pipeline; f32 as an exact FMA loop, no TF32).
+// Queries are the fastest grid dimension, so the blocks that share a corpus
+// tile run together and the tile comes from HBM once and from L2 after.
+// This kernel serves f32 operands and bf16 rows that TMA cannot describe
+// (d % 8 != 0 or unaligned bases); other bf16 rows run the TMA-fed wgmma
+// kernel of scores_bmax_sm90.cu (ops/mips.py k1_variant chooses).
 
 #include <math.h>
 

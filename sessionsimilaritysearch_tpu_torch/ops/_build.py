@@ -7,6 +7,11 @@ all started together, and one more ``nvcc`` links the objects. The library's
 name carries a hash of the sources and the flags, so a second run reuses it
 and an edit rebuilds it. A missing ``nvcc`` or a failed build raises with
 the compiler's output: there is no path that carries on without the kernels.
+
+K1's Hopper variant (``csrc/scores_bmax_sm90.cu``) encodes TMA tensor maps
+with the driver's ``cuTensorMapEncodeTiled``, which it reaches at run time
+through the CUDA runtime's driver entry point
+(``cudaGetDriverEntryPointByVersion``): the link needs no ``-lcuda``.
 """
 
 from __future__ import annotations
@@ -121,6 +126,12 @@ def load_library() -> ctypes.CDLL:
                 i32, i32,                  # in_bf16, out_bf16
                 ptr,                       # stream
             ]
+            lib.sss_scores_bmax_sm90.argtypes = [
+                ptr, ptr, ptr, ptr, ptr,   # queries, corpus, penalty, scores, bmax
+                i32, i32, i32, i32,        # q, n, d, valid_count
+                i32,                       # out_bf16
+                ptr,                       # stream
+            ]
             lib.sss_packed_scores_bmax.argtypes = [
                 ptr, ptr, ptr, ptr, ptr,   # queries, words, penalty, scores, bmax
                 i32, i32, i32, i32,        # q, n, bits, valid_count
@@ -151,7 +162,8 @@ def load_library() -> ctypes.CDLL:
                 i32,                       # in_bf16
                 ptr,                       # stream
             ]
-            for fn in (lib.sss_scores_bmax, lib.sss_packed_scores_bmax,
+            for fn in (lib.sss_scores_bmax, lib.sss_scores_bmax_sm90,
+                       lib.sss_packed_scores_bmax,
                        lib.sss_hamming_bucket_min, lib.sss_scores_bmax_int8,
                        lib.sss_bucket_max, lib.sss_scores_matmul):
                 fn.restype = i32

@@ -6,7 +6,10 @@ Ports of the TPU kernels of ``sessionsimilaritysearch_tpu/ops/pallas_mips.py``:
 
 - K1: :144 ``_scores_bmax_kernel`` -> :177 ``scores_with_bucket_max`` -> :377
   ``pallas_exact_topk`` with the selection :408 ``_select_exact_from_scores``;
-  kernel ``csrc/scores_bmax.cu``, plain version
+  two kernels, chosen by :func:`k1_variant`: ``csrc/scores_bmax_sm90.cu``
+  (TMA-fed ``wgmma``, persistent, for bf16 rows TMA can describe) and
+  ``csrc/scores_bmax.cu`` (the ``score_tile.cuh`` loop: f32 operands, and
+  bf16 rows with d % 8 != 0 or unaligned bases); plain version
   :func:`scores_with_bucket_max_ref`.
 - K3: :56 ``_bucket_max_kernel`` -> :88 ``scores_bucket_max`` -> :322
   ``pallas_bucketed_topk``; kernel ``csrc/bucket_max.cu``, plain version
@@ -38,7 +41,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # scores_bucket_max, K6 scores_matmul), counted where the kernel is launched
 # and nowhere else (CPU tensors never count). A run resets them to 0 and
 # reads them back to show that its path went through the kernels.
+# launch_count counts every K1 launch, wgmma_launch_count those of its
+# Hopper variant (csrc/scores_bmax_sm90.cu) alone.
 launch_count = 0
+wgmma_launch_count = 0
 bucket_max_launch_count = 0
 scores_matmul_launch_count = 0
 
@@ -87,10 +93,14 @@ def _check(queries, corpus, valid_count, penalty, score_dtype,
 
 def _cuda_call(fn, name: str, dev: torch.device, *args) -> None:
     """Launch ``fn(*args, stream)`` on ``dev``'s current stream; raise on a
-    refused launch."""
+    refused launch (a negative code is the CUresult of a failed TMA
+    tensor-map encode)."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*args, ctypes.c_void_p(stream))
+    if err < 0:
+        raise RuntimeError(
+            f"{name}: cuTensorMapEncodeTiled failed with CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -108,6 +118,22 @@ def _kernel_device(queries, corpus) -> Optional[torch.device]:
     if max(q, n, d) >= 2**31:
         raise ValueError(f"shape too large for int32 indexing: q={q} n={n} d={d}")
     return dev
+
+
+def k1_variant(device_type: str, dtype: torch.dtype, d: int,
+               data_ptrs: Tuple[int, ...]) -> str:
+    """Which K1 kernel a call runs: 'plain' for CPU tensors; on CUDA
+    'wgmma' (``csrc/scores_bmax_sm90.cu``) for bf16 operands that TMA can
+    describe -- row stride a multiple of 16 bytes (d % 8 == 0) and every
+    base pointer 16-byte aligned -- else 'tile' (``csrc/scores_bmax.cu``:
+    f32 operands, exact without TF32, and bf16 rows TMA cannot take). A
+    dispatch, not a fallback: the chosen kernel launches or raises."""
+    if device_type == "cpu":
+        return "plain"
+    if (dtype == torch.bfloat16 and d > 0 and d % 8 == 0
+            and all(p % 16 == 0 for p in data_ptrs)):
+        return "wgmma"
+    return "tile"
 
 
 def bucket_max(scores: torch.Tensor) -> torch.Tensor:
@@ -147,10 +173,10 @@ def scores_with_bucket_max(
     penalty: Optional[torch.Tensor] = None,
     score_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The fused kernel (``csrc/scores_bmax.cu``) for CUDA tensors; its
-    plain version for CPU tensors. Same contract as
+    """K1 for CUDA tensors -- the kernel :func:`k1_variant` names; its plain
+    version for CPU tensors. Same contract as
     :func:`scores_with_bucket_max_ref`."""
-    global launch_count
+    global launch_count, wgmma_launch_count
     vc = _check(queries, corpus, valid_count, penalty, score_dtype)
     dev = _kernel_device(queries, corpus)
     if dev is None:
@@ -161,13 +187,20 @@ def scores_with_bucket_max(
     n = corpus.shape[0]
     scores = torch.empty((q, n), dtype=score_dtype, device=dev)
     bmax = torch.empty((q, -(-n // BUCKET)), dtype=torch.float32, device=dev)
-    _cuda_call(
-        _build.load_library().sss_scores_bmax, "scores_bmax", dev,
-        queries.data_ptr(), corpus.data_ptr(),
-        None if penalty is None else penalty.data_ptr(),
-        scores.data_ptr(), bmax.data_ptr(), q, n, d, vc,
-        int(queries.dtype == torch.bfloat16), int(score_dtype == torch.bfloat16),
-    )
+    pen = None if penalty is None else penalty.data_ptr()
+    out_bf16 = int(score_dtype == torch.bfloat16)
+    lib = _build.load_library()
+    if k1_variant(dev.type, queries.dtype, d,
+                  (queries.data_ptr(), corpus.data_ptr())) == "wgmma":
+        _cuda_call(lib.sss_scores_bmax_sm90, "scores_bmax_sm90", dev,
+                   queries.data_ptr(), corpus.data_ptr(), pen, scores.data_ptr(),
+                   bmax.data_ptr(), q, n, d, vc, out_bf16)
+        wgmma_launch_count += 1
+    else:
+        _cuda_call(lib.sss_scores_bmax, "scores_bmax", dev,
+                   queries.data_ptr(), corpus.data_ptr(), pen, scores.data_ptr(),
+                   bmax.data_ptr(), q, n, d, vc,
+                   int(queries.dtype == torch.bfloat16), out_bf16)
     launch_count += 1
     return scores, bmax
 

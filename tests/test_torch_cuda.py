@@ -1,5 +1,5 @@
-"""Card-only tests of the PyTorch port: the CUDA kernels (K1 scores_bmax,
-K2 scores_bmax_int8, K3 bucket_max, K4 packed_scores_bmax, K5
+"""Card-only tests of the PyTorch port: the CUDA kernels (K1 scores_bmax
+and its Hopper variant scores_bmax_sm90, K2 scores_bmax_int8, K3 bucket_max, K4 packed_scores_bmax, K5
 hamming_bucket_min, K6 scores_matmul) against their plain PyTorch versions,
 and the indexes and engine on the card against the CPU.
 
@@ -50,6 +50,44 @@ def test_kernel_matches_plain(dev, dtype, d):
     torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
     rtol = 1e-5 if dtype == torch.float32 else 2.0**-7
     torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=rtol)
+
+
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [200, 1600])
+def test_wgmma_kernel_matches_plain(dev, d, score_dtype):
+    # K1's Hopper variant: ragged q and n, valid_count mid-bucket, 10% of
+    # rows penalised
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(37, d, device=dev, generator=g).bfloat16()
+    c = torch.randn(5003, d, device=dev, generator=g).bfloat16()
+    pen = torch.where(torch.rand(5003, device=dev, generator=g) < 0.1,
+                      float("-inf"), 0.0)
+    assert mips.k1_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr())) == "wgmma"
+    before, before_w = mips.launch_count, mips.wgmma_launch_count
+    s, bmax = mips.scores_with_bucket_max(q, c, 4037, pen, score_dtype)
+    torch.cuda.synchronize()
+    assert (mips.launch_count, mips.wgmma_launch_count) == (before + 1, before_w + 1)
+    s_ref, bmax_ref = mips.scores_with_bucket_max_ref(q, c, 4037, pen, score_dtype)
+    assert torch.equal(torch.isneginf(s), torch.isneginf(s_ref))
+    # f32 sums of exact bf16 products in another order (|s| ~ sqrt(d));
+    # bf16 scores: both sides round the f32 value, one ulp apart at most
+    torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
+    rtol = 1e-5 if score_dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=rtol)
+
+
+@pytest.mark.parametrize("d", [37, 250])
+def test_rows_tma_cannot_take_run_the_tile_variant(dev, d):
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(37, d, device=dev, generator=g).bfloat16()
+    c = torch.randn(5003, d, device=dev, generator=g).bfloat16()
+    before, before_w = mips.launch_count, mips.wgmma_launch_count
+    s, bmax = mips.scores_with_bucket_max(q, c, 4037, None, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (mips.launch_count, mips.wgmma_launch_count) == (before + 1, before_w)
+    s_ref, bmax_ref = mips.scores_with_bucket_max_ref(q, c, 4037, None, torch.bfloat16)
+    torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=2.0**-7)
 
 
 def test_kernel_rejects_mismatched_dtypes(dev):
@@ -128,6 +166,27 @@ def test_packed_kernel_matches_plain(dev, n_bits):
         hamming.unpack_bits_t(words).float().cpu().numpy()[:5003][
             (pen[:5003] == 0).cpu().numpy(), :n_bits], 10)
     np.testing.assert_array_equal(d.cpu().numpy(), d_ref)
+
+
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_n", [37, 300])
+@pytest.mark.parametrize("bits", [128, 256, 384, 1536])
+def test_packed_kernel_bit_equal_across_widths(dev, bits, q_n, score_dtype):
+    # every K-slice count, one and two consumer warpgroups, words staged in
+    # shared memory or read from L2; +-1 products are exact on both sides
+    g = torch.Generator(device=dev).manual_seed(bits + q_n)
+    words = hamming.pack_bits_t(_signs(g, 6144, bits, dev))
+    q = _signs(g, q_n, bits, dev).bfloat16()
+    pen = torch.where(torch.rand(6144, generator=g, device=dev) < 0.1,
+                      float("-inf"), 0.0)
+    before = packed.launch_count
+    s, bmax = packed.packed_scores_with_bucket_max(q, words, 5003, pen, score_dtype)
+    torch.cuda.synchronize()
+    assert packed.launch_count == before + 1
+    s_ref, bmax_ref = packed.packed_scores_with_bucket_max_ref(q, words, 5003, pen,
+                                                               score_dtype)
+    assert torch.equal(s, s_ref)
+    assert torch.equal(bmax, bmax_ref)
 
 
 def test_hamming_kernel_matches_plain(dev):

@@ -51,7 +51,8 @@ def _strided_as_contiguous(corpus: np.ndarray, rows_per_bucket: int) -> np.ndarr
     return corpus.reshape(n // (128 * s), s, 128, d).transpose(0, 2, 1, 3).reshape(n, d)
 
 
-_COUNTERS = ("launch_count", "bucket_max_launch_count", "scores_matmul_launch_count")
+_COUNTERS = ("launch_count", "wgmma_launch_count", "bucket_max_launch_count",
+             "scores_matmul_launch_count")
 
 
 @pytest.fixture(autouse=True)
@@ -60,6 +61,23 @@ def _no_kernel_launch_on_cpu():
     yield
     # CPU tensors never launch a kernel
     assert [getattr(mips, c) for c in _COUNTERS] == before
+
+
+@pytest.mark.parametrize("device,dtype,d,ptrs,want", [
+    ("cuda", torch.bfloat16, 1600, (0, 3200 * 65536), "wgmma"),    # a DenseIndex chunk
+    ("cuda", torch.bfloat16, 200, (256, 512), "wgmma"),
+    ("cuda", torch.bfloat16, 8, (16, 32), "wgmma"),                # the narrowest TMA row
+    ("cuda", torch.bfloat16, 250, (0, 0), "tile"),                 # BinaryIndex(sign) codes
+    ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 16-byte strided
+    ("cuda", torch.bfloat16, 1600, (8, 0), "tile"),                # queries off 16 bytes
+    ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 16 bytes
+    ("cuda", torch.float32, 1600, (0, 0), "tile"),                 # the default f32 engine
+    ("cuda", torch.float32, 200, (256, 512), "tile"),
+    ("cpu", torch.bfloat16, 1600, (0, 0), "plain"),
+    ("cpu", torch.float32, 37, (4, 4), "plain"),
+])
+def test_k1_variant(device, dtype, d, ptrs, want):
+    assert mips.k1_variant(device, dtype, d, ptrs) == want
 
 
 class TestScoresWithBucketMax:
