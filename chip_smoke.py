@@ -64,41 +64,52 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                on phase 4's 8,192 embeddings): ingest, search 256 sessions,
                top-1 within two bf16 ulps of 1.0, K4 launched, K4 against its
                plain version on the engine's own codes;
-10. int8 kernel -- K2 (csrc/scores_bmax_int8.cu) against its plain version:
-               a ragged case (q=37, n=5003, d=200, valid_count 4037, 10%
-               masked; f32 and bf16 scores) and the bench point (q=1024,
-               n=2^20, d=1600 int8; bf16 and f32 scores); scores and bucket
-               maxes equal; CUDA-event times beside torch._int_mm;
+10. int8 kernel -- K2 against its plain version: ragged cases (q=37,
+               n=5003, valid_count 4037, 10% masked; f32 and bf16 scores) on
+               the tile variant csrc/scores_bmax_int8.cu at d=200 and the
+               wgmma variant csrc/scores_bmax_int8_sm90.cu at d=208, and the
+               bench point (q=1024, n=2^20, d=1600 int8; bf16 and f32 scores;
+               wgmma variant); scores and bucket maxes equal; CUDA-event times
+               beside torch._int_mm, the tile variant's at both;
 11. int8 index -- DenseIndex(1600, 2^20) with quantize='int8x8' and 'int8'
                filled with the same 2^20 seeded rows, 1024 queries planted at
                cosine ~0.9 to stored rows, k=100: every planted row top-1, K2
-               launched once per chunk (int8x8; never for int8),
-               value-recall@10 >= 0.999 against the f64 oracle over the
-               dequantized rows and query codes, K2 equal to its plain
-               version on one 65,536-row chunk; best-of-3 search times;
+               launched once per chunk, every launch the wgmma variant
+               (int8x8; never for int8), value-recall@10 >= 0.999 against the
+               f64 oracle over the dequantized rows and query codes, K2 equal
+               to its plain version on one 65,536-row chunk; best-of-3 search
+               times and a torch.profiler breakdown of the int8x8 search;
 12. int8x8 engine -- SessionSearchEngine at Config() width with
                quantize='int8x8' (phase 4's encoder and sessions): ingest,
                search 256 sessions, top-1 within the int8 rounding bound of
-               1.0, K2 launched once per chunk and equal to its plain version
-               on the engine's own codes;
+               1.0, K2 launched once per chunk (the wgmma variant) and equal
+               to its plain version on the engine's own codes;
 13. bucket max kernel -- K3 (csrc/bucket_max.cu) against its plain version
                on a ragged case, then mips.bucketed_topk at q=8 and 64,
                n=2^20, d=1600 bf16, k=100: values within 1e-5 relative of
                mips.exact_topk's (f32 scores), value-recall@10 1.0, times
                beside exact_topk's;
-14. scores matmul kernel -- K6 (csrc/scores_matmul.cu) against its plain
-               version on a ragged case and at q=1024, n=2^20, d=1600 bf16
-               -> f32 (max_abs_err <= 1e-5 on unit rows), beside one cuBLAS
-               GEMM with f32 output.
+14. scores matmul kernel -- K6 against its plain version on ragged cases
+               (q=37, n=5003, d=200: f32 on the tile loop csrc/scores_matmul.cu,
+               bf16 on the wgmma variant, K1's Hopper kernel with a store-only
+               epilogue) and at q=1024, n=2^20, d=1600 bf16 -> f32 (wgmma
+               variant, max_abs_err <= 1e-5 on unit rows), beside one cuBLAS
+               GEMM with f32 output and the tile loop at the same shape.
 
-Before phase 4 the shared native graph builder must load (built without
-OpenMP where the compiler has no OpenMP runtime; the build used is printed).
+The build prints ptxas' resource lines; no kernel may spill. Each kernel
+time is printed with the SM clock and power draw that nvidia-smi reads
+right after it. Before phase 4 the shared native graph builder must load
+(built without OpenMP where the compiler has no OpenMP runtime; the build
+used is printed).
 The second-to-last line is a JSON object describing each of the six
 kernels: the launches counted on its path (K1: phase 4's f32 engine, and
 ``wgmma_launches`` phase 4b's bf16 engine; K1's times and bound are the
 wgmma variant's at the bench point, ``tile_f32`` the f32 instantiation's; K4: phase
-9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine; K3: phase
-13's bucketed_topk; K6: phase 14's scores_matmul), its largest error
+9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine, its
+``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
+with f32 scores, ``tile`` the tile variant's; K3: phase 13's
+bucketed_topk; K6: phase 14's scores_matmul, likewise with
+``wgmma_launches`` and ``tile``), its largest error
 against its plain version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the published peak of
 their type; K5's popcounts at 16 per clock per SM at the card's maximum SM
@@ -148,6 +159,15 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def smi() -> str:
+    """The SM clock and power draw nvidia-smi reads now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    return f"[{out or 'nvidia-smi read nothing'}]"
 
 
 def bound_ms(n_bytes: float, ops: float, ops_rate: float) -> dict:
@@ -299,7 +319,7 @@ def phase_kernel_bench(torch, mips, topk_mod, dev):
     check(v_err <= 2.0**-8, f"bench point: top-{k} values max_abs_err {v_err}")
     check(rec == 1.0, f"bench point: value-recall@{k} {rec}")
     print(f"kernel bench point q={q_n} n={n} d={d} bf16->bf16 (wgmma variant, "
-          f"csrc/scores_bmax_sm90.cu): kernel {ms:.3f} ms "
+          f"csrc/scores_bmax_sm90.cu): kernel {ms:.3f} ms {smi()} "
           f"({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS bf16 GEMM "
           f"{lib_ms:.3f} ms; bmax max_abs_err "
           f"{bm_err:.3g}, scores max_abs_err {s_err:.3g}, top-{k} max_abs_err "
@@ -559,7 +579,7 @@ def phase_f32_kernel(torch, mips, dev):
            **bound_ms(4 * (q_n * d + n * d + q_n * n) + q_n * (n // 128) * 4,
                       2 * q_n * n * d, PEAK_F32)}
     print(f"f32 kernel bench point q={q_n} n={n} d={d} f32->f32 (tile variant): kernel "
-          f"{ms:.3f} ms ({2 * q_n * n * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
+          f"{ms:.3f} ms {smi()} ({2 * q_n * n * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
           f"{plain_ms:.3f} ms, torch.matmul f32 (cuBLAS SGEMM, TF32 off) {lib_ms:.3f} ms, "
           f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}, 67 TFLOP/s); bmax "
           f"max_abs_err {bm_err:.3g}, scores max_abs_err {s_err:.3g}")
@@ -645,7 +665,7 @@ def phase_packed_kernel(torch, dev):
     check(torch.equal(d, d_ref), "packed bench point: top-100 distances differ")
     tflops = 2 * q_n * n * n_bits / (ms * 1e-3) / 1e12
     print(f"packed kernel bench point q={q_n} n={n} {n_bits} bits bf16 scores: kernel "
-          f"{ms:.3f} ms ({tflops:.1f} TFLOP/s of +-1 products), plain {plain_ms:.3f} ms, "
+          f"{ms:.3f} ms {smi()} ({tflops:.1f} TFLOP/s of +-1 products), plain {plain_ms:.3f} ms, "
           f"cuBLAS bf16 GEMM on the unpacked rows {lib_ms:.3f} ms; scores, bmax and "
           f"top-100 distances equal")
     torch.cuda.empty_cache()
@@ -694,7 +714,7 @@ def phase_hamming_kernel(torch, dev, bench, k4_ms):
     check(launches >= 1, "hamming_topk never launched the kernel")
     check(sorted_equal(torch, d, d_k4), "hamming_topk and K4 top-100 distances differ")
     print(f"hamming kernel bench point q={q.shape[0]} n={c.shape[0]} 256 bits: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms, K4 at the same shape {k4_ms:.3f} ms; "
+          f"{ms:.3f} ms {smi()}, plain {plain_ms:.3f} ms, K4 at the same shape {k4_ms:.3f} ms; "
           f"bmin equal; hamming_topk k=100 {topk_s * 1e3:.1f} ms, {launches} launch, "
           f"distances equal K4's")
     q_n, n, words = q.shape[0], c.shape[0], c.shape[1]
@@ -880,48 +900,89 @@ def int8_case(torch, mips_int8, g, q_n, n, d, dev):
     return q_codes, codes, scales
 
 
-def phase_int8_kernel(torch, dev):
-    from sessionsimilaritysearch_tpu_torch.ops import mips_int8
+def k2_tile(torch, lib, mips, q, c, sc, sd, dev):
+    """One launch of K2's tile variant (csrc/scores_bmax_int8.cu) straight
+    through its C entry point, to time it on rows where the wrapper runs the
+    wgmma variant. No penalty, every row valid."""
+    m, n = q.shape[0], c.shape[0]
+    scores = torch.empty(m, n, dtype=sd, device=dev)
+    bmax = torch.empty(m, -(-n // 128), device=dev)
+    mips._cuda_call(lib.sss_scores_bmax_int8, "scores_bmax_int8", dev, q.data_ptr(),
+                    c.data_ptr(), sc.data_ptr(), None, scores.data_ptr(), bmax.data_ptr(),
+                    m, n, q.shape[1], n, int(sd == torch.bfloat16))
+    return scores, bmax
 
+
+def phase_int8_kernel(torch, dev):
+    from sessionsimilaritysearch_tpu_torch.ops import _build, mips, mips_int8
+
+    lib = _build.load_library()
     g = torch.Generator(device=dev).manual_seed(6)
-    for sd in (torch.float32, torch.bfloat16):
-        q, c, sc = int8_case(torch, mips_int8, g, 37, 5003, 200, dev)
-        pen = torch.where(torch.rand(5003, generator=g, device=dev) < 0.1,
-                          float("-inf"), 0.0)
-        ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8(
-            q, c, sc, 4037, pen, sd), 20)
-        plain_ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8_ref(
-            q, c, sc, 4037, pen, sd), 20)
-        s, bm = mips_int8.scores_with_bucket_max_int8(q, c, sc, 4037, pen, sd)
-        s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q, c, sc, 4037, pen, sd)
-        # exact int32 dots on both sides, then the same two f32 roundings
-        check(torch.equal(s, s_ref), f"int8 ragged {sd}: scores differ")
-        check(torch.equal(bm, bm_ref), f"int8 ragged {sd}: bmax differs")
-        print(f"int8 kernel ragged q=37 n=5003 d=200 {str(sd)[6:]} scores (valid_count "
-              f"4037, 10% masked): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; scores "
-              f"and bmax equal")
+    out = {"err": 0.0, "tile": {}}
+    # d=200 is no TMA stride (the tile variant); d=208 ends in a zero-filled
+    # half K slice (the wgmma variant)
+    for d, variant in ((200, "tile"), (208, "wgmma")):
+        for sd in (torch.float32, torch.bfloat16):
+            q, c, sc = int8_case(torch, mips_int8, g, 37, 5003, d, dev)
+            pen = torch.where(torch.rand(5003, generator=g, device=dev) < 0.1,
+                              float("-inf"), 0.0)
+            check(mips_int8.k2_variant(dev.type, d, (q.data_ptr(), c.data_ptr(),
+                                                     sc.data_ptr())) == variant,
+                  f"int8 ragged d={d}: not the {variant} variant")
+            l0, w0 = mips_int8.launch_count, mips_int8.wgmma_launch_count
+            s, bm = mips_int8.scores_with_bucket_max_int8(q, c, sc, 4037, pen, sd)
+            check((mips_int8.launch_count - l0, mips_int8.wgmma_launch_count - w0)
+                  == (1, int(variant == "wgmma")),
+                  f"int8 ragged d={d}: the {variant} variant was not the one launched")
+            s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q, c, sc, 4037, pen, sd)
+            # exact int32 dots on both sides, then the same two f32 roundings
+            check(torch.equal(s, s_ref), f"int8 ragged d={d} {sd}: scores differ")
+            check(torch.equal(bm, bm_ref), f"int8 ragged d={d} {sd}: bmax differs")
+            ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8(
+                q, c, sc, 4037, pen, sd), 20)
+            plain_ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8_ref(
+                q, c, sc, 4037, pen, sd), 20)
+            if variant == "tile":
+                out["tile"][f"q37_n5003_d200_{str(sd)[6:]}"] = {"ms": ms, "plain_ms": plain_ms}
+            print(f"int8 kernel ragged q=37 n=5003 d={d} {str(sd)[6:]} scores ({variant} "
+                  f"variant; valid_count 4037, 10% masked): kernel {ms:.4f} ms {smi()}, "
+                  f"plain {plain_ms:.4f} ms; scores and bmax equal")
 
     q_n, n, d = 1024, 1 << 20, 1600
     q, c, sc = int8_case(torch, mips_int8, g, q_n, n, d, dev)
-    out = {"err": 0.0}
+    check(mips_int8.k2_variant(dev.type, d, (q.data_ptr(), c.data_ptr(), sc.data_ptr()))
+          == "wgmma", "int8 bench point: not the wgmma variant")
     for sd in (torch.bfloat16, torch.float32):
+        w0 = mips_int8.wgmma_launch_count
         ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8(
             q, c, sc, score_dtype=sd), 5)
+        state = smi()
+        check(mips_int8.wgmma_launch_count - w0 == 6,
+              "int8 bench point: the wgmma variant did not run")
+        tile_ms = cuda_ms(torch, lambda: k2_tile(torch, lib, mips, q, c, sc, sd, dev), 5)
+        tile_state = smi()
         plain_ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8_ref(
             q, c, sc, score_dtype=sd), 2)
-        s, bm = mips_int8.scores_with_bucket_max_int8(q, c, sc, score_dtype=sd)
         s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q, c, sc, score_dtype=sd)
+        s, bm = mips_int8.scores_with_bucket_max_int8(q, c, sc, score_dtype=sd)
         check(torch.equal(s, s_ref), f"int8 bench point {sd}: scores differ")
         check(torch.equal(bm, bm_ref), f"int8 bench point {sd}: bmax differs")
+        del s, bm
+        s, bm = k2_tile(torch, lib, mips, q, c, sc, sd, dev)
+        check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+              f"int8 bench point {sd}: the tile variant differs")
         del s, s_ref, bm, bm_ref
         tops = 2 * q_n * n * d / (ms * 1e-3) / 1e12
-        print(f"int8 kernel bench point q={q_n} n={n} d={d} int8 -> {str(sd)[6:]} scores: "
-              f"kernel {ms:.3f} ms ({tops:.1f} TOP/s), plain {plain_ms:.3f} ms; scores "
-              f"and bmax equal")
-        out[str(sd)[6:]] = {"ms": ms, "plain_ms": plain_ms}
+        name = str(sd)[6:]
+        print(f"int8 kernel bench point q={q_n} n={n} d={d} int8 -> {name} scores: wgmma "
+              f"variant {ms:.3f} ms {state} ({tops:.1f} TOP/s), tile variant "
+              f"{tile_ms:.3f} ms {tile_state}, plain {plain_ms:.3f} ms; scores and bmax "
+              f"equal (both variants)")
+        out[name] = {"ms": ms, "plain_ms": plain_ms}
+        out["tile"][f"q1024_n1048576_d1600_{name}"] = {"ms": tile_ms}
     # the library yardstick: torch._int_mm of the same codes, int32 out
     lib_ms = cuda_ms(torch, lambda: torch._int_mm(q, c.T), 5)
-    print(f"int8 bench point: torch._int_mm (int32 out) {lib_ms:.3f} ms")
+    print(f"int8 bench point: torch._int_mm (int32 out) {lib_ms:.3f} ms {smi()}")
     del q, c, sc
     torch.cuda.empty_cache()
     # the main path (the int8x8 engine) stores f32 scores
@@ -940,6 +1001,37 @@ def oracle_topk(torch, q, rows_of, n, k, step=1 << 16):
         best = s if best is None else torch.cat([best, s], dim=1)
         best = torch.topk(best, k, dim=1).values
     return best
+
+
+def profile(torch, fn, calls=3):
+    """torch.profiler around ``calls`` synchronized calls of ``fn``: (host
+    ms per call, device-busy ms per call, the largest device times per call
+    by kernel). The busy time sums the device time of every kernel on the
+    card's one stream; the operators that launched them are left out, so
+    nothing counts twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            rows.append((e.key, t / 1e3 / calls, e.count // calls))
+    rows.sort(key=lambda r: -r[1])
+    return wall, sum(t for _, t, _ in rows), rows[:10]
 
 
 def phase_int8_index(torch, topk_mod, dev):
@@ -968,22 +1060,24 @@ def phase_int8_index(torch, topk_mod, dev):
     res = {}
     for name, i in idx.items():
         i.search(queries, k)  # warm-up
-        mips_int8.launch_count = 0
+        mips_int8.launch_count = mips_int8.wgmma_launch_count = 0
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
             D, I = i.search(queries, k)  # numpy: includes the sync
             times.append(time.perf_counter() - t0)
-        launches = mips_int8.launch_count
         check(np.isfinite(D).all() and (np.diff(D, axis=1) <= 0).all(),
               f"{name} index: scores not finite and descending")
         hits = float((I[:, 0] == planted.cpu().numpy()).mean())
         check(hits == 1.0, f"{name} index: planted rows at top-1 {hits}")
-        res[name] = (min(times), launches, D, I, hits)
+        res[name] = {"best": min(times), "launches": mips_int8.launch_count,
+                     "wgmma": mips_int8.wgmma_launch_count, "I": I, "hits": hits}
     chunks = -(-n // x8.chunk_size)
-    check(res["int8x8"][1] == 3 * chunks,
-          f"int8x8 index: {res['int8x8'][1]} K2 launches in 3 searches of {chunks} chunks")
-    check(res["int8"][1] == 0, "int8 index: the bf16 x int8 scan launched K2")
+    r8 = res["int8x8"]
+    check(r8["launches"] == r8["wgmma"] == 3 * chunks,
+          f"int8x8 index: {r8['launches']} K2 launches ({r8['wgmma']} wgmma) in 3 "
+          f"searches of {chunks} chunks")
+    check(res["int8"]["launches"] == 0, "int8 index: the bf16 x int8 scan launched K2")
 
     # value-recall@10 of int8x8 against the f64 oracle over the dequantized
     # rows and the dequantized query codes (what the index ranks exactly)
@@ -995,7 +1089,7 @@ def phase_int8_index(torch, topk_mod, dev):
         return x8._buf[lo:hi].double() * x8._scales[lo:hi].double()[:, None]
 
     oracle = oracle_topk(torch, q_deq, deq, n, 10)
-    I8 = torch.from_numpy(res["int8x8"][3][:, :10]).to(dev)
+    I8 = torch.from_numpy(r8["I"][:, :10]).to(dev)
     got = (q_deq[:, None, :] * (x8._buf[I8].double()
                                 * x8._scales[I8].double()[..., None])).sum(-1)
     rec = topk_mod.value_recall_from_scores(
@@ -1004,20 +1098,35 @@ def phase_int8_index(torch, topk_mod, dev):
 
     # K2 against its plain version on one chunk as search() passes it
     chunk = slice(0, x8.chunk_size)
+    w0 = mips_int8.wgmma_launch_count
     s, bm = mips_int8.scores_with_bucket_max_int8(q_codes, x8._buf[chunk],
                                                   x8._scales[chunk])
+    check(mips_int8.wgmma_launch_count == w0 + 1, "int8x8 index chunk: not the wgmma K2")
     s_ref, bm_ref = mips_int8.scores_with_bucket_max_int8_ref(q_codes, x8._buf[chunk],
                                                               x8._scales[chunk])
     check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
           "int8x8 index chunk: K2 differs from its plain version")
-    for name, (best, launches, _, _, hits) in res.items():
+    del s, s_ref
+    for name, r in res.items():
         print(f"{name} index 2^20 x {d} (fill both {fill_s:.2f} s): search {q_n} queries "
-              f"k={k} {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS), "
-              f"{launches} K2 launches in 3 searches; planted top-1 {hits}")
+              f"k={k} {r['best'] * 1e3:.1f} ms best of 3 ({q_n / r['best']:.0f} QPS), "
+              f"{r['launches']} K2 launches ({r['wgmma']} wgmma variant) in 3 searches; "
+              f"planted top-1 {r['hits']}")
     print(f"int8x8 index: value-recall@10 {rec} against the f64 oracle over the "
-          f"dequantized rows; one {x8.chunk_size}-row chunk: K2 scores and bmax equal "
-          f"its plain version's")
-    del idx, x8, s, s_ref
+          f"dequantized rows; one {x8.chunk_size}-row chunk: the wgmma K2's scores and "
+          f"bmax equal its plain version's")
+    # where the int8x8 search's time goes; a diagnostic: a profiler that
+    # cannot trace the card is reported, not fatal
+    try:
+        wall, busy, top = profile(torch, lambda: x8.search(queries, k))
+        print(f"int8x8 search profile (torch.profiler, 3 calls): {wall:.2f} ms a call on "
+              f"the host clock, device busy {busy:.2f} ms "
+              f"({100 * (1 - busy / wall):.1f}% idle)")
+        for key, t, count in top:
+            print(f"  {t:8.3f} ms  x{count:<4d} {key[:90]}")
+    except Exception as e:  # noqa: BLE001 - diagnostic output only
+        print(f"int8x8 search profile: not measured ({type(e).__name__}: {e})")
+    del idx, x8
     torch.cuda.empty_cache()
 
 
@@ -1029,19 +1138,21 @@ def phase_int8_engine(torch, dev, parts):
     cfg, tok, enc, data, _ = parts
     eng = port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,
                                    capacity=65536, device=dev, quantize="int8x8")
-    mips_int8.launch_count = 0  # count the path's launches from ingest on
+    # count the path's launches from ingest on
+    mips_int8.launch_count = mips_int8.wgmma_launch_count = 0
     t0 = time.perf_counter()
     eng.add_sessions(data)
     ingest_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     D, I = eng.search(data[:256], k=100)
     search_s = time.perf_counter() - t0
-    launches = mips_int8.launch_count
+    launches, wgmma = mips_int8.launch_count, mips_int8.wgmma_launch_count
     idx = eng.index
     check(idx.ntotal == len(data), f"int8x8 engine: ntotal {idx.ntotal}")
     check(D.shape == (256, 100) and np.isfinite(D).all(), "int8x8 engine: bad result")
-    check(launches == -(-idx.ntotal // idx.chunk_size),
-          f"int8x8 engine: {launches} K2 launches")
+    chunks = -(-idx.ntotal // idx.chunk_size)
+    check(launches == wgmma == chunks,
+          f"int8x8 engine: {launches} K2 launches ({wgmma} wgmma) for {chunks} chunk(s)")
     # a session's own row: its stored codes and its query codes each carry a
     # rounding error of norm <= sqrt(d) * step / 2 (step = the row's scale);
     # with unit rows the score is off 1.0 by at most their sum and product,
@@ -1056,6 +1167,9 @@ def phase_int8_engine(torch, dev, parts):
 
     # K2 against its plain version on the engine's own codes
     codes, scales = idx._buf[: idx.ntotal], idx._scales[: idx.ntotal]
+    check(mips_int8.k2_variant(dev.type, codes.shape[1], (
+        q_codes.data_ptr(), codes.data_ptr(), scales.data_ptr())) == "wgmma",
+        "int8x8 engine: its codes do not take the wgmma K2")
     ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8(
         q_codes, codes, scales), 10)
     plain_ms = cuda_ms(torch, lambda: mips_int8.scores_with_bucket_max_int8_ref(
@@ -1068,10 +1182,11 @@ def phase_int8_engine(torch, dev, parts):
           f"({len(data) / ingest_s:.0f} sessions/s); search 256 k=100 "
           f"{search_s * 1e3:.1f} ms; top-1 |score-1| max {top1_err:.3g} (tolerance "
           f"{tol:.3g}), self-hit ids {float((I[:, 0] == np.arange(256)).mean()):.4f}; "
-          f"K2 launches {launches}; engine's codes q=256 n={idx.ntotal}, kernel "
-          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, scores and bmax equal")
+          f"K2 launches {launches} ({wgmma} wgmma variant); engine's codes q=256 "
+          f"n={idx.ntotal}, kernel {ms:.4f} ms vs plain {plain_ms:.4f} ms, scores and "
+          f"bmax equal")
     print(f"int8x8 engine stats: {json.dumps(eng.stats())}")
-    return launches
+    return launches, wgmma
 
 
 def phase_bucket_max(torch, topk_mod, dev):
@@ -1122,7 +1237,8 @@ def phase_bucket_max(torch, topk_mod, dev):
             "exact_ms": cuda_ms(torch, lambda: mips.exact_topk(
                 qs, corpus, k, score_dtype=torch.float32), 5),
         }
-        print(f"bucket max kernel q={q_n} n={n} d={d} bf16: kernel {out[q_n]['ms']:.3f} ms, "
+        print(f"bucket max kernel q={q_n} n={n} d={d} bf16: kernel {out[q_n]['ms']:.3f} ms "
+              f"{smi()}, "
               f"plain {out[q_n]['plain_ms']:.3f} ms; bucketed_topk k={k} "
               f"{out[q_n]['topk_ms']:.3f} ms vs exact_topk (K1, f32 scores) "
               f"{out[q_n]['exact_ms']:.3f} ms; values within {rel:.3g} relative, "
@@ -1138,52 +1254,92 @@ def phase_bucket_max(torch, topk_mod, dev):
 
 
 def phase_scores_matmul(torch, dev):
-    from sessionsimilaritysearch_tpu_torch.ops import mips
+    from sessionsimilaritysearch_tpu_torch.ops import _build, mips
+
+    lib = _build.load_library()
+
+    def tile(q, c):
+        """One launch of K6's tile loop (csrc/scores_matmul.cu) straight
+        through its C entry point, to time it where the wrapper runs the
+        wgmma variant."""
+        s = torch.empty(q.shape[0], c.shape[0], device=dev)
+        mips._cuda_call(lib.sss_scores_matmul, "scores_matmul", dev, q.data_ptr(),
+                        c.data_ptr(), s.data_ptr(), q.shape[0], c.shape[0], q.shape[1],
+                        int(q.dtype == torch.bfloat16))
+        return s
 
     g = torch.Generator(device=dev).manual_seed(9)
-    errs = []
-    for dt in (torch.float32, torch.bfloat16):
+    errs, tiles = [], {}
+    for dt, variant in ((torch.float32, "tile"), (torch.bfloat16, "wgmma")):
         q = torch.randn(37, 200, generator=g, device=dev).to(dt)
         c = torch.randn(5003, 200, generator=g, device=dev).to(dt)
-        err = (mips.scores_matmul(q, c) - mips.scores_matmul_ref(q, c)).abs().max().item()
+        check(mips.k6_variant(dev.type, dt, 200, (q.data_ptr(), c.data_ptr())) == variant,
+              f"scores matmul ragged {dt}: not the {variant} variant")
+        l0, w0 = mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count
+        s = mips.scores_matmul(q, c)
+        check((mips.scores_matmul_launch_count - l0,
+               mips.scores_matmul_wgmma_launch_count - w0) == (1, int(variant == "wgmma")),
+              f"scores matmul ragged {dt}: the {variant} variant was not the one launched")
+        err = (s - mips.scores_matmul_ref(q, c)).abs().max().item()
         # f32 sums of 200 terms (|s| ~ 15) in another order
         check(err <= 1e-3, f"scores matmul ragged {dt}: max_abs_err {err}")
         errs.append(err)
-        print(f"scores matmul kernel ragged q=37 n=5003 d=200 {str(dt)[6:]}: max_abs_err "
-              f"{err:.3g}")
+        ms = cuda_ms(torch, lambda: mips.scores_matmul(q, c), 20)
+        plain_ms = cuda_ms(torch, lambda: mips.scores_matmul_ref(q, c), 20)
+        if variant == "tile":
+            tiles["q37_n5003_d200_float32"] = {"ms": ms, "plain_ms": plain_ms}
+        print(f"scores matmul kernel ragged q=37 n=5003 d=200 {str(dt)[6:]} ({variant} "
+              f"variant): kernel {ms:.4f} ms {smi()}, plain {plain_ms:.4f} ms; "
+              f"max_abs_err {err:.3g}")
 
     q_n, n, d = 1024, 1 << 20, 1600
     corpus = unit_rows(torch, g, n, d, dev)
     queries = unit_rows(torch, g, q_n, d, dev)
-    mips.scores_matmul_launch_count = 0  # K6's path: its own entry point
+    check(mips.k6_variant(dev.type, queries.dtype, d, (queries.data_ptr(), corpus.data_ptr()))
+          == "wgmma", "scores matmul bench point: not the wgmma variant")
+    # K6's path: its own entry point
+    mips.scores_matmul_launch_count = mips.scores_matmul_wgmma_launch_count = 0
     s = mips.scores_matmul(queries, corpus)
-    launches = mips.scores_matmul_launch_count
+    launches, wgmma = mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count
+    check(launches == wgmma == 1,
+          f"scores matmul bench point: {launches} launches, {wgmma} wgmma")
     s_ref = mips.scores_matmul_ref(queries, corpus)
     err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item()
               for r in range(0, q_n, 64))
     # unit rows, |s| <= 1: f32 sums of exact bf16 products in another order
     check(err <= 1e-5, f"scores matmul bench point: max_abs_err {err}")
+    del s
+    s = tile(queries, corpus)
+    tile_err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item()
+                   for r in range(0, q_n, 64))
+    check(tile_err <= 1e-5, f"scores matmul bench point: tile loop max_abs_err {tile_err}")
     errs.append(err)
     del s, s_ref
     ms = cuda_ms(torch, lambda: mips.scores_matmul(queries, corpus), 5)
+    state = smi()
+    tile_ms = cuda_ms(torch, lambda: tile(queries, corpus), 5)
+    tile_state = smi()
+    tiles["q1024_n1048576_d1600_bfloat16"] = {"ms": tile_ms}
     plain_ms = cuda_ms(torch, lambda: mips.scores_matmul_ref(queries, corpus), 3)
     # the library yardstick: one cuBLAS GEMM with f32 output where torch
     # takes out_dtype, else the bf16-output matmul
     try:
         lib_ms = cuda_ms(torch, lambda: torch.mm(queries, corpus.T,
                                                  out_dtype=torch.float32), 5)
-        lib = "torch.mm(out_dtype=float32)"
+        yardstick = "torch.mm(out_dtype=float32)"
     except (TypeError, RuntimeError):
         lib_ms = cuda_ms(torch, lambda: torch.matmul(queries, corpus.T), 5)
-        lib = "torch.matmul, bf16 output"
+        yardstick = "torch.matmul, bf16 output"
     tflops = 2 * q_n * n * d / (ms * 1e-3) / 1e12
-    print(f"scores matmul kernel bench point q={q_n} n={n} d={d} bf16 -> f32: kernel "
-          f"{ms:.3f} ms ({tflops:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {lib} "
-          f"{lib_ms:.3f} ms; max_abs_err {err:.3g}; {launches} launch")
+    print(f"scores matmul kernel bench point q={q_n} n={n} d={d} bf16 -> f32: wgmma "
+          f"variant {ms:.3f} ms {state} ({tflops:.1f} TFLOP/s), tile loop {tile_ms:.3f} ms "
+          f"{tile_state}, plain {plain_ms:.3f} ms, {yardstick} {lib_ms:.3f} ms {smi()}; "
+          f"max_abs_err {err:.3g} (tile loop {tile_err:.3g}); {launches} launch, {wgmma} "
+          f"wgmma")
     del corpus, queries
     torch.cuda.empty_cache()
-    return {"err": max(errs), "launches": launches, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms,
+    return {"err": max(errs), "launches": launches, "wgmma_launches": wgmma, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "tile": tiles,
             **bound_ms(q_n * d * 2 + n * d * 2 + q_n * n * 4, 2 * q_n * n * d, PEAK_BF16)}
 
 
@@ -1223,6 +1379,8 @@ def main() -> int:
           f"({'compiled' if info else 'reused'} {_build.library_path().name})")
     for line in (info or {}).get("ptxas", []):
         print(f"  {line}")
+    spilled = {k: v for k, v in (info or {}).get("spills", {}).items() if v}
+    check(not spilled, f"ptxas spilled registers: {spilled}")
 
     from sessionsimilaritysearch_tpu_torch import native, native_build
 
@@ -1251,7 +1409,8 @@ def main() -> int:
                             torch, dev, parts)
     k2 = run_phase(torch, "int8 kernel", phase_int8_kernel, torch, dev)
     run_phase(torch, "int8 index", phase_int8_index, torch, topk_mod, dev)
-    k2_launches = run_phase(torch, "int8x8 engine", phase_int8_engine, torch, dev, parts)
+    k2_launches, k2_wgmma = run_phase(torch, "int8x8 engine", phase_int8_engine, torch,
+                                      dev, parts)
     k3 = run_phase(torch, "bucket max kernel", phase_bucket_max, torch, topk_mod, dev)
     k6 = run_phase(torch, "scores matmul kernel", phase_scores_matmul, torch, dev)
 
@@ -1277,13 +1436,24 @@ def main() -> int:
     k1_entry.update(wgmma_launches=wgmma_launches, tile_source=f"{src}scores_bmax.cu",
                     tile_f32={"q1024_n1048576_d1600": f32_bench,
                               "q256_n8192_d1600": f32_small})
+    # K2 and K6: the numbers are the wgmma variants' (K2 with f32 scores,
+    # its bf16 numbers under `bfloat16`); `wgmma_launches` counts those of
+    # the Hopper variant on the path; `tile` holds the tile variants' times
+    k2_entry = entry("scores_bmax_int8", "428", k2_launches, k2["err"], k2,
+                     "scores_bmax_int8_sm90.cu")
+    k2_entry.update(wgmma_launches=k2_wgmma, tile_source=f"{src}scores_bmax_int8.cu",
+                    tile=k2["tile"], bfloat16=k2["bfloat16"])
+    k6_entry = entry("scores_matmul", "247", k6["launches"], k6["err"], k6,
+                     "scores_bmax_sm90.cu")
+    k6_entry.update(wgmma_launches=k6["wgmma_launches"], tile_source=f"{src}scores_matmul.cu",
+                    tile=k6["tile"])
     print(json.dumps({"kernels": [
         k1_entry,
         entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4),
         entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5),
-        entry("scores_bmax_int8", "428", k2_launches, k2["err"], k2),
+        k2_entry,
         entry("bucket_max", "56", k3["launches"], k3["err"], k3),
-        entry("scores_matmul", "247", k6["launches"], k6["err"], k6),
+        k6_entry,
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

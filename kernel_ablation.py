@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of the Hopper kernels goes: K1's wgmma variant
-(``csrc/scores_bmax_sm90.cu``) and K4 (``csrc/packed_scores_bmax.cu``), each
-timed beside copies of itself with one part changed, at the bench points of
-``chip_smoke.py`` (q=1024, n=2^20; K1 d=1600 bf16 -> bf16, K4 256 bits ->
-bf16).
+(``csrc/scores_bmax_sm90.cu``), K4 (``csrc/packed_scores_bmax.cu``) and K2's
+wgmma variant (``csrc/scores_bmax_int8_sm90.cu``), each timed beside copies
+of itself with one part changed, at the bench points of ``chip_smoke.py``
+(q=1024, n=2^20; K1 d=1600 bf16 -> bf16, K4 256 bits -> bf16, K2 d=1600
+int8 -> f32, the int8x8 index's score dtype).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 kernel_ablation.py
+    python3 kernel_ablation.py [--parent DIR]
 
 Each copy is the source in ``csrc/`` with one text substitution, built with
 the package's nvcc flags into its own library under the git-ignored
-``_build/ablation/``; nothing in the package changes. The copies:
+``_build/ablation/``; nothing in the package changes. ``--parent DIR`` adds
+a copy ``parent`` of K1 and K4 built from the sources of another checkout
+(``DIR/sessionsimilaritysearch_tpu_torch/csrc``), timed in the same rounds:
+the way to compare a change with the commit before it on one card. The
+copies:
 
 - ``no_store``: the epilogue skips its score store (bmax is still written);
 - ``mask_always``: the epilogue masks every bucket, not only those that
@@ -20,22 +25,32 @@ the package's nvcc flags into its own library under the git-ignored
   wgmma group kept in flight;
 - K4 ``no_epilogue``: the consumers skip the epilogue;
 - K4 ``no_unpack``: the producer skips the unpack (the ring holds stale
-  bytes).
+  bytes);
+- K2 ``no_epilogue``: the consumers skip the epilogue (products only);
+- K2 ``scales_in_epilogue``: each bucket's scales are read in the
+  epilogue, behind branches on n, not at the tile's start (the first
+  design);
+- K2 ``no_dequant``: the epilogue converts the int32 dots to f32 and
+  multiplies by no scale (the scale loads, then unused, go too).
 
-Copies that keep the output (``mask_always``, ``wait_group_1``) must equal
-the kernel's output; the others are diagnostics only. Every kernel runs two
-rounds in turns, each the mean of 10 launches between CUDA events, beside
-one library call (cuBLAS bf16 GEMM; for K4 on the unpacked +-1 rows). The
-last line is a JSON object of all times.
+Copies that keep the output (``mask_always``, ``wait_group_1``, ``parent``,
+``scales_in_epilogue``) must equal the kernel's output; the others are
+diagnostics only. Every kernel runs three rounds in turns, each the mean
+of 10 launches between CUDA events, beside one library call (cuBLAS bf16 GEMM; for K4 on the
+unpacked +-1 rows; for K2 ``torch._int_mm``), with the SM clock and power
+that ``nvidia-smi`` reads after each round. The last line is a JSON object
+of all times.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -46,6 +61,24 @@ K1_LOOP = """        __syncwarp();
         ring.advance(ST);
       }"""
 K1_WAIT = "          wgmma_wait<0>();\n          fence_regs(acc);\n        }\n"
+
+# K2's first design: each bucket's scales read in the epilogue, behind
+# branches on n
+K2_EPILOGUE_SCALES = """for (int j = 0; j < 64; j += 4) {
+              const int col = c0 + (j / 4) * 8 + (lane % 4) * 2;
+              float s0 = 0.f, s1 = 0.f;
+              if (col + 1 < n) {
+                const float2 s = __ldg(reinterpret_cast<const float2*>(scales + col));
+                s0 = s.x;
+                s1 = s.y;
+              } else if (col < n) {
+                s0 = __ldg(scales + col);
+              }
+              v[j] = __fmul_rn(__int2float_rn(acc[h][j]), s0);
+              v[j + 1] = __fmul_rn(__int2float_rn(acc[h][j + 1]), s1);
+              v[j + 2] = __fmul_rn(__int2float_rn(acc[h][j + 2]), s0);
+              v[j + 3] = __fmul_rn(__int2float_rn(acc[h][j + 3]), s1);
+            }"""
 
 # kernel -> copy -> ({old: new} in the kernel's source, {old: new} in sm90_common.cuh)
 VARIANTS = {
@@ -82,63 +115,95 @@ VARIANTS = {
         "no_unpack": ({"for (int i = 0; i < 16; ++i) {":
                        "for (int i = 0; i < (j > 99u ? 16 : 0); ++i) {"}, {}),
     },
+    "k2": {
+        "base": ({}, {}),
+        "no_store": ({}, {STORE: "if (c0 < 0) " + STORE}),
+        "no_epilogue": ({"          if (c0 < n) {": "          if (c0 < 0) {"}, {}),
+        "scales_in_epilogue": ({"      load_scales(sc, scales, n0, n);\n": "",
+                                "dequantise(acc[h], sc[h], v);": K2_EPILOGUE_SCALES}, {}),
+        "no_dequant": ({"dequantise(acc[h], sc[h], v);":
+                        "for (int j = 0; j < 64; ++j) v[j] = __int2float_rn(acc[h][j]);"},
+                       {}),
+    },
 }
-SOURCES = {"k1": "scores_bmax_sm90.cu", "k4": "packed_scores_bmax.cu"}
-# each kernel's C entry point: queries, corpus or words, penalty, scores,
-# bmax (pointers); q, n, d or bits, valid_count, out_bf16; stream
-ENTRY = {"k1": "sss_scores_bmax_sm90", "k4": "sss_packed_scores_bmax"}
+SOURCES = {"k1": "scores_bmax_sm90.cu", "k4": "packed_scores_bmax.cu",
+           "k2": "scores_bmax_int8_sm90.cu"}
+# each kernel's C entry point: queries, corpus or words, (K2: scales,)
+# penalty, scores, bmax (pointers); q, n, d or bits, valid_count, out_bf16;
+# stream
+ENTRY = {"k1": "sss_scores_bmax_sm90", "k4": "sss_packed_scores_bmax",
+         "k2": "sss_scores_bmax_int8_sm90"}
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+ARGTYPES_K2 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
-def build(_build):
-    """Write and compile every copy side by side; {(kernel, name): the
-    copy's entry point}."""
+def build(_build, parent=None):
+    """Write and compile every copy side by side, each beside copies of the
+    headers of csrc/ (the substitutions applied to sm90_common.cuh);
+    {(kernel, name): the copy's entry point}. ``parent``: the csrc/ of
+    another checkout, whose K1 and K4 become the copy ``parent``."""
     out_dir = _build.BUILD_DIR / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
-    header = (_build.CSRC / "sm90_common.cuh").read_text()
     cmds, libs = [], {}
-    for kernel, variants in VARIANTS.items():
-        source = (_build.CSRC / SOURCES[kernel]).read_text()
-        for name, (subs, hsubs) in variants.items():
-            d = out_dir / f"{kernel}_{name}"
-            d.mkdir(exist_ok=True)
-            src, hdr = source, header
-            for old, new in subs.items():
-                if old not in src:
-                    raise SystemExit(f"{kernel} {name}: substitution target not found")
-                src = src.replace(old, new)
-            for old, new in hsubs.items():
-                if old not in hdr:
+
+    def copy(kernel, name, csrc, subs, hsubs):
+        d = out_dir / f"{kernel}_{name}"
+        d.mkdir(exist_ok=True)
+        src = (csrc / SOURCES[kernel]).read_text()
+        for old, new in subs.items():
+            if old not in src:
+                raise SystemExit(f"{kernel} {name}: substitution target not found")
+            src = src.replace(old, new)
+        (d / "kernel.cu").write_text(src)
+        for h in csrc.glob("*.cuh"):
+            text = h.read_text()
+            for old, new in (hsubs.items() if h.name == "sm90_common.cuh" else ()):
+                if old not in text:
                     raise SystemExit(f"{kernel} {name}: header target not found")
-                hdr = hdr.replace(old, new)
-            (d / "kernel.cu").write_text(src)
-            (d / "sm90_common.cuh").write_text(hdr)
-            libs[kernel, name] = d / "lib.so"
-            cmds.append([_build._find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
-                         str(libs[kernel, name]), str(d / "kernel.cu")])
+                text = text.replace(old, new)
+            (d / h.name).write_text(text)
+        libs[kernel, name] = d / "lib.so"
+        cmds.append([_build._find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
+                     str(libs[kernel, name]), str(d / "kernel.cu")])
+
+    for kernel, variants in VARIANTS.items():
+        for name, (subs, hsubs) in variants.items():
+            copy(kernel, name, _build.CSRC, subs, hsubs)
+        if parent is not None and kernel in ("k1", "k4"):
+            copy(kernel, "parent", parent, {}, {})
     _build._run_all(cmds)
     entries = {}
     for (kernel, name), path in libs.items():
         fn = getattr(ctypes.CDLL(str(path)), ENTRY[kernel])
-        fn.argtypes, fn.restype = ARGTYPES, ctypes.c_int
+        fn.argtypes = ARGTYPES_K2 if kernel == "k2" else ARGTYPES
+        fn.restype = ctypes.c_int
         entries[kernel, name] = fn
     return entries
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout whose K1 and K4 are timed beside this tree's")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
-    from sessionsimilaritysearch_tpu_torch.ops import _build, packed
+    from sessionsimilaritysearch_tpu_torch.ops import _build, mips_int8, packed
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     print(f"card: {card}")
-    entries = build(_build)
+    parent = None
+    if args.parent is not None:
+        parent = args.parent / "sessionsimilaritysearch_tpu_torch" / "csrc"
+        if not parent.is_dir():
+            raise SystemExit(f"--parent: {parent} is not a directory")
+    entries = build(_build, parent)
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -153,15 +218,21 @@ def main() -> int:
         torch.cuda.synchronize()
         return a.elapsed_time(b) / iters
 
+    def smi():
+        return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+
     g = torch.Generator(device=dev).manual_seed(0)
     q_n, n, d, bits = 1024, 1 << 20, 1600, 256
     times = {}
 
-    def run(kernel, launch, library):
-        outs, res = {}, {}
-        for rnd in range(2):
-            for name in VARIANTS[kernel]:
-                s = torch.empty(q_n, n, dtype=torch.bfloat16, device=dev)
+    def run(kernel, launch, library, score_dtype=torch.bfloat16):
+        names = [name for (k, name) in entries if k == kernel]
+        outs, res, state = {}, {}, []
+        for rnd in range(3):
+            for name in names:
+                s = torch.empty(q_n, n, dtype=score_dtype, device=dev)
                 bm = torch.empty(q_n, n // 128, device=dev)
                 fn = launch(entries[kernel, name], s, bm)
                 err = fn()
@@ -169,15 +240,18 @@ def main() -> int:
                     raise SystemExit(f"{kernel} {name}: launch failed with {err}")
                 res.setdefault(name, []).append(ms(fn))
                 outs[name] = (s, bm)
+                del s, bm
             res.setdefault("library", []).append(ms(library))
+            state.append(smi())
         base = outs["base"]
-        for name in ("mask_always", "wait_group_1"):
+        for name in ("mask_always", "wait_group_1", "parent", "scales_in_epilogue"):
             if name in outs and not (torch.equal(outs[name][0], base[0])
                                      and torch.equal(outs[name][1], base[1])):
                 raise SystemExit(f"{kernel} {name}: output differs from the kernel's")
         for name, t in res.items():
             print(f"{kernel} {name}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
-        times[kernel] = res
+        print(f"{kernel} SM clock, power after each round: " + " / ".join(state))
+        times[kernel] = {**res, "smi": state}
 
     corpus = torch.randn(n, d, generator=g, device=dev)
     corpus = (corpus / corpus.norm(dim=1, keepdim=True)).bfloat16()
@@ -199,6 +273,20 @@ def main() -> int:
         codes.data_ptr(), words.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
         q_n, n, bits, n, 1, stream),
         lambda: torch.matmul(codes, rows.T))
+    del words, codes, rows
+    torch.cuda.empty_cache()
+
+    # K2: unit rows quantized per row, as the int8x8 index stores them
+    qc, _ = mips_int8.quantize_rows_int8(torch.randn(q_n, d, generator=g, device=dev))
+    cc = torch.empty(n, d, dtype=torch.int8, device=dev)
+    sc = torch.empty(n, device=dev)
+    for s0 in range(0, n, 1 << 16):
+        cc[s0: s0 + (1 << 16)], sc[s0: s0 + (1 << 16)] = mips_int8.quantize_rows_int8(
+            torch.randn(1 << 16, d, generator=g, device=dev))
+    run("k2", lambda fn, s, bm: lambda: fn(
+        qc.data_ptr(), cc.data_ptr(), sc.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+        q_n, n, d, n, 0, stream),
+        lambda: torch._int_mm(qc, cc.T), torch.float32)
     print(json.dumps({"card": card, "ms": times}))
     return 0
 

@@ -25,8 +25,9 @@
 // (score_tile.cuh: one block per contiguous bucket and 64 queries, 80-byte
 // shared-memory rows) with the s8 tensor-core instruction mma.sync
 // m16n8k32 (s32 accumulate) fed by 32-bit shared-memory loads, which are
-// free of bank conflicts at that row stride. Simple first: wgmma and TMA
-// are later work.
+// free of bank conflicts at that row stride. It is K2's tile variant: rows
+// that TMA can describe (d % 16 == 0, 16-byte-aligned bases) run the s8
+// wgmma kernel scores_bmax_int8_sm90.cu (ops/mips_int8.py k2_variant).
 
 #include <math.h>
 

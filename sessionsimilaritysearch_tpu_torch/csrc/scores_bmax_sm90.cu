@@ -1,6 +1,6 @@
 // Fused score matmul + 128-row bucket max for bf16 operands, built for
 // Hopper: TMA-fed wgmma with a warp-specialised, persistent pipeline
-// (sm_90a). K1's variant for bf16 rows that TMA can describe.
+// (sm_90a). K1's variant for bf16 rows that TMA can describe, and K6's.
 //
 // Replaces the TPU kernel sessionsimilaritysearch_tpu/ops/pallas_mips.py:144
 // (_scores_bmax_kernel, launched by scores_with_bucket_max :177, :205) for
@@ -16,75 +16,48 @@
 // Ragged q, n and d are masked (TMA zero-fills rows and depth past the
 // edge; the epilogue skips rows >= q and columns >= n).
 //
-// What bounds it on an H100: at q=1024, n=2^20, d=1600 the call is 3.4
-// TFLOP against 3.4 GB of corpus and 2.1 GB of bf16 scores: the tensor
-// cores (3.47 ms at 989 TFLOP/s). At a few queries the corpus read bounds
-// it (1.0 ms).
+// The same kernel with the store-only epilogue (BMAX = false) replaces the
+// TPU kernel pallas_mips.py:247 (_scores_kernel, launched by scores_matmul
+// :259, :273) for the same bf16 operands: scores = queries @ corpus.T in
+// f32, no mask, no penalty, no bucket max (sss_scores_matmul_sm90; f32
+// operands keep scores_matmul.cu).
 //
-// Design (hopper-kernels guide section 1):
-// - Output tile 128 queries x 256 corpus rows (two buckets). Queries are
-//   the wgmma M side, corpus rows the N side.
-// - One producer warp (its warpgroup gives up registers with setmaxnreg)
-//   issues TMA loads of 64-deep K slices, 128-byte swizzled, into a ring:
-//   a slot is 16 KB of queries + 32 KB of corpus rows; 4 slots (192 KB)
-//   for bf16 scores, 3 for f32 scores, whose staging tile is twice as
-//   large. Full barriers count the TMA bytes; empty barriers count the 8
-//   consumer warps.
+// What bounds it on an H100: at q=1024, n=2^20, d=1600 the call is 3.4
+// TFLOP against 3.4 GB of corpus and 2.1 GB of bf16 scores (4.3 GB of f32
+// scores for K6): the tensor cores (3.47 ms at 989 TFLOP/s). At a few
+// queries the corpus read bounds it (1.0 ms).
+//
+// Design:
+// - The TMA ring, the producer and the persistent grid are sm90_tma.cuh's:
+//   128 x 256 output tiles, 64-deep bf16 K slices; 4 slots for bf16
+//   scores, 3 for f32 scores, whose staging tile is twice as large.
+//   Queries are the wgmma M side, corpus rows the N side.
 // - Two consumer warpgroups, 64 query rows each, run wgmma m64n256k16 with
-//   the f32 accumulator (128 registers a thread) in registers.
-// - Persistent: one block per SM walks the tiles, the query tile fastest,
-//   so the blocks that share a corpus tile run together and it comes from
-//   HBM once. The producer runs ahead into the next tile's K slices while
-//   the consumers run the epilogue.
+//   the f32 accumulator (128 registers a thread) in registers. The
+//   producer runs ahead into the next tile's K slices while the consumers
+//   run the epilogue.
 // - Epilogue (sm90_common.cuh bucket_epilogue): a query row's 128 columns
 //   of one bucket lie in one quad of lanes, so the bucket max is a register
 //   max and two shuffles; the scores go out through shared memory in
 //   16-byte streaming stores. A warpgroup whose 64 rows all lie past q
 //   skips its products and its epilogue.
 // The tensor map needs the chunk's base pointer, so it is encoded on the
-// host per call (cuTensorMapEncodeTiled, reached through the runtime's
-// driver entry point: no -lcuda) and passed as a __grid_constant__.
+// host per call and passed as a __grid_constant__.
 
-#include <cuda.h>
-
-#include "sm90_common.cuh"
+#include "sm90_tma.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr int BM = 128;                       // queries per tile
-constexpr int BN = 256;                       // corpus rows per tile (two buckets)
-constexpr int BK = 64;                        // depth per ring slot: 128 bytes of bf16
-constexpr int A_BYTES = BM * BK * 2;          // 16 KB
-constexpr int B_BYTES = BN * BK * 2;          // 32 KB
-constexpr int SLOT_BYTES = A_BYTES + B_BYTES;
-constexpr int THREADS = 3 * WG;               // two consumer warpgroups, one producer
-constexpr int MAX_SMEM = 232448;
-
-template <typename S> __host__ __device__ constexpr int stages() { return sizeof(S) == 2 ? 4 : 3; }
-template <typename S> __host__ __device__ constexpr int smem_bytes() {
-  return stages<S>() * SLOT_BYTES + 2 * staging_bytes<S>() + 2 * stages<S>() * 8;
-}
-static_assert(smem_bytes<__nv_bfloat16>() <= MAX_SMEM, "bf16 ring too large");
-static_assert(smem_bytes<float>() <= MAX_SMEM, "f32 ring too large");
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
-      : "memory");
-}
-
-template <typename S>
+template <typename S, bool BMAX>
 __global__ void __launch_bounds__(THREADS, 1)
 scores_bmax_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                         const __grid_constant__ CUtensorMap cmap,
                         const float* __restrict__ penalty, S* __restrict__ scores,
                         float* __restrict__ bmax, int q, int n, int d, int valid_count) {
   constexpr int ST = stages<S>();
+  constexpr int BK = K_BYTES / 2;  // bf16 depth per ring slot
   extern __shared__ __align__(1024) unsigned char smem[];
   S* staging = reinterpret_cast<S*>(smem + ST * SLOT_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + ST * SLOT_BYTES + 2 * staging_bytes<S>());
@@ -95,34 +68,13 @@ scores_bmax_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int k_steps = (d + BK - 1) / BK;
   const int n_buckets = (n + BUCKET - 1) / BUCKET;
   const int wg = threadIdx.x / WG;
-
-  if (threadIdx.x == 0) {
-    if (smem_u32(smem) % 1024 != 0) __trap();  // the 128-byte swizzle needs it
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
+  ring_init<ST>(smem, full, empty);
 
   if (wg == 2) {
     // ---- producer: one thread keeps the ring full ----
     reg_dealloc<40>();
-    if (threadIdx.x == 2 * WG) {
-      Ring ring;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int q0 = (t % q_tiles) * BM, n0 = (t / q_tiles) * BN;
-        for (int ks = 0; ks < k_steps; ++ks) {
-          mbar_wait(&empty[ring.slot], ring.phase ^ 1);
-          unsigned char* slot = smem + ring.slot * SLOT_BYTES;
-          mbar_arrive_expect_tx(&full[ring.slot], SLOT_BYTES);
-          tma_load_2d(slot, &qmap, ks * BK, q0, &full[ring.slot]);
-          tma_load_2d(slot + A_BYTES, &cmap, ks * BK, n0, &full[ring.slot]);
-          ring.advance(ST);
-        }
-      }
-    }
+    if (threadIdx.x == 2 * WG)
+      produce<ST, 2>(smem, full, empty, &qmap, &cmap, q_tiles, tiles, k_steps);
   } else {
     // ---- consumers: warpgroup wg owns query rows wg * 64 .. wg * 64 + 63 ----
     reg_alloc<232>();
@@ -140,7 +92,7 @@ scores_bmax_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(&full[ring.slot], ring.phase);
         if (active) {
           const unsigned char* slot = smem + ring.slot * SLOT_BYTES;
-          const uint64_t da = desc_sw128(slot + wg * 64 * 128);
+          const uint64_t da = desc_sw128(slot + wg * 64 * K_BYTES);
           const uint64_t db = desc_sw128(slot + A_BYTES);
           fence_regs(acc);
           wgmma_fence();
@@ -159,83 +111,37 @@ scores_bmax_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (n0 + h * BUCKET < n)
-            bucket_epilogue<S>(*reinterpret_cast<float(*)[64]>(acc + h * 64), stage, 1 + wg,
-                               penalty, scores, bmax, wq0, q, n0 + h * BUCKET, n, valid_count,
-                               n_buckets);
+            bucket_epilogue<S, BMAX>(*reinterpret_cast<float(*)[64]>(acc + h * 64), stage,
+                                     1 + wg, penalty, scores, bmax, wq0, q, n0 + h * BUCKET, n,
+                                     valid_count, n_buckets);
         }
       }
     }
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library needs no -lcuda. Errors come back as cudaError_t.
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &res);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &res);
-#endif
-    if (err != cudaSuccess) return err;
-    if (res != cudaDriverEntryPointSuccess || p == nullptr) return cudaErrorSymbolNotFound;
-    cached = reinterpret_cast<EncodeTiled>(p);
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// A [rows, d] bf16 row-major operand in boxes of BK x box_rows, 128-byte
-// swizzled; reads past the edges fill zeros.
-CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows, int d,
-                int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 // Returns a cudaError_t (>= 0), or minus the CUresult of a failed encode.
-template <typename S>
+template <typename S, bool BMAX>
 int launch(const void* queries, const void* corpus, const void* penalty, void* scores,
            void* bmax, int q, int n, int d, int valid_count, cudaStream_t stream) {
-  EncodeTiled fn;
-  cudaError_t err = encoder(&fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap qmap, cmap;
-  CUresult res = encode(fn, &qmap, queries, q, d, BM);
-  if (res != CUDA_SUCCESS) return -static_cast<int>(res);
-  res = encode(fn, &cmap, corpus, n, d, BN);
-  if (res != CUDA_SUCCESS) return -static_cast<int>(res);
-
+  const int res = encode_operands<2>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, queries, corpus, q, n,
+                                     d, &qmap, &cmap);
+  if (res != 0) return res;
   constexpr int bytes = smem_bytes<S>();
-  err = cudaFuncSetAttribute(scores_bmax_sm90_kernel<S>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  int grid = 0;
+  const cudaError_t err = persistent_grid(scores_bmax_sm90_kernel<S, BMAX>, bytes, q, n, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (long long)((q + BM - 1) / BM) * ((n + BN - 1) / BN);
-  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int grid = (int)(tiles < sms ? tiles : sms);
-  scores_bmax_sm90_kernel<S><<<grid, THREADS, bytes, stream>>>(
+  scores_bmax_sm90_kernel<S, BMAX><<<grid, THREADS, bytes, stream>>>(
       qmap, cmap, static_cast<const float*>(penalty), static_cast<S*>(scores),
       static_cast<float*>(bmax), q, n, d, valid_count);
   return static_cast<int>(cudaGetLastError());
+}
+
+// what TMA can take: bf16 rows of d % 8 == 0 at 16-byte-aligned bases
+bool tma_rows(const void* queries, const void* corpus, int d) {
+  return d > 0 && d % 8 == 0 && reinterpret_cast<uintptr_t>(queries) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(corpus) % 16 == 0;
 }
 
 }  // namespace
@@ -250,12 +156,20 @@ extern "C" int sss_scores_bmax_sm90(const void* queries, const void* corpus,
                                     const void* penalty, void* scores, void* bmax, int q, int n,
                                     int d, int valid_count, int out_bf16, void* stream) {
   if (q <= 0 || n <= 0) return 0;
-  if (d <= 0 || d % 8 != 0 || reinterpret_cast<uintptr_t>(queries) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(corpus) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!tma_rows(queries, corpus, d)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch<__nv_bfloat16>(queries, corpus, penalty, scores, bmax, q, n, d,
-                                          valid_count, s)
-                  : launch<float>(queries, corpus, penalty, scores, bmax, q, n, d, valid_count,
-                                  s);
+  return out_bf16 ? launch<__nv_bfloat16, true>(queries, corpus, penalty, scores, bmax, q, n, d,
+                                                valid_count, s)
+                  : launch<float, true>(queries, corpus, penalty, scores, bmax, q, n, d,
+                                        valid_count, s);
+}
+
+// K6: scores [q, n] f32 = queries [q, d] @ corpus [n, d].T for the same
+// bf16 operands. Same return codes.
+extern "C" int sss_scores_matmul_sm90(const void* queries, const void* corpus, void* scores,
+                                      int q, int n, int d, void* stream) {
+  if (q <= 0 || n <= 0) return 0;
+  if (!tma_rows(queries, corpus, d)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float, false>(queries, corpus, nullptr, scores, nullptr, q, n, d, n,
+                              static_cast<cudaStream_t>(stream));
 }

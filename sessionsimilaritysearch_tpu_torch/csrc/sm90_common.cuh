@@ -1,5 +1,7 @@
 // Hopper building blocks of the warp-specialised kernels (sm_90a): K1's
-// bf16 variant scores_bmax_sm90.cu and K4 packed_scores_bmax.cu.
+// bf16 variant and K6 (scores_bmax_sm90.cu), K2's int8 variant
+// (scores_bmax_int8_sm90.cu) and K4 (packed_scores_bmax.cu). The TMA ring
+// that the first three share is in sm90_tma.cuh.
 //
 // - mbarriers and the ring position that producer and consumers walk;
 // - wgmma (bf16 m64n256k16 and s8 m64n128k32, both operands K-major in
@@ -249,8 +251,9 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
 // warpgroup's staging tile to device memory, 16 bytes a store (element
 // stores where rows are not 16-byte aligned or run past n). All 128
 // threads of the warpgroup call it; `bar_id` is the warpgroup's own named
-// barrier.
-template <typename S>
+// barrier. BMAX = false (K6) compiles to the score store alone: no mask,
+// no penalty, no bucket max; penalty, bmax and valid_count are not read.
+template <typename S, bool BMAX = true>
 __device__ __forceinline__ void bucket_epilogue(float (&v)[64], S* stage, int bar_id,
                                                 const float* __restrict__ penalty,
                                                 S* __restrict__ scores, float* __restrict__ bmax,
@@ -258,40 +261,49 @@ __device__ __forceinline__ void bucket_epilogue(float (&v)[64], S* stage, int ba
                                                 int n_buckets) {
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
   const int r0 = warp * 16 + lane / 4;
-  // a bucket wholly below valid_count with no penalty needs no mask
-  const bool masked = penalty != nullptr || c0 + BUCKET > valid_count;
-  float m0 = -INFINITY, m1 = -INFINITY;
+  if constexpr (BMAX) {
+    // a bucket wholly below valid_count with no penalty needs no mask
+    const bool masked = penalty != nullptr || c0 + BUCKET > valid_count;
+    float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 64; j += 4) {
-    const int c = (j / 4) * 8 + (lane % 4) * 2;
-    if (masked) {
-      const int col = c0 + c;
-      float p0 = 0.f, p1 = 0.f;
-      if (penalty != nullptr) {
-        if (col < n) p0 = __ldg(penalty + col);
-        if (col + 1 < n) p1 = __ldg(penalty + col + 1);
+    for (int j = 0; j < 64; j += 4) {
+      const int c = (j / 4) * 8 + (lane % 4) * 2;
+      if (masked) {
+        const int col = c0 + c;
+        float p0 = 0.f, p1 = 0.f;
+        if (penalty != nullptr) {
+          if (col < n) p0 = __ldg(penalty + col);
+          if (col + 1 < n) p1 = __ldg(penalty + col + 1);
+        }
+        const bool ok0 = col < valid_count, ok1 = col + 1 < valid_count;
+        v[j] = (ok0 ? v[j] : -INFINITY) + p0;
+        v[j + 1] = (ok1 ? v[j + 1] : -INFINITY) + p1;
+        v[j + 2] = (ok0 ? v[j + 2] : -INFINITY) + p0;
+        v[j + 3] = (ok1 ? v[j + 3] : -INFINITY) + p1;
       }
-      const bool ok0 = col < valid_count, ok1 = col + 1 < valid_count;
-      v[j] = (ok0 ? v[j] : -INFINITY) + p0;
-      v[j + 1] = (ok1 ? v[j + 1] : -INFINITY) + p1;
-      v[j + 2] = (ok0 ? v[j + 2] : -INFINITY) + p0;
-      v[j + 3] = (ok1 ? v[j + 3] : -INFINITY) + p1;
+      m0 = fmaxf(m0, fmaxf(v[j], v[j + 1]));
+      m1 = fmaxf(m1, fmaxf(v[j + 2], v[j + 3]));
+      store_pair(stage + r0 * STAGE_LD + c, v[j], v[j + 1]);
+      store_pair(stage + (r0 + 8) * STAGE_LD + c, v[j + 2], v[j + 3]);
     }
-    m0 = fmaxf(m0, fmaxf(v[j], v[j + 1]));
-    m1 = fmaxf(m1, fmaxf(v[j + 2], v[j + 3]));
-    store_pair(stage + r0 * STAGE_LD + c, v[j], v[j + 1]);
-    store_pair(stage + (r0 + 8) * STAGE_LD + c, v[j + 2], v[j + 3]);
-  }
-  // the quad of lanes lane / 4 holds the row's 128 columns
+    // the quad of lanes lane / 4 holds the row's 128 columns
 #pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
-  }
-  if (lane % 4 == 0) {
-    const int b = c0 / BUCKET;
-    if (q0 + r0 < q) bmax[(size_t)(q0 + r0) * n_buckets + b] = m0;
-    if (q0 + r0 + 8 < q) bmax[(size_t)(q0 + r0 + 8) * n_buckets + b] = m1;
+    for (int o = 1; o <= 2; o <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+    if (lane % 4 == 0) {
+      const int b = c0 / BUCKET;
+      if (q0 + r0 < q) bmax[(size_t)(q0 + r0) * n_buckets + b] = m0;
+      if (q0 + r0 + 8 < q) bmax[(size_t)(q0 + r0 + 8) * n_buckets + b] = m1;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 64; j += 4) {
+      const int c = (j / 4) * 8 + (lane % 4) * 2;
+      store_pair(stage + r0 * STAGE_LD + c, v[j], v[j + 1]);
+      store_pair(stage + (r0 + 8) * STAGE_LD + c, v[j + 2], v[j + 3]);
+    }
   }
   named_sync(bar_id, WG);
 

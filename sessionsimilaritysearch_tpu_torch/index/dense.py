@@ -7,9 +7,10 @@ streaming adds append into. ``search`` scans the filled rows in
 stays [q, chunk_size] whatever the corpus size. The scan of each chunk:
 
 - float rows (f32 or bf16): the fused score + bucket-max kernel K1
-  (``ops/mips.py``, ``csrc/scores_bmax.cu``);
+  (``ops/mips.py``: ``csrc/scores_bmax_sm90.cu`` or ``csrc/scores_bmax.cu``);
 - ``quantize='int8x8'`` (int8 codes on both sides): the int8 kernel K2
-  (``ops/mips_int8.py``, ``csrc/scores_bmax_int8.cu``);
+  (``ops/mips_int8.py``: ``csrc/scores_bmax_int8_sm90.cu`` or
+  ``csrc/scores_bmax_int8.cu``);
 - ``quantize='int8'`` (bf16 queries, int8 rows): torch ops, as the JAX
   package leaves it to XLA.
 """
@@ -135,6 +136,11 @@ class DenseIndex:
         if self.quantize:
             rows *= self._scales[pos][:, None]
         return rows.cpu().numpy()
+
+    def reconstruct(self, i: int) -> np.ndarray:
+        """Single-row form (``faiss.Index.reconstruct``): [d] float32;
+        ``i`` outside [0, size) raises ``IndexError``."""
+        return self.reconstruct_batch([int(i)])[0]
 
     def _penalty(self, row_mask) -> torch.Tensor:
         """Bool mask over the current rows (length ``size`` or

@@ -8,9 +8,10 @@ name carries a hash of the sources and the flags, so a second run reuses it
 and an edit rebuilds it. A missing ``nvcc`` or a failed build raises with
 the compiler's output: there is no path that carries on without the kernels.
 
-K1's Hopper variant (``csrc/scores_bmax_sm90.cu``) encodes TMA tensor maps
-with the driver's ``cuTensorMapEncodeTiled``, which it reaches at run time
-through the CUDA runtime's driver entry point
+The Hopper variants of K1, K2 and K6 (``csrc/scores_bmax_sm90.cu``,
+``csrc/scores_bmax_int8_sm90.cu``, on ``csrc/sm90_tma.cuh``) encode TMA
+tensor maps with the driver's ``cuTensorMapEncodeTiled``, which they reach
+at run time through the CUDA runtime's driver entry point
 (``cudaGetDriverEntryPointByVersion``): the link needs no ``-lcuda``.
 """
 
@@ -37,8 +38,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-# what the last build in this process reported: seconds and ptxas' resource
-# lines (registers, shared memory, spills); None when the library was reused
+# what the last build in this process reported: seconds, ptxas' resource
+# lines (registers, shared memory, stack and spills) and the spill bytes
+# (stores + loads) of each kernel; None when the library was reused
 build_info: Optional[dict] = None
 
 
@@ -103,10 +105,28 @@ def _compile(so: Path) -> None:
         tmp.unlink(missing_ok=True)
         for o in objs:
             o.unlink(missing_ok=True)
-    ptxas = [ln.strip() for ln in out.splitlines()
-             if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
-    build_info = {"seconds": time.perf_counter() - t0, "ptxas": ptxas,
-                  "path": str(so)}
+    build_info = {"seconds": time.perf_counter() - t0, "path": str(so),
+                  **parse_ptxas(out)}
+
+
+def parse_ptxas(out: str) -> dict:
+    """``-Xptxas -v`` output -> its resource lines and the spill bytes
+    (stores + loads) of each function, by mangled name."""
+    lines, spills, fn = [], {}, None
+    for ln in out.splitlines():
+        ln = ln.strip()
+        if "Function properties for" in ln:
+            fn = ln.split("Function properties for", 1)[1].strip()
+            lines.append(ln)
+        elif "spill stores" in ln:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            # "<a> bytes stack frame, <b> bytes spill stores, <c> bytes spill loads"
+            if fn is not None and len(nums) == 3:
+                spills[fn] = nums[1] + nums[2]
+            lines.append(ln)
+        elif "ptxas info" in ln and "Used" in ln:
+            lines.append(ln)
+    return {"ptxas": lines, "spills": spills}
 
 
 def load_library() -> ctypes.CDLL:
@@ -143,6 +163,18 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, i32,             # q, n, words
                 ptr,                       # stream
             ]
+            lib.sss_scores_bmax_int8_sm90.argtypes = [
+                ptr, ptr, ptr, ptr,        # q codes, corpus codes, scales, penalty
+                ptr, ptr,                  # scores, bmax
+                i32, i32, i32, i32,        # q, n, d, valid_count
+                i32,                       # out_bf16
+                ptr,                       # stream
+            ]
+            lib.sss_scores_matmul_sm90.argtypes = [
+                ptr, ptr, ptr,             # queries, corpus, scores (bf16, bf16, f32)
+                i32, i32, i32,             # q, n, d
+                ptr,                       # stream
+            ]
             lib.sss_scores_bmax_int8.argtypes = [
                 ptr, ptr, ptr, ptr,        # q codes, corpus codes, scales, penalty
                 ptr, ptr,                  # scores, bmax
@@ -165,7 +197,8 @@ def load_library() -> ctypes.CDLL:
             for fn in (lib.sss_scores_bmax, lib.sss_scores_bmax_sm90,
                        lib.sss_packed_scores_bmax,
                        lib.sss_hamming_bucket_min, lib.sss_scores_bmax_int8,
-                       lib.sss_bucket_max, lib.sss_scores_matmul):
+                       lib.sss_bucket_max, lib.sss_scores_matmul,
+                       lib.sss_scores_bmax_int8_sm90, lib.sss_scores_matmul_sm90):
                 fn.restype = i32
             _lib = lib
         return _lib

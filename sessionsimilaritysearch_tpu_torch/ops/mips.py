@@ -14,8 +14,12 @@ Ports of the TPU kernels of ``sessionsimilaritysearch_tpu/ops/pallas_mips.py``:
 - K3: :56 ``_bucket_max_kernel`` -> :88 ``scores_bucket_max`` -> :322
   ``pallas_bucketed_topk``; kernel ``csrc/bucket_max.cu``, plain version
   :func:`scores_bucket_max_ref`, top-k :func:`bucketed_topk`.
-- K6: :247 ``_scores_kernel`` -> :259 ``scores_matmul``; kernel
-  ``csrc/scores_matmul.cu``, plain version :func:`scores_matmul_ref`.
+- K6: :247 ``_scores_kernel`` -> :259 ``scores_matmul``; two kernels,
+  chosen by :func:`k6_variant`: K1's Hopper kernel with a store-only
+  epilogue (``csrc/scores_bmax_sm90.cu`` ``sss_scores_matmul_sm90``) for
+  bf16 rows TMA can describe, and ``csrc/scores_matmul.cu`` (the tile loop:
+  f32 operands, exact without TF32, and other bf16 rows); plain version
+  :func:`scores_matmul_ref`.
 
 Buckets are 128 contiguous corpus rows, the layout of the JAX
 ``DenseIndex`` (``ops/topk.py:130``); the TPU kernels' strided layout was a
@@ -42,11 +46,13 @@ _DTYPES = (torch.float32, torch.bfloat16)
 # and nowhere else (CPU tensors never count). A run resets them to 0 and
 # reads them back to show that its path went through the kernels.
 # launch_count counts every K1 launch, wgmma_launch_count those of its
-# Hopper variant (csrc/scores_bmax_sm90.cu) alone.
+# Hopper variant (csrc/scores_bmax_sm90.cu) alone; likewise
+# scores_matmul_launch_count and scores_matmul_wgmma_launch_count for K6.
 launch_count = 0
 wgmma_launch_count = 0
 bucket_max_launch_count = 0
 scores_matmul_launch_count = 0
+scores_matmul_wgmma_launch_count = 0
 
 # gathered corpus rows (and their f32 copy) per query tile of bucketed_topk
 GATHER_BYTES = 1 << 30
@@ -134,6 +140,11 @@ def k1_variant(device_type: str, dtype: torch.dtype, d: int,
             and all(p % 16 == 0 for p in data_ptrs)):
         return "wgmma"
     return "tile"
+
+
+# K6 runs K1's Hopper kernel (store-only epilogue) on the operands K1's
+# would take, and the tile loop of csrc/scores_matmul.cu on the others
+k6_variant = k1_variant
 
 
 def bucket_max(scores: torch.Tensor) -> torch.Tensor:
@@ -331,10 +342,10 @@ def scores_matmul_ref(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tens
 
 
 def scores_matmul(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
-    """K6 (``csrc/scores_matmul.cu``) for CUDA tensors; its plain version
-    for CPU tensors. [q, n] f32 scores from f32 or bf16 operands, summed
-    in f32."""
-    global scores_matmul_launch_count
+    """K6 for CUDA tensors -- the kernel :func:`k6_variant` names; its plain
+    version for CPU tensors. [q, n] f32 scores from f32 or bf16 operands,
+    summed in f32."""
+    global scores_matmul_launch_count, scores_matmul_wgmma_launch_count
     _check(queries, corpus, None, None, torch.float32)
     dev = _kernel_device(queries, corpus)
     if dev is None:
@@ -342,10 +353,15 @@ def scores_matmul(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     q, d = queries.shape
     n = corpus.shape[0]
     scores = torch.empty((q, n), dtype=torch.float32, device=dev)
-    _cuda_call(
-        _build.load_library().sss_scores_matmul, "scores_matmul", dev,
-        queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), q, n, d,
-        int(queries.dtype == torch.bfloat16),
-    )
+    lib = _build.load_library()
+    if k6_variant(dev.type, queries.dtype, d,
+                  (queries.data_ptr(), corpus.data_ptr())) == "wgmma":
+        _cuda_call(lib.sss_scores_matmul_sm90, "scores_matmul_sm90", dev,
+                   queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), q, n, d)
+        scores_matmul_wgmma_launch_count += 1
+    else:
+        _cuda_call(lib.sss_scores_matmul, "scores_matmul", dev,
+                   queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), q, n, d,
+                   int(queries.dtype == torch.bfloat16))
     scores_matmul_launch_count += 1
     return scores

@@ -4,16 +4,19 @@ bf16 x int8 scan of ``DenseIndex(quantize='int8')``.
 
 K2 ports the TPU kernel ``sessionsimilaritysearch_tpu/ops/pallas_mips.py``
 :428 ``_scores_bmax_int8_kernel`` -> :465 ``scores_with_bucket_max_int8`` ->
-:552 ``pallas_exact_topk_int8``. The kernel is ``csrc/scores_bmax_int8.cu``;
-:func:`scores_with_bucket_max_int8_ref` is its plain PyTorch version, and the
-two agree bit for bit on f32 scores: the plain version sums the products
-exactly in float64 (|dot| <= d * 127^2 < 2^53) and rounds to f32 as the
-kernel's int32 -> f32 conversion does. Buckets are 128 contiguous rows and
+:552 ``pallas_exact_topk_int8``. Two kernels, chosen by :func:`k2_variant`:
+``csrc/scores_bmax_int8_sm90.cu`` (TMA-fed s8 ``wgmma`` on K1's Hopper
+pipeline, for rows TMA can describe) and ``csrc/scores_bmax_int8.cu`` (the
+tile loop with ``mma.sync``, for the others).
+:func:`scores_with_bucket_max_int8_ref` is their plain PyTorch version, and
+all three agree bit for bit: the plain version sums the products exactly
+in float64 (|dot| <= d * 127^2 < 2^53) and rounds to f32 as the kernels'
+int32 -> f32 conversion does. Buckets are 128 contiguous rows and
 rows at or past ``valid_count`` or filtered by ``penalty`` score -inf, as in
 K1 (``ops/mips.py``), so :func:`mips.select_topk` applies unchanged.
 
 :func:`scores_with_bucket_max_int8` takes the plain version for CPU tensors
-only. For a CUDA tensor it launches the kernel or raises.
+only. For a CUDA tensor it launches the chosen kernel or raises.
 """
 
 from __future__ import annotations
@@ -28,8 +31,11 @@ from sessionsimilaritysearch_tpu_torch.ops import _build, mips
 _REF_ROWS = 65536
 
 # Kernel launches made by scores_with_bucket_max_int8, counted where the
-# kernel is launched and nowhere else (CPU tensors never count).
+# kernel is launched and nowhere else (CPU tensors never count):
+# launch_count every K2 launch, wgmma_launch_count those of its Hopper
+# variant (csrc/scores_bmax_int8_sm90.cu) alone.
 launch_count = 0
+wgmma_launch_count = 0
 
 
 def quantize_rows_int8(emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -44,6 +50,20 @@ def quantize_rows_int8(emb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     s = torch.clamp(emb.abs().amax(dim=1) * (1.0 / 127.0), min=1e-30)
     codes = torch.clamp(torch.round(emb / s[:, None]), -127, 127).to(torch.int8)
     return codes, s
+
+
+def k2_variant(device_type: str, d: int, data_ptrs: Tuple[int, ...]) -> str:
+    """Which K2 kernel a call runs: 'plain' for CPU tensors; on CUDA
+    'wgmma' (``csrc/scores_bmax_int8_sm90.cu``) for codes that TMA can
+    describe -- row stride a multiple of 16 bytes (d % 16 == 0) and every
+    base pointer (query codes, corpus codes, scales) 16-byte aligned -- else
+    'tile' (``csrc/scores_bmax_int8.cu``). A dispatch, not a fallback: the
+    chosen kernel launches or raises."""
+    if device_type == "cpu":
+        return "plain"
+    if d > 0 and d % 16 == 0 and all(p % 16 == 0 for p in data_ptrs):
+        return "wgmma"
+    return "tile"
 
 
 def _check(queries, corpus, corpus_scales, valid_count, penalty, score_dtype) -> int:
@@ -94,10 +114,10 @@ def scores_with_bucket_max_int8(
     penalty: Optional[torch.Tensor] = None,
     score_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 (``csrc/scores_bmax_int8.cu``) for CUDA tensors; its plain
-    version for CPU tensors. Same contract as
+    """K2 for CUDA tensors -- the kernel :func:`k2_variant` names; its
+    plain version for CPU tensors. Same contract as
     :func:`scores_with_bucket_max_int8_ref`."""
-    global launch_count
+    global launch_count, wgmma_launch_count
     vc = _check(queries, corpus, corpus_scales, valid_count, penalty, score_dtype)
     dev = mips._kernel_device(queries, corpus)
     if dev is None:
@@ -108,13 +128,16 @@ def scores_with_bucket_max_int8(
     n = corpus.shape[0]
     scores = torch.empty((q, n), dtype=score_dtype, device=dev)
     bmax = torch.empty((q, -(-n // mips.BUCKET)), dtype=torch.float32, device=dev)
-    mips._cuda_call(
-        _build.load_library().sss_scores_bmax_int8, "scores_bmax_int8", dev,
-        queries.data_ptr(), corpus.data_ptr(), corpus_scales.data_ptr(),
-        None if penalty is None else penalty.data_ptr(),
-        scores.data_ptr(), bmax.data_ptr(), q, n, d, vc,
-        int(score_dtype == torch.bfloat16),
-    )
+    lib = _build.load_library()
+    ptrs = (queries.data_ptr(), corpus.data_ptr(), corpus_scales.data_ptr())
+    wgmma = k2_variant(dev.type, d, ptrs) == "wgmma"
+    fn, name = ((lib.sss_scores_bmax_int8_sm90, "scores_bmax_int8_sm90") if wgmma
+                else (lib.sss_scores_bmax_int8, "scores_bmax_int8"))
+    mips._cuda_call(fn, name, dev, *ptrs,
+                    None if penalty is None else penalty.data_ptr(),
+                    scores.data_ptr(), bmax.data_ptr(), q, n, d, vc,
+                    int(score_dtype == torch.bfloat16))
+    wgmma_launch_count += wgmma
     launch_count += 1
     return scores, bmax
 

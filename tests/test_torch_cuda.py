@@ -1,7 +1,9 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1 scores_bmax
-and its Hopper variant scores_bmax_sm90, K2 scores_bmax_int8, K3 bucket_max, K4 packed_scores_bmax, K5
-hamming_bucket_min, K6 scores_matmul) against their plain PyTorch versions,
-and the indexes and engine on the card against the CPU.
+and its Hopper variant scores_bmax_sm90, K2 scores_bmax_int8 and its Hopper
+variant scores_bmax_int8_sm90, K3 bucket_max, K4 packed_scores_bmax, K5
+hamming_bucket_min, K6 scores_matmul and its Hopper variant) against their
+plain PyTorch versions, and the indexes and engine on the card against the
+CPU.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so on a
@@ -259,17 +261,60 @@ def _int8_case(g, q, n, d, dev):
 @pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [200, 37])  # 37: no 16-byte rows, byte loads
 def test_int8_kernel_matches_plain(dev, d, score_dtype):
+    # K2's tile variant: rows that are no TMA stride (d % 16 != 0)
     g = torch.Generator(device=dev).manual_seed(2)
     qc, cc, sc = _int8_case(g, 37, 5003, d, dev)
     pen = torch.where(torch.rand(5003, device=dev, generator=g) < 0.1,
                       float("-inf"), 0.0)
-    before = mips_int8.launch_count
+    assert mips_int8.k2_variant(dev.type, d, (qc.data_ptr(), cc.data_ptr(),
+                                              sc.data_ptr())) == "tile"
+    before, before_w = mips_int8.launch_count, mips_int8.wgmma_launch_count
     s, bmax = mips_int8.scores_with_bucket_max_int8(qc, cc, sc, 4037, pen, score_dtype)
     torch.cuda.synchronize()
-    assert mips_int8.launch_count == before + 1
+    assert (mips_int8.launch_count, mips_int8.wgmma_launch_count) == (before + 1, before_w)
     s_ref, bmax_ref = mips_int8.scores_with_bucket_max_int8_ref(
         qc, cc, sc, 4037, pen, score_dtype)
     # exact int32 dots on both sides, then the same two f32 roundings
+    assert torch.equal(s, s_ref) and torch.equal(bmax, bmax_ref)
+
+
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [5003, 4937])  # the last 256-row tile: two buckets, one
+@pytest.mark.parametrize("d", [144, 208, 1600])  # 144, 208: a zero-filled last K slice
+def test_wgmma_int8_kernel_matches_plain(dev, d, n, score_dtype):
+    # K2's Hopper variant: ragged q and n, valid_count mid-bucket, 10% of
+    # rows penalised; exact int32 dots, so equal, not close
+    g = torch.Generator(device=dev).manual_seed(d + n)
+    qc, cc, sc = _int8_case(g, 37, n, d, dev)
+    pen = torch.where(torch.rand(n, device=dev, generator=g) < 0.1, float("-inf"), 0.0)
+    assert mips_int8.k2_variant(dev.type, d, (qc.data_ptr(), cc.data_ptr(),
+                                              sc.data_ptr())) == "wgmma"
+    before, before_w = mips_int8.launch_count, mips_int8.wgmma_launch_count
+    s, bmax = mips_int8.scores_with_bucket_max_int8(qc, cc, sc, 4037, pen, score_dtype)
+    torch.cuda.synchronize()
+    assert (mips_int8.launch_count, mips_int8.wgmma_launch_count) == (before + 1,
+                                                                      before_w + 1)
+    s_ref, bmax_ref = mips_int8.scores_with_bucket_max_int8_ref(
+        qc, cc, sc, 4037, pen, score_dtype)
+    assert torch.equal(s, s_ref) and torch.equal(bmax, bmax_ref)
+    # no penalty and every row valid: the unmasked epilogue
+    s, bmax = mips_int8.scores_with_bucket_max_int8(qc, cc, sc, score_dtype=score_dtype)
+    s_ref, bmax_ref = mips_int8.scores_with_bucket_max_int8_ref(qc, cc, sc,
+                                                                score_dtype=score_dtype)
+    assert torch.equal(s, s_ref) and torch.equal(bmax, bmax_ref)
+
+
+def test_int8_unaligned_scales_run_the_tile_variant(dev):
+    g = torch.Generator(device=dev).manual_seed(8)
+    qc, cc, sc = _int8_case(g, 37, 5004, 208, dev)
+    cc, sc = cc[1:], sc[1:]  # codes 208 bytes on (16-byte aligned), scales 4 bytes on
+    assert mips_int8.k2_variant(dev.type, 208, (qc.data_ptr(), cc.data_ptr(),
+                                                sc.data_ptr())) == "tile"
+    before_w = mips_int8.wgmma_launch_count
+    s, bmax = mips_int8.scores_with_bucket_max_int8(qc, cc, sc, 4037)
+    torch.cuda.synchronize()
+    assert mips_int8.wgmma_launch_count == before_w
+    s_ref, bmax_ref = mips_int8.scores_with_bucket_max_int8_ref(qc, cc, sc, 4037)
     assert torch.equal(s, s_ref) and torch.equal(bmax, bmax_ref)
 
 
@@ -304,9 +349,11 @@ def test_int8x8_index_launches_kernel_per_chunk(dev):
     on_cpu.add(rows)
     assert torch.equal(on_card._buf.cpu(), on_cpu._buf)
     mask = rng.random(3000) < 0.5
-    before = mips_int8.launch_count
+    before, before_w = mips_int8.launch_count, mips_int8.wgmma_launch_count
     D, I = on_card.search(rows[:16], 5, row_mask=mask)
-    assert mips_int8.launch_count == before + 3  # one launch per 1024-row chunk
+    # one launch per 1024-row chunk, each the Hopper variant (d = 64)
+    assert (mips_int8.launch_count, mips_int8.wgmma_launch_count) == (before + 3,
+                                                                      before_w + 3)
     Dc, _ = on_cpu.search(rows[:16], 5, row_mask=mask)
     np.testing.assert_allclose(D, Dc, rtol=1e-6, atol=0)
     assert mask[I].all()
@@ -318,15 +365,36 @@ def test_bucket_max_and_matmul_kernels_match_plain(dev, dtype):
     q = torch.randn(37, 200, device=dev, generator=g).to(dtype)
     c = torch.randn(5003, 200, device=dev, generator=g).to(dtype)
     b3, b6 = mips.bucket_max_launch_count, mips.scores_matmul_launch_count
+    w6 = mips.scores_matmul_wgmma_launch_count
     bmax = mips.scores_bucket_max(q, c, 4037)
     s = mips.scores_matmul(q, c)
     torch.cuda.synchronize()
     assert mips.bucket_max_launch_count == b3 + 1
     assert mips.scores_matmul_launch_count == b6 + 1
+    # bf16: K1's Hopper kernel with the store-only epilogue; f32: the tile loop
+    assert mips.scores_matmul_wgmma_launch_count == w6 + (dtype == torch.bfloat16)
     # f32 sums of 200 terms (|s| ~ 15) in another order
     torch.testing.assert_close(bmax, mips.scores_bucket_max_ref(q, c, 4037),
                                atol=1e-3, rtol=0)
     torch.testing.assert_close(s, mips.scores_matmul_ref(q, c), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("q_n,n", [(37, 5003), (300, 4937)])
+def test_wgmma_scores_matmul_matches_plain(dev, q_n, n):
+    # K6's Hopper variant on ragged q and n (one or two buckets in the last
+    # tile), and K6's tile loop on rows TMA cannot take (d = 37)
+    g = torch.Generator(device=dev).manual_seed(q_n)
+    for d, variant in ((200, "wgmma"), (37, "tile")):
+        q = torch.randn(q_n, d, device=dev, generator=g).bfloat16()
+        c = torch.randn(n, d, device=dev, generator=g).bfloat16()
+        assert mips.k6_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr())) == variant
+        b6, w6 = mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count
+        s = mips.scores_matmul(q, c)
+        torch.cuda.synchronize()
+        assert (mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count) == (
+            b6 + 1, w6 + (variant == "wgmma"))
+        # f32 sums of d exact bf16 products (|s| ~ sqrt(d)) in another order
+        torch.testing.assert_close(s, mips.scores_matmul_ref(q, c), atol=1e-3, rtol=0)
 
 
 def test_bucketed_topk_matches_exact_topk(dev):

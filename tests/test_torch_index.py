@@ -107,6 +107,22 @@ class TestDenseIndexParity:
         atol = 1e-6 if dtype == "float32" else 2.0**-8 * np.abs(got).max()
         np.testing.assert_allclose(got, j.reconstruct_batch(ids), atol=atol, rtol=0)
 
+    def test_reconstruct(self, metric, dtype, score_dtype):
+        # the single-row FAISS form: [d] float32, the JAX index's row
+        j, t, _, _ = _pair(metric, dtype, score_dtype)
+        for i in (0, 7, 200, t.ntotal - 1):
+            got = t.reconstruct(i)
+            assert got.dtype == np.float32 and got.shape == (DIM,)
+            np.testing.assert_array_equal(got, t.reconstruct_batch([i])[0])
+            # bf16: the two sides normalize in bf16 and may differ by one ulp
+            atol = 1e-6 if dtype == "float32" else 2.0**-8 * np.abs(got).max()
+            np.testing.assert_allclose(got, j.reconstruct(i), atol=atol, rtol=0)
+        for bad in (-1, t.ntotal):
+            with pytest.raises(IndexError):
+                t.reconstruct(bad)
+            with pytest.raises(IndexError):
+                j.reconstruct(bad)
+
 
 def test_empty_index_returns_missing_slots():
     t = DenseIndex(DIM, CAP, device="cpu")

@@ -49,9 +49,48 @@ def qdata():
 
 @pytest.fixture(autouse=True)
 def _no_kernel_launch_on_cpu():
-    before = mips_int8.launch_count
+    before = (mips_int8.launch_count, mips_int8.wgmma_launch_count)
     yield
-    assert mips_int8.launch_count == before  # CPU tensors never launch K2
+    # CPU tensors never launch K2
+    assert (mips_int8.launch_count, mips_int8.wgmma_launch_count) == before
+
+
+@pytest.mark.parametrize("device,d,ptrs,want", [
+    ("cuda", 1600, (0, 1600 * 65536, 4 * 65536), "wgmma"),  # a DenseIndex chunk
+    ("cuda", 208, (256, 512, 1024), "wgmma"),
+    ("cuda", 144, (16, 32, 48), "wgmma"),
+    ("cuda", 16, (16, 32, 48), "wgmma"),                    # the narrowest TMA row
+    ("cuda", 200, (0, 0, 0), "tile"),                       # rows not 16-byte strided
+    ("cuda", 37, (0, 0, 0), "tile"),
+    ("cuda", 1600, (8, 0, 0), "tile"),                      # query codes off 16 bytes
+    ("cuda", 1600, (0, 1600 + 8, 0), "tile"),               # corpus codes off 16 bytes
+    ("cuda", 1600, (0, 1600 * 3, 4 * 3), "tile"),           # scales of a slice at row 3
+    ("cpu", 1600, (0, 0, 0), "plain"),
+    ("cpu", 37, (1, 1, 1), "plain"),
+])
+def test_k2_variant(device, d, ptrs, want):
+    assert mips_int8.k2_variant(device, d, ptrs) == want
+
+
+def test_int8x8_index_chunks_take_the_wgmma_variant(monkeypatch):
+    # what DenseIndex.search hands K2 at Config() width: every chunk slice
+    # of the codes and scales starts 16-byte aligned (base * 1600 and
+    # base * 4 bytes on for chunk sizes that are multiples of 4)
+    seen = []
+    k2 = mips_int8.scores_with_bucket_max_int8
+
+    def spy(queries, corpus, corpus_scales, *args, **kw):
+        seen.append((queries.data_ptr(), corpus.data_ptr(), corpus_scales.data_ptr()))
+        return k2(queries, corpus, corpus_scales, *args, **kw)
+
+    monkeypatch.setattr(mips_int8, "scores_with_bucket_max_int8", spy)
+    rows = np.random.default_rng(3).standard_normal((1300, 1600)).astype(np.float32)
+    t = DenseIndex(1600, 2048, device="cpu", chunk_size=512, quantize="int8x8")
+    t.add(rows)
+    _, I = t.search(rows[:4], 5)
+    np.testing.assert_array_equal(I[:, 0], np.arange(4))
+    assert len(seen) == 3  # one per chunk
+    assert all(mips_int8.k2_variant("cuda", 1600, p) == "wgmma" for p in seen)
 
 
 def _strided_as_contiguous(corpus: np.ndarray) -> np.ndarray:
@@ -260,6 +299,17 @@ class TestQuantizedDenseIndexParity:
         assert got.dtype == np.float32 and got.shape == (5, DIM)
         # same codes and scales on both sides: code x scale is one f32 product
         np.testing.assert_array_equal(got, j.reconstruct_batch(ids))
+
+    def test_reconstruct(self, quantize, metric):
+        # the single-row FAISS form: the JAX index's dequantized row, bit for bit
+        j, t, _ = _pair(quantize, metric)
+        for i in (0, 7, 449):
+            got = t.reconstruct(i)
+            assert got.dtype == np.float32 and got.shape == (DIM,)
+            np.testing.assert_array_equal(got, j.reconstruct(i))
+        for bad in (-1, t.ntotal):
+            with pytest.raises(IndexError):
+                t.reconstruct(bad)
 
 
 def test_quantize_rejects_l2_and_unknown_modes():

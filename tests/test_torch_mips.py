@@ -52,7 +52,7 @@ def _strided_as_contiguous(corpus: np.ndarray, rows_per_bucket: int) -> np.ndarr
 
 
 _COUNTERS = ("launch_count", "wgmma_launch_count", "bucket_max_launch_count",
-             "scores_matmul_launch_count")
+             "scores_matmul_launch_count", "scores_matmul_wgmma_launch_count")
 
 
 @pytest.fixture(autouse=True)
@@ -78,6 +78,24 @@ def _no_kernel_launch_on_cpu():
 ])
 def test_k1_variant(device, dtype, d, ptrs, want):
     assert mips.k1_variant(device, dtype, d, ptrs) == want
+
+
+@pytest.mark.parametrize("device,dtype,d,ptrs,want", [
+    ("cuda", torch.bfloat16, 1600, (0, 3200 * 65536), "wgmma"),    # the bench point
+    ("cuda", torch.bfloat16, 200, (256, 512), "wgmma"),            # the ragged case
+    ("cuda", torch.bfloat16, 48, (16, 32), "wgmma"),
+    ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 16-byte strided
+    ("cuda", torch.bfloat16, 1600, (8, 0), "tile"),                # queries off 16 bytes
+    ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 16 bytes
+    ("cuda", torch.float32, 200, (0, 0), "tile"),                  # f32: exact FMA, no TF32
+    ("cuda", torch.float32, 1600, (256, 512), "tile"),
+    ("cpu", torch.bfloat16, 1600, (0, 0), "plain"),
+    ("cpu", torch.float32, 200, (4, 4), "plain"),
+])
+def test_k6_variant(device, dtype, d, ptrs, want):
+    # K6 runs K1's Hopper kernel with a store-only epilogue where K1's would
+    # run, the tile loop of csrc/scores_matmul.cu elsewhere
+    assert mips.k6_variant(device, dtype, d, ptrs) == want
 
 
 class TestScoresWithBucketMax:
