@@ -9,12 +9,20 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
 
 1. device   -- a CUDA device must be visible; otherwise exit 1, no result;
 2. kernel   -- K1, the fused score + bucket-max kernel, against its plain
-               PyTorch version: a ragged case (q=37, n=5003, d=200; f32
-               operands on the tile variant csrc/scores_bmax.cu, bf16 on the
-               wgmma variant csrc/scores_bmax_sm90.cu; valid_count
+               PyTorch version: ragged cases (q=37, n=5003; f32 at d=200 on
+               the f32 wgmma variant csrc/scores_bmax_f32_sm90.cu and at
+               d=202 on the tile variant csrc/scores_bmax.cu, bf16 at d=200
+               on the wgmma variant csrc/scores_bmax_sm90.cu; valid_count
                mid-bucket; 10% of rows masked by the penalty) and the bench
                point (q=1024, n=2^20, d=1600, bf16, k=100, wgmma variant)
                beside one cuBLAS bf16 GEMM, timed with CUDA events;
+3f. f32 index -- DenseIndex(1600, 2^20) with the default f32 storage and
+               scores, filled with 2^20 seeded rows, searched with 1024
+               queries at k=100: the f32 wgmma K1 launched 16 times per
+               search; value-recall@10 >= 0.999 against the f64 numpy oracle
+               on a 65,536-row subcorpus; the kernel against its plain
+               version on one chunk; best-of-3 time and a torch.profiler
+               breakdown of one search; the index is freed before phase 3;
 3. index    -- DenseIndex(1600, 2^20, bf16 storage and scores) filled with
                2^20 seeded unit rows, searched with 1024 queries at k=100:
                the wgmma K1 launched 16 times per search (one per
@@ -25,10 +33,10 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
 4. engine   -- the flagship GraphLevelEncoder at Config() width with seeded
                random weights inside SessionSearchEngine (f32 storage, the
                default): ingest 8,192 synthetic sessions, search 256 of them
-               at k=100 (every top-1 score within 1e-3 of 1.0); K1's f32
-               tile variant only (no wgmma launch), against its plain
-               version on the engine's own f32 queries and corpus (d=1600)
-               beside cuBLAS SGEMM (TF32 off) and its 67 TFLOP/s bound, and
+               at k=100 (every top-1 score within 1e-3 of 1.0); every K1
+               launch the f32 wgmma variant, against its plain version on
+               the engine's own f32 queries and corpus (d=1600) beside the
+               tile loop, cuBLAS SGEMM (TF32 off) and its bound, and
                search()'s scores against the plain top-100; 8 sessions
                encoded on the card and on the CPU with the same weights
                must agree;
@@ -37,9 +45,13 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                within two bf16 ulps of 1.0), every K1 launch the wgmma
                variant, which equals its plain version on the engine's own
                bf16 queries and rows (beside a cuBLAS bf16 GEMM);
-4c. f32 kernel -- K1's f32 instantiation at q=1024, n=2^20, d=1600 f32 ->
-               f32 against its plain version, beside cuBLAS SGEMM (TF32 off)
-               and its 67 TFLOP/s bound;
+4c. f32 kernel -- K1's f32 wgmma variant at q=1024, n=2^20, d=1600 f32 ->
+               f32 on seeded f32 unit rows against its plain version, timed
+               in the same rounds as the tile loop (through its own C entry
+               point) and cuBLAS SGEMM (TF32 off); the accuracy gate: on
+               1024 unit queries x a 65,536-row unit subcorpus at d=1600 and
+               on standard-normal rows at d=200, K1's and K6's largest
+               |score - f64| at most twice SGEMM's;
 
 5. packed kernel -- K4 (csrc/packed_scores_bmax.cu) against its plain
                version: a ragged case (q=37, three 2048-row pack blocks,
@@ -51,8 +63,11 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                K4's at the same shape, and ops.hamming.hamming_topk (K5's
                path) giving the same top-100 distances as K4;
 7. binary index -- BinaryIndex(250 bits, 2^20 rows), packed (K4) and sign
-               (K1's tile variant: 250-wide rows are no TMA stride) modes, 1024 queries at k=100: sorted distances equal a
-               plain f32 product over the same codes;
+               (K1's tile variant: 250-wide rows are no TMA stride) modes,
+               1024 queries at k=100: sorted distances equal a plain f32
+               product over the same codes; K1's tile variant alone at sign
+               mode's shape (bf16 scores) equal to its plain version, beside
+               a cuBLAS bf16 GEMM;
 8. two-stage index -- TwoStageIndex(1600-d, 2^20 rows, 'itq' 250-bit codes
                fitted on a 32,768-row sample, packed stage 1, pool 128, bf16
                rows), 1024 queries planted at cosine ~0.9 to stored rows:
@@ -90,11 +105,13 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                mips.exact_topk's (f32 scores), value-recall@10 1.0, times
                beside exact_topk's;
 14. scores matmul kernel -- K6 against its plain version on ragged cases
-               (q=37, n=5003, d=200: f32 on the tile loop csrc/scores_matmul.cu,
-               bf16 on the wgmma variant, K1's Hopper kernel with a store-only
-               epilogue) and at q=1024, n=2^20, d=1600 bf16 -> f32 (wgmma
-               variant, max_abs_err <= 1e-5 on unit rows), beside one cuBLAS
-               GEMM with f32 output and the tile loop at the same shape.
+               (q=37, n=5003: f32 at d=200 and bf16 at d=200 on the wgmma
+               variants, K1's Hopper kernels with a store-only epilogue; f32
+               at d=202 on the tile loop csrc/scores_matmul.cu) and at
+               q=1024, n=2^20, d=1600 bf16 -> f32 and f32 -> f32 (wgmma
+               variants, max_abs_err <= 1e-5 on unit rows), beside one
+               cuBLAS GEMM with f32 output and the tile loop at the same
+               shape.
 
 The build prints ptxas' resource lines; no kernel may spill. Each kernel
 time is printed with the SM clock and power draw that nvidia-smi reads
@@ -103,18 +120,25 @@ right after it. Before phase 4 the shared native graph builder must load
 used is printed).
 The second-to-last line is a JSON object describing each of the six
 kernels: the launches counted on its path (K1: phase 4's f32 engine, and
-``wgmma_launches`` phase 4b's bf16 engine; K1's times and bound are the
-wgmma variant's at the bench point, ``tile_f32`` the f32 instantiation's; K4: phase
-9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine, its
-``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
+``wgmma_launches`` phase 4b's bf16 engine; K1's times and bound are the bf16
+wgmma variant's at the bench point, ``f32_wgmma`` holds the f32 wgmma
+variant's (launches on phase 4's engine, times at the bench point and the
+engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
+``tile_bf16`` the tile variant's at phase 7's sign-mode shape;
+K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
+its ``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
 with f32 scores, ``tile`` the tile variant's; K3: phase 13's
 bucketed_topk; K6: phase 14's scores_matmul, likewise with
-``wgmma_launches`` and ``tile``), its largest error
+``wgmma_launches``, ``tile`` and ``f32_wgmma``), its largest error
 against its plain version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the published peak of
-their type; K5's popcounts at 16 per clock per SM at the card's maximum SM
-clock) and the time of one library call computing the same product (null
-where there is none). The last line is ``{"ok": true, "device": {...}}``.
+their type: an f32 product's 2*q*n*d at 495 TFLOP/s, the card's fastest
+rate for f32 operands (tf32); K5's popcounts at 16 per clock per SM at the
+card's maximum SM clock; the f32 entries add ``design_bound_ms``, the bound
+of the design that runs them: three tf32 passes at 495 TFLOP/s for the
+wgmma variants, f32 FMAs at 67 TFLOP/s for the tile loop) and the time of one library call
+computing the same product (null where there is none). The last line is
+``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero.
 """
 
@@ -136,7 +160,9 @@ BF16_TOL = 2 * 2.0**-8  # two bf16 ulps, relative to the per-query scale
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
 PEAK_INT8 = 1979e12
-PEAK_F32 = 67e12  # outside the tensor cores: K1's exact f32 loop
+PEAK_TF32 = 495e12  # the card's fastest rate for f32 operands
+TF32_PASSES = 3  # the f32 wgmma variants' design: three tf32 passes
+PEAK_F32 = 67e12  # outside the tensor cores: the tile loop's exact f32 FMAs
 SMS = 132
 
 
@@ -198,6 +224,61 @@ def unit_rows(torch, g, n, d, dev):
     return rows
 
 
+def unit_rows_f32(torch, g, n, d, dev):
+    """n seeded f32 unit rows [n, d] (every mantissa bit in use, unlike
+    unit_rows' bf16 values), drawn 65,536 at a time."""
+    rows = torch.empty(n, d, device=dev)
+    for s in range(0, n, 1 << 16):
+        r = torch.randn(min(1 << 16, n - s), d, generator=g, device=dev)
+        rows[s: s + len(r)] = r / r.norm(dim=1, keepdim=True)
+    return rows
+
+
+def tile_loop(torch, lib, mips, q, c, dev, bmax=True):
+    """One launch of the f32 or bf16 tile loop straight through its C entry
+    point -- K1's csrc/scores_bmax.cu (bmax=True; no penalty, every row
+    valid, f32 scores) or K6's csrc/scores_matmul.cu -- to time it on rows
+    where the wrappers run a wgmma variant. Returns the scores."""
+    m, n, d = q.shape[0], c.shape[0], q.shape[1]
+    in_bf16 = int(q.dtype == torch.bfloat16)
+    s = torch.empty(m, n, device=dev)
+    if bmax:
+        bm = torch.empty(m, -(-n // 128), device=dev)
+        mips._cuda_call(lib.sss_scores_bmax, "scores_bmax", dev, q.data_ptr(), c.data_ptr(),
+                        None, s.data_ptr(), bm.data_ptr(), m, n, d, n, in_bf16, 0)
+    else:
+        mips._cuda_call(lib.sss_scores_matmul, "scores_matmul", dev, q.data_ptr(),
+                        c.data_ptr(), s.data_ptr(), m, n, d, in_bf16)
+    return s
+
+
+def f32_bound(q_n, n, d, tf32=True, bmax=True):
+    """The bound of an f32 -> f32 score call: its 2*q*n*d operations at the
+    card's fastest rate for f32 operands, or its bytes. ``design_bound_ms``
+    is the same for the design that runs it: the f32 wgmma variants' three
+    tf32 passes (tf32=True), or the tile loop's f32 FMAs."""
+    n_bytes = 4 * (q_n * d + n * d + q_n * n) + (q_n * (n // 128) * 4 if bmax else 0)
+    ops = 2 * q_n * n * d
+    design = (bound_ms(n_bytes, TF32_PASSES * ops, PEAK_TF32) if tf32
+              else bound_ms(n_bytes, ops, PEAK_F32))
+    return {**bound_ms(n_bytes, ops, PEAK_TF32), "design_bound_ms": design["bound_ms"],
+            "design_bound_by": design["bound_by"]}
+
+
+def rounds_in_turns(torch, fns: dict, rounds: int = 3):
+    """Times each of ``fns`` (name -> (fn, calls a round)) once a round, in
+    turns, so that a clock that drifts hits them alike. Returns each one's
+    median, each one's rounds as text, and the SM clock and power after."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, (fn, iters) in fns.items():
+            times[name].append(cuda_ms(torch, fn, iters))
+    state = smi()
+    medians = {name: sorted(ts)[len(ts) // 2] for name, ts in times.items()}
+    text = {name: " / ".join(f"{t:.3f}" for t in ts) for name, ts in times.items()}
+    return medians, text, state
+
+
 def run_phase(torch, name, fn, *args):
     """Run one phase and print its time from CUDA events around it."""
     start = torch.cuda.Event(enable_timing=True)
@@ -224,18 +305,22 @@ def value_recall(torch, topk_mod, exact, ids, k, rel_tol):
 
 def phase_kernel_ragged(torch, mips, topk_mod, dev):
     errs = []
-    for dt in (torch.float32, torch.bfloat16):
+    # f32 at d=200 (the f32 wgmma variant) and d=202 (no TMA stride: the
+    # tile loop), bf16 at d=200 (the bf16 wgmma variant)
+    for dt, d, want in ((torch.float32, 200, "wgmma"), (torch.float32, 202, "tile"),
+                        (torch.bfloat16, 200, "wgmma")):
         g = torch.Generator(device=dev).manual_seed(0)
-        q = torch.randn(37, 200, generator=g, device=dev).to(dt)
-        c = torch.randn(5003, 200, generator=g, device=dev).to(dt)
+        q = torch.randn(37, d, generator=g, device=dev).to(dt)
+        c = torch.randn(5003, d, generator=g, device=dev).to(dt)
         pen = torch.where(torch.rand(5003, generator=g, device=dev) < 0.1,
                           float("-inf"), 0.0)
         vc = 4037  # mid-bucket: 4037 = 31 * 128 + 69
-        variant = mips.k1_variant(dev.type, dt, 200, (q.data_ptr(), c.data_ptr()))
+        variant = mips.k1_variant(dev.type, dt, d, (q.data_ptr(), c.data_ptr()))
+        check(variant == want, f"ragged {dt} d={d}: the {variant} variant, not {want}")
         w0 = mips.wgmma_launch_count
         mips.scores_with_bucket_max(q, c, vc, pen, dt)
         check(mips.wgmma_launch_count - w0 == (variant == "wgmma"),
-              f"ragged {dt}: the {variant} variant was not the one launched")
+              f"ragged {dt} d={d}: the {variant} variant was not the one launched")
         ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(q, c, vc, pen, dt), 20)
         plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(
             q, c, vc, pen, dt), 20)
@@ -243,35 +328,45 @@ def phase_kernel_ragged(torch, mips, topk_mod, dev):
         s_ref, bm_ref = mips.scores_with_bucket_max_ref(q, c, vc, pen, dt)
         torch.cuda.synchronize()
         check(torch.equal(torch.isneginf(s), torch.isneginf(s_ref)),
-              f"ragged {dt}: -inf pattern of the scores differs")
+              f"ragged {dt} d={d}: -inf pattern of the scores differs")
         check(torch.equal(torch.isneginf(bm), torch.isneginf(bm_ref)),
-              f"ragged {dt}: -inf pattern of bmax differs")
+              f"ragged {dt} d={d}: -inf pattern of bmax differs")
         fin = torch.isfinite(bm_ref)
         bm_err = (bm[fin] - bm_ref[fin]).abs().max().item()
         fin_s = torch.isfinite(s_ref)
         s_err = (s.float()[fin_s] - s_ref.float()[fin_s]).abs()
         s_rel = (s_err / s_ref.float()[fin_s].abs().clamp(min=1.0)).max().item()
-        # f32: another summation order (|s| ~ 15); bf16: both sides round
-        # the f32 value to nearest even, one ulp apart at most
-        check(bm_err <= 1e-3, f"ragged {dt}: bmax max_abs_err {bm_err}")
-        check(s_rel <= (1e-5 if dt == torch.float32 else 2.0**-7),
-              f"ragged {dt}: scores max rel err {s_rel}")
+        exact = q.double() @ c.double().T
+        exact[:, vc:] = float("-inf")
+        exact += pen.double()
+        check(bm_err <= 1e-3, f"ragged {dt} d={d}: bmax max_abs_err {bm_err}")
+        if dt == torch.float32:
+            # f32 sums of 200 products (|s| ~ 15) in another order than the
+            # plain version's cuBLAS SGEMM: each is held to the f64 product,
+            # the kernel within twice SGEMM's error (phase 4c's gate)
+            e_k = (s.double()[fin_s] - exact[fin_s]).abs().max().item()
+            e_plain = (s_ref.double()[fin_s] - exact[fin_s]).abs().max().item()
+            check(e_k <= 2 * e_plain, f"ragged {dt} d={d}: |scores - f64| max {e_k} > 2 x "
+                  f"the plain version's {e_plain}")
+            f64_note = f", |scores - f64| max {e_k:.4g} = {e_k / e_plain:.3f} x plain's (limit 2)"
+        else:
+            f64_note = ""
+            # bf16: both sides round the f32 value to nearest even, one ulp
+            # apart at most
+            check(s_rel <= 2.0**-7, f"ragged {dt} d={d}: scores max rel err {s_rel}")
         v, i = mips.select_topk(s, bm, 10)
         v_ref, _ = mips.select_topk(s_ref, bm_ref, 10)
         v_err = (v - v_ref).abs().max().item()
         v_tol = 1e-3 if dt == torch.float32 else 2.0**-7 * v_ref.abs().max().item()
-        check(v_err <= v_tol, f"ragged {dt}: top-10 values max_abs_err {v_err}")
-        exact = q.double() @ c.double().T
-        exact[:, vc:] = float("-inf")
-        exact += pen.double()
+        check(v_err <= v_tol, f"ragged {dt} d={d}: top-10 values max_abs_err {v_err}")
         rec = value_recall(torch, topk_mod, exact, i, 10,
                            1e-5 if dt == torch.float32 else BF16_TOL)
-        check(rec == 1.0, f"ragged {dt}: value-recall@10 {rec}")
+        check(rec == 1.0, f"ragged {dt} d={d}: value-recall@10 {rec}")
         errs.append(bm_err)
-        print(f"kernel ragged q=37 n=5003 d=200 {str(dt)[6:]} ({variant} variant): "
+        print(f"kernel ragged q=37 n=5003 d={d} {str(dt)[6:]} ({variant} variant): "
               f"kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms; bmax max_abs_err {bm_err:.3g}, scores max "
-              f"rel err {s_rel:.3g}, top-10 max_abs_err {v_err:.3g}, "
+              f"rel err {s_rel:.3g}{f64_note}, top-10 max_abs_err {v_err:.3g}, "
               f"value-recall@10 {rec}")
     return max(errs)
 
@@ -329,6 +424,81 @@ def phase_kernel_bench(torch, mips, topk_mod, dev):
     bound = bound_ms(q_n * d * 2 + n * d * 2 + q_n * n * 2 + q_n * (n // 128) * 4,
                      2 * q_n * n * d, PEAK_BF16)
     return bm_err, {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bound}
+
+
+def phase_f32_index(torch, mips, topk_mod, dev):
+    """The default DenseIndex: f32 rows and f32 scores, every K1 launch the
+    f32 wgmma variant."""
+    from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
+
+    n, d, q_n = 1 << 20, 1600, 1024
+    idx = DenseIndex(d, n, device=dev)  # f32 storage and scores: the defaults
+    check(idx._buf.dtype == torch.float32, "f32 index: not f32 storage")
+    g = torch.Generator(device=dev).manual_seed(11)
+    t0 = time.perf_counter()
+    for _ in range(0, n, 1 << 16):
+        idx.add(torch.randn(1 << 16, d, generator=g, device=dev))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    queries = torch.randn(q_n, d, generator=g, device=dev)
+
+    mips.launch_count = mips.wgmma_launch_count = 0
+    D, I = idx.search(queries, 100)  # warm-up
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        D, I = idx.search(queries, 100)  # returns numpy: includes the sync
+        times.append(time.perf_counter() - t0)
+    launches, wgmma = mips.launch_count, mips.wgmma_launch_count
+    chunks = n // idx.chunk_size
+    check(launches == wgmma == 4 * chunks,
+          f"f32 index: {launches} K1 launches ({wgmma} wgmma) in 4 searches of {chunks} chunks")
+    check(np.isfinite(D).all() and (np.diff(D, axis=1) <= 0).all(),
+          "f32 index: scores not finite and descending")
+    check(((I >= 0) & (I < n)).all(), "f32 index: ids out of range")
+
+    # correctness gate: the first 65,536 rows through row_mask, 64 queries,
+    # against the f64 numpy oracle over the rows and queries as stored
+    sub_n, sub_q = 65536, 64
+    mask = torch.arange(n, device=dev) < sub_n
+    _, Im = idx.search(queries[:sub_q], 10, row_mask=mask)
+    sub = idx.reconstruct_batch(np.arange(sub_n))
+    qs = topk_mod.l2_normalize(queries[:sub_q]).cpu().numpy()
+    check((Im < sub_n).all(), "f32 index: row_mask let a filtered row through")
+    rec = topk_mod.value_recall_at_k(Im, qs, sub, 10, rel_tol=1e-5)
+    check(rec >= 0.999, f"f32 index: value-recall@10 {rec}")
+
+    # the kernel against its plain version on one chunk as search() hands it
+    # over: the 1024 queries normalized in f32 and the first chunk_size rows
+    qn = topk_mod.l2_normalize(queries).contiguous()
+    chunk = idx._buf[: idx.chunk_size]
+    s, bm = mips.scores_with_bucket_max(qn, chunk)
+    s_ref, bm_ref = mips.scores_with_bucket_max_ref(qn, chunk)
+    bm_err = (bm - bm_ref).abs().max().item()
+    s_err = (s - s_ref).abs().max().item()
+    # unit rows, |s| <= 1: f32-accurate sums in another order
+    check(bm_err <= 1e-5 and s_err <= 1e-5,
+          f"f32 index chunk: bmax max_abs_err {bm_err}, scores {s_err}")
+    del s, s_ref
+    best = min(times)
+    print(f"f32 index 2^20 x 1600 f32/f32 (the defaults): fill {fill_s:.2f} s; search 1024 "
+          f"queries k=100: {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS) {smi()}, "
+          f"{launches} K1 launches, all f32 wgmma ({wgmma // 4} per search); value-recall@10 "
+          f"{rec} on the 65,536-row subcorpus; one {idx.chunk_size}-row chunk, kernel vs "
+          f"plain: bmax max_abs_err {bm_err:.3g}, scores max_abs_err {s_err:.3g}")
+    # where the f32 search's time goes; a diagnostic: a profiler that cannot
+    # trace the card is reported, not fatal
+    try:
+        wall, busy, top = profile(torch, lambda: idx.search(queries, 100))
+        print(f"f32 search profile (torch.profiler, 3 calls): {wall:.2f} ms a call on the "
+              f"host clock, device busy {busy:.2f} ms ({100 * (1 - busy / wall):.1f}% idle)")
+        for key, t, count in top:
+            print(f"  {t:8.3f} ms  x{count:<4d} {key[:90]}")
+    except Exception as e:  # noqa: BLE001 - diagnostic output only
+        print(f"f32 search profile: not measured ({type(e).__name__}: {e})")
+    del idx, chunk
+    torch.cuda.empty_cache()
+    return max(bm_err, s_err), best * 1e3
 
 
 def phase_index(torch, mips, topk_mod, dev):
@@ -430,7 +600,9 @@ def phase_engine(torch, mips, topk_mod, dev):
     D, I = eng.search(data[:256], k=100)
     search_s = time.perf_counter() - t0
     launches = mips.launch_count
-    check(mips.wgmma_launch_count == 0, "engine: the f32 engine launched the wgmma K1")
+    check(mips.wgmma_launch_count == launches,
+          f"engine: {launches - mips.wgmma_launch_count} of {launches} K1 launches of the "
+          "f32 engine were not the f32 wgmma variant")
 
     check(eng.index.ntotal == 8192, f"engine: ntotal {eng.index.ntotal}")
     check(D.shape == (256, 100) and np.isfinite(D).all(), "engine: bad result")
@@ -442,16 +614,24 @@ def phase_engine(torch, mips, topk_mod, dev):
 
     # the kernel against its plain version on the engine's own search inputs:
     # the 256 query embeddings normalized as search() does and the stored
-    # float32 corpus -- the f32 instantiation at d=1600
+    # float32 corpus -- the f32 wgmma variant at d=1600, timed beside the
+    # tile loop (through its own entry point) and SGEMM
+    from sessionsimilaritysearch_tpu_torch.ops import _build
+
+    lib = _build.load_library()
     qs = topk_mod.l2_normalize(eng.embed(data[:256], out="device").float()).contiguous()
     corpus = eng.index._buf[: eng.index.ntotal]
-    ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(qs, corpus), 10)
-    plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(qs, corpus), 10)
-    lib_ms = cuda_ms(torch, lambda: torch.matmul(qs, corpus.T), 10)  # SGEMM, TF32 off
+    check(mips.k1_variant(dev.type, qs.dtype, qs.shape[1], (qs.data_ptr(), corpus.data_ptr()))
+          == "wgmma", "engine: its f32 rows do not take the f32 wgmma variant")
+    ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(qs, corpus), 20)
+    tile_ms = cuda_ms(torch, lambda: tile_loop(torch, lib, mips, qs, corpus, dev), 20)
+    plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(qs, corpus), 20)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(qs, corpus.T), 20)  # SGEMM, TF32 off
     q_n, n_c, d = qs.shape[0], corpus.shape[0], qs.shape[1]
     f32_small = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                 **bound_ms(4 * (q_n * d + n_c * d + q_n * n_c) + q_n * (n_c // 128) * 4,
-                            2 * q_n * n_c * d, PEAK_F32)}
+                 **f32_bound(q_n, n_c, d)}
+    tile_small = {"ms": tile_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                  **f32_bound(q_n, n_c, d, tf32=False)}
     s, bm = mips.scores_with_bucket_max(qs, corpus)
     s_ref, bm_ref = mips.scores_with_bucket_max_ref(qs, corpus)
     bm_err = (bm - bm_ref).abs().max().item()
@@ -481,16 +661,18 @@ def phase_engine(torch, mips, topk_mod, dev):
           f"top-1 |score-1| max {top1_err:.3g}, self-hit ids {self_hits:.4f}; "
           f"card vs CPU encoder max_abs_err {enc_err:.3g} of scale {scale:.3g}; "
           f"kernel launches {launches}")
-    print(f"engine search shape q=256 n=8192 d=1600 f32->f32 (tile variant, "
-          f"csrc/scores_bmax.cu; 0 wgmma launches on the path), kernel vs plain: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul f32 (TF32 off) "
-          f"{lib_ms:.4f} ms, bound {f32_small['bound_ms']:.4f} ms "
-          f"({f32_small['bound_by']}); bmax max_abs_err "
+    print(f"engine search shape q=256 n=8192 d=1600 f32->f32 (f32 wgmma variant, "
+          f"csrc/scores_bmax_f32_sm90.cu; all {launches} K1 launches on the path), kernel "
+          f"vs plain: kernel {ms:.4f} ms {smi()}, tile loop {tile_ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul f32 (TF32 off) {lib_ms:.4f} ms, bound "
+          f"{f32_small['bound_ms']:.4f} ms ({f32_small['bound_by']}; design bounds: three "
+          f"tf32 passes {f32_small['design_bound_ms']:.4f}, the tile loop's "
+          f"{tile_small['design_bound_ms']:.4f}); bmax max_abs_err "
           f"{bm_err:.3g}, scores max_abs_err {s_err:.3g}, top-100 max_abs_err "
           f"{v_err:.3g}, search() top-100 vs plain max_abs_err {d_err:.3g}")
     print(f"engine stats: {json.dumps(stats)}")
     corpus = eng.index.reconstruct_batch(np.arange(eng.index.ntotal))
-    return launches, bm_err, f32_small, (cfg, tok, enc, data, corpus)
+    return launches, bm_err, f32_small, tile_small, (cfg, tok, enc, data, corpus)
 
 
 def phase_bf16_engine(torch, mips, topk_mod, dev, parts):
@@ -551,39 +733,73 @@ def phase_bf16_engine(torch, mips, topk_mod, dev, parts):
 
 
 def phase_f32_kernel(torch, mips, dev):
-    """K1's f32 instantiation (the tile variant, exact FMA) at the bench
-    point, beside cuBLAS SGEMM with TF32 off."""
+    """K1's f32 wgmma variant (the 3xTF32 split) at the bench point, timed in
+    the same rounds as the tile loop and cuBLAS SGEMM (TF32 off), and the
+    accuracy gate: K1's and K6's largest |score - f64| at most twice
+    SGEMM's."""
+    from sessionsimilaritysearch_tpu_torch.ops import _build
+
+    lib = _build.load_library()
     q_n, n, d = 1024, 1 << 20, 1600
     g = torch.Generator(device=dev).manual_seed(10)
-    corpus = unit_rows(torch, g, n, d, dev).float()
-    queries = unit_rows(torch, g, q_n, d, dev).float()
+    corpus = unit_rows_f32(torch, g, n, d, dev)
+    queries = unit_rows_f32(torch, g, q_n, d, dev)
     check(mips.k1_variant(dev.type, queries.dtype, d, (queries.data_ptr(), corpus.data_ptr()))
-          == "tile", "f32 bench point: not the tile variant")
+          == "wgmma", "f32 bench point: not the wgmma variant")
     check(not torch.backends.cuda.matmul.allow_tf32, "f32 bench point: TF32 is on")
     w0 = mips.wgmma_launch_count
-    ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(queries, corpus), 2)
-    check(mips.wgmma_launch_count == w0, "f32 bench point: the wgmma K1 ran")
+    med, rounds, state = rounds_in_turns(torch, {
+        "wgmma": (lambda: mips.scores_with_bucket_max(queries, corpus), 3),
+        "tile": (lambda: tile_loop(torch, lib, mips, queries, corpus, dev), 1),
+        "sgemm": (lambda: torch.matmul(queries, corpus.T), 2)})
+    check(mips.wgmma_launch_count - w0 == 12, "f32 bench point: the wgmma variant did not run")
+    ms, tile_ms, lib_ms = med["wgmma"], med["tile"], med["sgemm"]
     plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(queries, corpus), 2)
-    lib_ms = cuda_ms(torch, lambda: torch.matmul(queries, corpus.T), 3)
     s, bm = mips.scores_with_bucket_max(queries, corpus)
     s_ref, bm_ref = mips.scores_with_bucket_max_ref(queries, corpus)
     bm_err = (bm - bm_ref).abs().max().item()
     s_err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item()
                 for r in range(0, q_n, 64))
-    # unit rows, |s| <= 1: f32 sums of f32 products in another order
+    # unit rows, |s| <= 1: f32-accurate sums in another order
     check(bm_err <= 1e-5, f"f32 bench point: bmax max_abs_err {bm_err}")
     check(s_err <= 1e-5, f"f32 bench point: scores max_abs_err {s_err}")
-    del s, s_ref, bm, bm_ref, corpus, queries
+    del s, s_ref, bm, bm_ref
+
+    # the accuracy gate on the bench point's first 65,536 rows and on
+    # standard-normal rows at d=200, against the f64 product on the card
+    gate = {}
+    for d_g, q, c in ((d, queries, corpus[: 1 << 16]),
+                      (200, torch.randn(q_n, 200, generator=g, device=dev),
+                       torch.randn(1 << 16, 200, generator=g, device=dev))):
+        exact = q.double() @ c.double().T
+        e_k1 = (mips.scores_with_bucket_max(q, c)[0].double() - exact).abs().max().item()
+        e_k6 = (mips.scores_matmul(q, c).double() - exact).abs().max().item()
+        e_sgemm = (torch.matmul(q, c.T).double() - exact).abs().max().item()
+        e_tile = (tile_loop(torch, lib, mips, q, c, dev).double() - exact).abs().max().item()
+        del exact
+        check(max(e_k1, e_k6) <= 2 * e_sgemm,
+              f"f32 accuracy gate d={d_g}: K1 {e_k1}, K6 {e_k6} > 2 x SGEMM {e_sgemm}")
+        gate[f"d{d_g}"] = {"k1": e_k1, "k6": e_k6, "sgemm": e_sgemm, "tile": e_tile}
+        print(f"f32 accuracy gate, {q.shape[0]} x {c.shape[0]} at d={d_g} "
+              f"({'unit' if d_g == d else 'standard-normal'} rows), largest |score - f64|: "
+              f"K1 f32 wgmma {e_k1:.4g}, K6 f32 wgmma {e_k6:.4g}, cuBLAS SGEMM {e_sgemm:.4g} "
+              f"(ratio {max(e_k1, e_k6) / e_sgemm:.3f}, gate 2), tile loop {e_tile:.4g}")
+    del corpus, queries
     torch.cuda.empty_cache()
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           **bound_ms(4 * (q_n * d + n * d + q_n * n) + q_n * (n // 128) * 4,
-                      2 * q_n * n * d, PEAK_F32)}
-    print(f"f32 kernel bench point q={q_n} n={n} d={d} f32->f32 (tile variant): kernel "
-          f"{ms:.3f} ms {smi()} ({2 * q_n * n * d / (ms * 1e-3) / 1e12:.1f} TFLOP/s), plain "
-          f"{plain_ms:.3f} ms, torch.matmul f32 (cuBLAS SGEMM, TF32 off) {lib_ms:.3f} ms, "
-          f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}, 67 TFLOP/s); bmax "
-          f"max_abs_err {bm_err:.3g}, scores max_abs_err {s_err:.3g}")
-    return max(bm_err, s_err), out
+    flops = 2 * q_n * n * d
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **f32_bound(q_n, n, d),
+           "gate": gate}
+    tile = {"ms": tile_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            **f32_bound(q_n, n, d, tf32=False)}
+    print(f"f32 kernel bench point q={q_n} n={n} d={d} f32->f32, three rounds in turns "
+          f"{state}: f32 wgmma variant {rounds['wgmma']} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s of f32 products), tile loop {rounds['tile']} ms, torch.matmul f32 "
+          f"(cuBLAS SGEMM, TF32 off) {rounds['sgemm']} ms; plain {plain_ms:.3f} ms; bound "
+          f"{out['bound_ms']:.3f} ms ({out['bound_by']}, at 495 TFLOP/s); design bounds: "
+          f"three tf32 passes {out['design_bound_ms']:.3f} ms, the tile loop's f32 FMAs "
+          f"{tile['design_bound_ms']:.3f} ms at 67 TFLOP/s; bmax max_abs_err "
+          f"{bm_err:.3g}, scores max_abs_err {s_err:.3g}")
+    return max(bm_err, s_err), out, tile
 
 
 def random_signs(torch, g, rows, bits, dev):
@@ -769,8 +985,30 @@ def phase_binary_index(torch, dev):
               f"k={k} {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); sorted "
               f"distances equal the plain product's")
         del idx
+    # K1's tile variant alone at sign mode's shape: +-1 bf16 rows of 250
+    # bits (no TMA stride), bf16 scores, beside a cuBLAS bf16 GEMM
+    qb, cb, bf = queries.bfloat16(), codes.bfloat16(), torch.bfloat16
     del codes
+    check(mips.k1_variant(dev.type, bf, n_bits, (qb.data_ptr(), cb.data_ptr())) == "tile",
+          "binary index sign: its rows do not take K1's tile variant")
+    ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(qb, cb, score_dtype=bf), 5)
+    lib_ms = cuda_ms(torch, lambda: torch.matmul(qb, cb.T), 5)
+    plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(qb, cb, score_dtype=bf), 3)
+    s, bm = mips.scores_with_bucket_max(qb, cb, score_dtype=bf)
+    s_ref, bm_ref = mips.scores_with_bucket_max_ref(qb, cb, score_dtype=bf)
+    # +-1 products are integers of magnitude <= 250: exact on both sides
+    check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+          "binary index sign: K1's tile variant differs from its plain version")
+    del s, s_ref, bm, bm_ref, qb, cb
     torch.cuda.empty_cache()
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           **bound_ms(q_n * n_bits * 2 + n * n_bits * 2 + q_n * n * 2 + q_n * (n // 128) * 4,
+                      2 * q_n * n * n_bits, PEAK_BF16)}
+    print(f"K1 tile variant at sign mode's shape q={q_n} n={n} d={n_bits} bf16 -> bf16: "
+          f"kernel {ms:.3f} ms {smi()}, cuBLAS bf16 GEMM {lib_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}); scores "
+          f"and bmax equal")
+    return out
 
 
 def phase_twostage_index(torch, dev):
@@ -1257,38 +1495,29 @@ def phase_scores_matmul(torch, dev):
     from sessionsimilaritysearch_tpu_torch.ops import _build, mips
 
     lib = _build.load_library()
-
-    def tile(q, c):
-        """One launch of K6's tile loop (csrc/scores_matmul.cu) straight
-        through its C entry point, to time it where the wrapper runs the
-        wgmma variant."""
-        s = torch.empty(q.shape[0], c.shape[0], device=dev)
-        mips._cuda_call(lib.sss_scores_matmul, "scores_matmul", dev, q.data_ptr(),
-                        c.data_ptr(), s.data_ptr(), q.shape[0], c.shape[0], q.shape[1],
-                        int(q.dtype == torch.bfloat16))
-        return s
-
     g = torch.Generator(device=dev).manual_seed(9)
     errs, tiles = [], {}
-    for dt, variant in ((torch.float32, "tile"), (torch.bfloat16, "wgmma")):
-        q = torch.randn(37, 200, generator=g, device=dev).to(dt)
-        c = torch.randn(5003, 200, generator=g, device=dev).to(dt)
-        check(mips.k6_variant(dev.type, dt, 200, (q.data_ptr(), c.data_ptr())) == variant,
-              f"scores matmul ragged {dt}: not the {variant} variant")
+    for dt, dd, variant in ((torch.float32, 200, "wgmma"), (torch.float32, 202, "tile"),
+                            (torch.bfloat16, 200, "wgmma")):
+        q = torch.randn(37, dd, generator=g, device=dev).to(dt)
+        c = torch.randn(5003, dd, generator=g, device=dev).to(dt)
+        check(mips.k6_variant(dev.type, dt, dd, (q.data_ptr(), c.data_ptr())) == variant,
+              f"scores matmul ragged {dt} d={dd}: not the {variant} variant")
         l0, w0 = mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count
         s = mips.scores_matmul(q, c)
         check((mips.scores_matmul_launch_count - l0,
                mips.scores_matmul_wgmma_launch_count - w0) == (1, int(variant == "wgmma")),
-              f"scores matmul ragged {dt}: the {variant} variant was not the one launched")
+              f"scores matmul ragged {dt} d={dd}: the {variant} variant was not the one "
+              "launched")
         err = (s - mips.scores_matmul_ref(q, c)).abs().max().item()
         # f32 sums of 200 terms (|s| ~ 15) in another order
-        check(err <= 1e-3, f"scores matmul ragged {dt}: max_abs_err {err}")
+        check(err <= 1e-3, f"scores matmul ragged {dt} d={dd}: max_abs_err {err}")
         errs.append(err)
         ms = cuda_ms(torch, lambda: mips.scores_matmul(q, c), 20)
         plain_ms = cuda_ms(torch, lambda: mips.scores_matmul_ref(q, c), 20)
         if variant == "tile":
-            tiles["q37_n5003_d200_float32"] = {"ms": ms, "plain_ms": plain_ms}
-        print(f"scores matmul kernel ragged q=37 n=5003 d=200 {str(dt)[6:]} ({variant} "
+            tiles[f"q37_n5003_d{dd}_float32"] = {"ms": ms, "plain_ms": plain_ms}
+        print(f"scores matmul kernel ragged q=37 n=5003 d={dd} {str(dt)[6:]} ({variant} "
               f"variant): kernel {ms:.4f} ms {smi()}, plain {plain_ms:.4f} ms; "
               f"max_abs_err {err:.3g}")
 
@@ -1309,7 +1538,7 @@ def phase_scores_matmul(torch, dev):
     # unit rows, |s| <= 1: f32 sums of exact bf16 products in another order
     check(err <= 1e-5, f"scores matmul bench point: max_abs_err {err}")
     del s
-    s = tile(queries, corpus)
+    s = tile_loop(torch, lib, mips, queries, corpus, dev, bmax=False)
     tile_err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item()
                    for r in range(0, q_n, 64))
     check(tile_err <= 1e-5, f"scores matmul bench point: tile loop max_abs_err {tile_err}")
@@ -1317,7 +1546,8 @@ def phase_scores_matmul(torch, dev):
     del s, s_ref
     ms = cuda_ms(torch, lambda: mips.scores_matmul(queries, corpus), 5)
     state = smi()
-    tile_ms = cuda_ms(torch, lambda: tile(queries, corpus), 5)
+    tile_ms = cuda_ms(torch, lambda: tile_loop(torch, lib, mips, queries, corpus, dev,
+                                               bmax=False), 5)
     tile_state = smi()
     tiles["q1024_n1048576_d1600_bfloat16"] = {"ms": tile_ms}
     plain_ms = cuda_ms(torch, lambda: mips.scores_matmul_ref(queries, corpus), 3)
@@ -1338,9 +1568,55 @@ def phase_scores_matmul(torch, dev):
           f"wgmma")
     del corpus, queries
     torch.cuda.empty_cache()
+    f32 = phase_scores_matmul_f32(torch, mips, lib, dev, g)
+    tiles["q1024_n1048576_d1600_float32"] = {"ms": f32.pop("tile_ms")}
     return {"err": max(errs), "launches": launches, "wgmma_launches": wgmma, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "tile": tiles,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "tile": tiles, "f32_wgmma": f32,
             **bound_ms(q_n * d * 2 + n * d * 2 + q_n * n * 4, 2 * q_n * n * d, PEAK_BF16)}
+
+
+def phase_scores_matmul_f32(torch, mips, lib, dev, g):
+    """K6's f32 wgmma variant at q=1024, n=2^20, d=1600 f32 -> f32 on unit
+    rows, on its own path (one scores_matmul call), against its plain
+    version and timed in the same rounds as the tile loop and SGEMM."""
+    q_n, n, d = 1024, 1 << 20, 1600
+    corpus = unit_rows_f32(torch, g, n, d, dev)
+    queries = unit_rows_f32(torch, g, q_n, d, dev)
+    check(mips.k6_variant(dev.type, queries.dtype, d, (queries.data_ptr(), corpus.data_ptr()))
+          == "wgmma", "scores matmul f32 bench point: not the wgmma variant")
+    l0, w0 = mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count
+    s = mips.scores_matmul(queries, corpus)
+    launches = mips.scores_matmul_launch_count - l0
+    wgmma = mips.scores_matmul_wgmma_launch_count - w0
+    check(launches == wgmma == 1,
+          f"scores matmul f32 bench point: {launches} launches, {wgmma} wgmma")
+    s_ref = mips.scores_matmul_ref(queries, corpus)
+    err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item() for r in range(0, q_n, 64))
+    # unit rows, |s| <= 1: f32-accurate sums in another order
+    check(err <= 1e-5, f"scores matmul f32 bench point: max_abs_err {err}")
+    del s
+    s = tile_loop(torch, lib, mips, queries, corpus, dev, bmax=False)
+    tile_err = max((s[r: r + 64] - s_ref[r: r + 64]).abs().max().item()
+                   for r in range(0, q_n, 64))
+    check(tile_err <= 1e-5, f"scores matmul f32 bench point: tile loop max_abs_err {tile_err}")
+    del s, s_ref
+    med, rounds, state = rounds_in_turns(torch, {
+        "wgmma": (lambda: mips.scores_matmul(queries, corpus), 3),
+        "tile": (lambda: tile_loop(torch, lib, mips, queries, corpus, dev, bmax=False), 1),
+        "sgemm": (lambda: torch.matmul(queries, corpus.T), 2)})
+    ms, tile_ms, lib_ms = med["wgmma"], med["tile"], med["sgemm"]
+    plain_ms = cuda_ms(torch, lambda: mips.scores_matmul_ref(queries, corpus), 2)
+    bound = f32_bound(q_n, n, d, bmax=False)
+    print(f"scores matmul kernel bench point q={q_n} n={n} d={d} f32 -> f32, three rounds in "
+          f"turns {state}: f32 wgmma variant {rounds['wgmma']} ms, tile loop "
+          f"{rounds['tile']} ms, torch.matmul f32 (cuBLAS SGEMM, TF32 off) "
+          f"{rounds['sgemm']} ms; plain {plain_ms:.3f} ms; bound {bound['bound_ms']:.3f} ms "
+          f"({bound['bound_by']}; three tf32 passes {bound['design_bound_ms']:.3f}); "
+          f"max_abs_err {err:.3g} (tile loop {tile_err:.3g}); {launches} launch, {wgmma} wgmma")
+    del corpus, queries
+    torch.cuda.empty_cache()
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "tile_ms": tile_ms, **bound}
 
 
 def main() -> int:
@@ -1393,17 +1669,20 @@ def main() -> int:
                            torch, mips, topk_mod, dev)
     err_bench, k1 = run_phase(torch, "kernel bench point", phase_kernel_bench,
                               torch, mips, topk_mod, dev)
+    err_f32_index, f32_search_ms = run_phase(torch, "f32 index", phase_f32_index, torch,
+                                             mips, topk_mod, dev)
     err_index = run_phase(torch, "index", phase_index, torch, mips, topk_mod, dev)
-    launches, err_engine, f32_small, parts = run_phase(torch, "engine", phase_engine, torch,
-                                                       mips, topk_mod, dev)
+    launches, err_engine, f32_small, tile_small, parts = run_phase(
+        torch, "engine", phase_engine, torch, mips, topk_mod, dev)
     wgmma_launches, err_bf16_engine = run_phase(torch, "bf16 engine", phase_bf16_engine,
                                                 torch, mips, topk_mod, dev, parts)
-    err_f32, f32_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch, mips, dev)
+    err_f32, f32_bench, tile_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch,
+                                               mips, dev)
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
     k5 = run_phase(torch, "hamming kernel", phase_hamming_kernel, torch, dev,
                    bench, k4["ms"])
     del bench
-    run_phase(torch, "binary index", phase_binary_index, torch, dev)
+    sign_tile = run_phase(torch, "binary index", phase_binary_index, torch, dev)
     run_phase(torch, "two-stage index", phase_twostage_index, torch, dev)
     k4_launches = run_phase(torch, "two-stage engine", phase_twostage_engine,
                             torch, dev, parts)
@@ -1424,18 +1703,27 @@ def main() -> int:
     def entry(name, replaces, launches, err, m, source=None):
         return {"name": name, "route": "cuda", "source": src + (source or f"{name}.cu"),
                 "replaces": tpu + replaces, "launches": launches, "max_abs_err": err,
-                **{key: m[key] for key in keys}}
+                **{key: m[key] for key in keys},
+                **{key: m[key] for key in ("design_bound_ms", "design_bound_by") if key in m}}
 
-    # K1: the bench point's numbers are the wgmma variant's; `launches` is the
-    # f32 engine's (the tile variant), `wgmma_launches` the bf16 engine's;
-    # `tile_f32` holds the f32 instantiation at the bench point and at the
-    # f32 engine's shape
+    # K1: the bench point's numbers are the bf16 wgmma variant's; `launches`
+    # is the f32 engine's (all the f32 wgmma variant's), `wgmma_launches`
+    # the bf16 engine's; `f32_wgmma` holds the f32 wgmma variant at the bench
+    # point (its launches the f32 engine's, the engine's shape and the
+    # accuracy gate beside), `tile_f32` the tile loop on f32 at both shapes
     k1_entry = entry("scores_bmax", "144", launches,
-                     max(err_ragged, err_bench, err_index, err_engine, err_bf16_engine,
-                         err_f32), k1, "scores_bmax_sm90.cu")
+                     max(err_ragged, err_bench, err_f32_index, err_index, err_engine,
+                         err_bf16_engine, err_f32), k1, "scores_bmax_sm90.cu")
+    f32_entry = entry("scores_bmax_f32", "144", launches,
+                      max(err_f32_index, err_engine, err_f32), f32_bench,
+                      "scores_bmax_f32_sm90.cu")
+    f32_entry.update(gate=f32_bench["gate"], q256_n8192_d1600=f32_small,
+                     index_search_ms=f32_search_ms)
     k1_entry.update(wgmma_launches=wgmma_launches, tile_source=f"{src}scores_bmax.cu",
-                    tile_f32={"q1024_n1048576_d1600": f32_bench,
-                              "q256_n8192_d1600": f32_small})
+                    f32_wgmma=f32_entry,
+                    tile_f32={"q1024_n1048576_d1600": tile_bench,
+                              "q256_n8192_d1600": tile_small},
+                    tile_bf16={"q1024_n1048576_d250": sign_tile})
     # K2 and K6: the numbers are the wgmma variants' (K2 with f32 scores,
     # its bf16 numbers under `bfloat16`); `wgmma_launches` counts those of
     # the Hopper variant on the path; `tile` holds the tile variants' times
@@ -1445,8 +1733,11 @@ def main() -> int:
                     tile=k2["tile"], bfloat16=k2["bfloat16"])
     k6_entry = entry("scores_matmul", "247", k6["launches"], k6["err"], k6,
                      "scores_bmax_sm90.cu")
+    k6_f32 = k6["f32_wgmma"]
     k6_entry.update(wgmma_launches=k6["wgmma_launches"], tile_source=f"{src}scores_matmul.cu",
-                    tile=k6["tile"])
+                    tile=k6["tile"],
+                    f32_wgmma=entry("scores_matmul_f32", "247", k6_f32["launches"],
+                                    k6_f32["err"], k6_f32, "scores_bmax_f32_sm90.cu"))
     print(json.dumps({"kernels": [
         k1_entry,
         entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4),

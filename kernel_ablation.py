@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of the Hopper kernels goes: K1's wgmma variant
-(``csrc/scores_bmax_sm90.cu``), K4 (``csrc/packed_scores_bmax.cu``) and K2's
-wgmma variant (``csrc/scores_bmax_int8_sm90.cu``), each timed beside copies
-of itself with one part changed, at the bench points of ``chip_smoke.py``
-(q=1024, n=2^20; K1 d=1600 bf16 -> bf16, K4 256 bits -> bf16, K2 d=1600
-int8 -> f32, the int8x8 index's score dtype).
+"""Where the time of the Hopper kernels goes: K1's bf16 wgmma variant
+(``csrc/scores_bmax_sm90.cu``), K1's f32 wgmma variant
+(``csrc/scores_bmax_f32_sm90.cu``, the 3xTF32 split), K4
+(``csrc/packed_scores_bmax.cu``) and K2's wgmma variant
+(``csrc/scores_bmax_int8_sm90.cu``), each timed beside copies of itself with
+one part changed, at the bench points of ``chip_smoke.py`` (q=1024, n=2^20;
+K1 d=1600 bf16 -> bf16, K1 f32 d=1600 f32 -> f32 on f32 unit rows, K4 256
+bits -> bf16, K2 d=1600 int8 -> f32, the int8x8 index's score dtype).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -31,15 +33,29 @@ copies:
   epilogue, behind branches on n, not at the tile's start (the first
   design);
 - K2 ``no_dequant``: the epilogue converts the int32 dots to f32 and
-  multiplies by no scale (the scale loads, then unused, go too).
+  multiplies by no scale (the scale loads, then unused, go too);
+- K1 f32 ``one_pass``: the two small-term products go (A_big x B_big only;
+  the split itself still runs): the share of the products;
+- K1 f32 ``no_split``: the producer warpgroup's splitter warps write no
+  small parts (the consumers read stale bytes);
+- K1 f32 ``no_promote``: one wgmma chain over the whole depth, its sum in
+  the tensor core's own accumulation, instead of one chain per 32-deep K
+  slice added into a register sum with round-to-nearest adds;
+- K1 f32 ``a_in_smem``: the two products with A_big read A from shared
+  memory (wgmma's SS form), not from the registers the split already
+  loaded (the first design);
+- K1 f32 ``tile``: not a copy, the tile loop (``csrc/scores_bmax.cu``, exact
+  FMA) through its C entry point, timed in the same rounds.
 
 Copies that keep the output (``mask_always``, ``wait_group_1``, ``parent``,
 ``scales_in_epilogue``) must equal the kernel's output; the others are
-diagnostics only. Every kernel runs three rounds in turns, each the mean
-of 10 launches between CUDA events, beside one library call (cuBLAS bf16 GEMM; for K4 on the
-unpacked +-1 rows; for K2 ``torch._int_mm``), with the SM clock and power
-that ``nvidia-smi`` reads after each round. The last line is a JSON object
-of all times.
+diagnostics only. For K1 f32 each copy's largest |score - f64| on the two
+cases of the accuracy gate is printed beside cuBLAS SGEMM's. Every kernel
+runs three rounds in turns, each the mean of 10 launches between CUDA
+events, beside one library call (cuBLAS bf16 GEMM; for K4 on the unpacked +-1 rows; for
+K2 ``torch._int_mm``; for K1 f32 cuBLAS SGEMM, TF32 off), with the SM
+clock and power that ``nvidia-smi`` reads after each round. The last line
+is a JSON object of all times.
 """
 
 from __future__ import annotations
@@ -79,6 +95,24 @@ K2_EPILOGUE_SCALES = """for (int j = 0; j < 64; j += 4) {
               v[j + 2] = __fmul_rn(__int2float_rn(acc[h][j + 2]), s0);
               v[j + 3] = __fmul_rn(__int2float_rn(acc[h][j + 3]), s1);
             }"""
+
+F32_RS = "wgmma_m64n128k8_tf32_rs(acc, as[kk], db + 2 * kk, kk > 0);"
+F32_SMALL_B = "wgmma_m64n128k8_tf32_rs(acc, ab[kk], ds + 2 * kk, 1);"
+F32_BIG = "wgmma_m64n128k8_tf32_rs(acc, ab[kk], db + 2 * kk, 1);"
+# the descriptor of this warpgroup's query rows in the slot, from db's
+F32_DA = "(db - ((A_BYTES - (int)(threadIdx.x / WG) * 64 * K_BYTES) >> 4))"
+# the tf32 wgmma with A from shared memory, which the shipped kernel does not use
+F32_SS = """using namespace sm90;
+
+__device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t a, uint64_t b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\\n .reg .pred p;\\n setp.ne.b32 p, %66, 0;\\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SM90_ACC64_REGS
+      ", %64, %65, p, 1, 1;\\n}\\n"
+      : SM90_ACC64_F32(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}"""
 
 # kernel -> copy -> ({old: new} in the kernel's source, {old: new} in sm90_common.cuh)
 VARIANTS = {
@@ -125,14 +159,30 @@ VARIANTS = {
                         "for (int j = 0; j < 64; ++j) v[j] = __int2float_rn(acc[h][j]);"},
                        {}),
     },
+    "k1f32": {
+        "base": ({}, {}),
+        "one_pass": ({F32_RS: "if (kk < 0) " + F32_RS, F32_SMALL_B: "if (kk < 0) " + F32_SMALL_B,
+                      F32_BIG: F32_BIG.replace(", 1);", ", kk > 0);")}, {}),
+        "no_split": ({"for (int i = st; i < TB / 16; i += SPLITTERS)":
+                      "for (int i = st; i < 0; i += SPLITTERS)"}, {}),
+        "no_promote": ({F32_RS: F32_RS.replace("kk > 0", "1"),
+                        "sum[i] = 0.f;": "sum[i] = acc[i] = 0.f;",
+                        "sum[i] = __fadd_rn(sum[i], acc[i]);": "sum[i] = acc[i];"}, {}),
+        "no_store": ({}, {STORE: "if (c0 < 0) " + STORE}),
+        "a_in_smem": ({"using namespace sm90;": F32_SS,
+                       F32_SMALL_B:
+                           f"wgmma_m64n128k8_tf32(acc, {F32_DA} + 2 * kk, ds + 2 * kk, 1);",
+                       F32_BIG: f"wgmma_m64n128k8_tf32(acc, {F32_DA} + 2 * kk, db + 2 * kk, 1);"},
+                      {}),
+    },
 }
 SOURCES = {"k1": "scores_bmax_sm90.cu", "k4": "packed_scores_bmax.cu",
-           "k2": "scores_bmax_int8_sm90.cu"}
+           "k2": "scores_bmax_int8_sm90.cu", "k1f32": "scores_bmax_f32_sm90.cu"}
 # each kernel's C entry point: queries, corpus or words, (K2: scales,)
 # penalty, scores, bmax (pointers); q, n, d or bits, valid_count, out_bf16;
 # stream
 ENTRY = {"k1": "sss_scores_bmax_sm90", "k4": "sss_packed_scores_bmax",
-         "k2": "sss_scores_bmax_int8_sm90"}
+         "k2": "sss_scores_bmax_int8_sm90", "k1f32": "sss_scores_bmax_f32_sm90"}
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 ARGTYPES_K2 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -263,6 +313,54 @@ def main() -> int:
         lambda: torch.matmul(queries, corpus.T))
     del corpus, queries
     torch.cuda.empty_cache()
+
+    # K1 f32: f32 unit rows (every mantissa bit in use); the tile loop in the
+    # same rounds through its own entry point
+    corpus32 = torch.empty(n, d, device=dev)
+    for s0 in range(0, n, 1 << 16):
+        r = torch.randn(1 << 16, d, generator=g, device=dev)
+        corpus32[s0: s0 + (1 << 16)] = r / r.norm(dim=1, keepdim=True)
+    queries32 = torch.randn(q_n, d, generator=g, device=dev)
+    queries32 = queries32 / queries32.norm(dim=1, keepdim=True)
+    lib = _build.load_library()
+
+    def tile(qp, cp, pen, sp, bp, q_, n_, d_, vc, out_bf16, st):
+        return lib.sss_scores_bmax(qp, cp, pen, sp, bp, q_, n_, d_, vc, 0, out_bf16, st)
+
+    entries["k1f32", "tile"] = tile
+    run("k1f32", lambda fn, s, bm: lambda: fn(
+        queries32.data_ptr(), corpus32.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+        q_n, n, d, n, 0, stream),
+        lambda: torch.matmul(queries32, corpus32.T), torch.float32)
+    del corpus32, queries32
+    torch.cuda.empty_cache()
+
+    # each f32 copy's largest |score - f64| on the two cases of the accuracy
+    # gate (chip_smoke.py phase 4c): 1024 x 65,536 unit rows at d=1600 and
+    # standard-normal rows at d=200, beside cuBLAS SGEMM's
+    errs, m = {}, 1 << 16
+    for d_g, unit in ((d, True), (200, False)):
+        qg = torch.randn(q_n, d_g, generator=g, device=dev)
+        cg = torch.randn(m, d_g, generator=g, device=dev)
+        if unit:
+            qg, cg = qg / qg.norm(dim=1, keepdim=True), cg / cg.norm(dim=1, keepdim=True)
+        exact = qg.double() @ cg.double().T
+        row = {}
+        for (kernel, name), fn in entries.items():
+            if kernel != "k1f32" or name in ("no_split", "no_store"):
+                continue  # copies that write no valid scores
+            s = torch.empty(q_n, m, device=dev)
+            bm = torch.empty(q_n, m // 128, device=dev)
+            if fn(qg.data_ptr(), cg.data_ptr(), None, s.data_ptr(), bm.data_ptr(), q_n, m,
+                  d_g, m, 0, stream) != 0:
+                raise SystemExit(f"k1f32 {name}: launch failed at d={d_g}")
+            row[name] = (s.double() - exact).abs().max().item()
+        row["library"] = (torch.matmul(qg, cg.T).double() - exact).abs().max().item()
+        errs[f"d{d_g}"] = row
+        print(f"k1f32 largest |score - f64| at d={d_g}: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in row.items()))
+        del exact
+    times["k1f32_err"] = errs
 
     words = torch.randint(-2**31, 2**31 - 1, (n // 32, bits), generator=g, device=dev,
                           dtype=torch.int32)

@@ -28,9 +28,10 @@
 // fed by a two-stage cp.async pipeline; f32 as an exact FMA loop, no TF32).
 // Queries are the fastest grid dimension, so the blocks that share a corpus
 // tile run together and the tile comes from HBM once and from L2 after.
-// This kernel serves f32 operands and bf16 rows that TMA cannot describe
-// (d % 8 != 0 or unaligned bases); other bf16 rows run the TMA-fed wgmma
-// kernel of scores_bmax_sm90.cu (ops/mips.py k1_variant chooses).
+// This kernel serves the rows that TMA cannot describe: f32 with d % 4 != 0
+// and bf16 with d % 8 != 0, or unaligned bases. Other rows run the TMA-fed
+// wgmma kernels: scores_bmax_sm90.cu for bf16, scores_bmax_f32_sm90.cu for
+// f32 (the 3xTF32 split) (ops/mips.py k1_variant chooses).
 
 #include <math.h>
 

@@ -19,8 +19,9 @@
 // The same kernel with the store-only epilogue (BMAX = false) replaces the
 // TPU kernel pallas_mips.py:247 (_scores_kernel, launched by scores_matmul
 // :259, :273) for the same bf16 operands: scores = queries @ corpus.T in
-// f32, no mask, no penalty, no bucket max (sss_scores_matmul_sm90; f32
-// operands keep scores_matmul.cu).
+// f32, no mask, no penalty, no bucket max (sss_scores_matmul_sm90). f32
+// operands that TMA can describe run scores_bmax_f32_sm90.cu, other rows
+// scores_matmul.cu.
 //
 // What bounds it on an H100: at q=1024, n=2^20, d=1600 the call is 3.4
 // TFLOP against 3.4 GB of corpus and 2.1 GB of bf16 scores (4.3 GB of f32

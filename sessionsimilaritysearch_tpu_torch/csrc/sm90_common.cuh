@@ -1,12 +1,14 @@
 // Hopper building blocks of the warp-specialised kernels (sm_90a): K1's
-// bf16 variant and K6 (scores_bmax_sm90.cu), K2's int8 variant
-// (scores_bmax_int8_sm90.cu) and K4 (packed_scores_bmax.cu). The TMA ring
-// that the first three share is in sm90_tma.cuh.
+// bf16 variant and K6 (scores_bmax_sm90.cu), K1's and K6's f32 variant
+// (scores_bmax_f32_sm90.cu), K2's int8 variant (scores_bmax_int8_sm90.cu)
+// and K4 (packed_scores_bmax.cu). The TMA ring that all but K4 share is in
+// sm90_tma.cuh.
 //
 // - mbarriers and the ring position that producer and consumers walk;
-// - wgmma (bf16 m64n256k16 and s8 m64n128k32, both operands K-major in
-//   shared memory) and its descriptor for the 128-byte swizzle, the layout
-//   TMA writes with CU_TENSOR_MAP_SWIZZLE_128B;
+// - wgmma (bf16 m64n256k16 and s8 m64n128k32 with both operands K-major
+//   in shared memory, tf32 m64n128k8 with A from registers) and its
+//   descriptor for the 128-byte swizzle, the layout TMA writes with
+//   CU_TENSOR_MAP_SWIZZLE_128B; the small part of the 3xTF32 split;
 // - the bucket epilogue both kernels run on a consumer warpgroup's f32
 //   accumulator: the valid_count mask, the penalty, the 128-row bucket max
 //   straight from registers (a quad of lanes holds a query row's columns),
@@ -230,6 +232,56 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int32_t (&d)[64], uint64_t a
       "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
       "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The 64 f32 accumulator operands of an m64n128 wgmma, %0 .. %63.
+#define SM90_ACC64_F32(d)                                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),     \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),       \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),       \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_ACC64_REGS                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "              \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "     \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "     \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d[64 x 128] (+)= A[64 x 8] . B[128 x 8]^T, tf32 in (the tensor core reads
+// an f32 word as tf32 by ignoring its low 13 bits: the word's value rounded
+// toward zero), f32 accumulate; B in shared memory, A from registers: this
+// thread's a[0..3] are A's elements (r, k), (r + 8, k), (r, k + 4),
+// (r + 8, k + 4) for r = (warp % 4) * 16 + lane / 4 and k = lane % 4. The
+// registers are read asynchronously: they must hold their values until the
+// wgmma_wait that retires the group. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                        uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SM90_ACC64_REGS
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SM90_ACC64_F32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The small part of the 3xTF32 split x = big + small + rest: big is x with
+// its low 13 bits cleared (what the tensor core reads of x), x - big is
+// exact in f32, and small is x - big rounded to tf32 by adding half a tf32
+// ulp to its magnitude and clearing the low 13 bits (round half away from
+// zero). |rest| <= 2^-11 |x - big| < 2^-21 |x|.
+__device__ __forceinline__ uint32_t tf32_small(float x) {
+  const float big = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return (__float_as_uint(__fsub_rn(x, big)) + 0x1000u) & 0xffffe000u;
 }
 
 // ---- the bucket epilogue ---------------------------------------------------

@@ -1,12 +1,15 @@
 // The TMA-fed mainloop of the Hopper score kernels (sm_90a), shared by K1's
-// bf16 variant and K6 (scores_bmax_sm90.cu) and K2's int8 variant
-// (scores_bmax_int8_sm90.cu). Each kernel brings its own wgmma and epilogue.
+// bf16 variant and K6 (scores_bmax_sm90.cu), K1's and K6's f32 variant
+// (scores_bmax_f32_sm90.cu) and K2's int8 variant (scores_bmax_int8_sm90.cu).
+// Each kernel brings its own wgmma and epilogue.
 //
-// - The tile is 128 queries x 256 corpus rows (two 128-row buckets). A ring
-//   slot holds one 128-byte K slice of both, 16 KB + 32 KB, written by TMA
-//   in the 128-byte swizzle that desc_sw128 describes: 64 bf16 values or
-//   128 int8 values a row. Reads past q, n or d fill zeros, which add
-//   nothing to a dot; the full barrier still counts the whole box.
+// - The tile is 128 queries x TN corpus rows: 256 (two 128-row buckets) for
+//   bf16 and int8, 128 for f32. A ring slot holds one 128-byte K slice of
+//   both, 16 KB + TN * 128 bytes, written by TMA in the 128-byte swizzle that
+//   desc_sw128 describes: 32 f32, 64 bf16 or 128 int8 values a row; the f32
+//   kernel's slot also holds room for the corpus slice's small parts. Reads
+//   past q, n or d fill zeros, which add nothing to a dot; the full barrier
+//   still counts the whole box.
 // - The producer: one thread walks the block's tiles (persistent, one block
 //   per SM, the query tile fastest, so the blocks that share a corpus tile
 //   run together and it comes from HBM once) and keeps the ring full.
@@ -69,20 +72,22 @@ __device__ __forceinline__ void ring_init(const unsigned char* smem, uint64_t* f
 
 // The producer thread: for each tile t of this block, query tile
 // t % q_tiles and corpus tile t / q_tiles, the k_steps K slices of both
-// into the ring of ST slots at smem. ELEM is the operand's element size in
-// bytes.
-template <int ST, int ELEM>
+// into the ring of ST slots at smem, SLOT bytes apart. ELEM is the
+// operand's element size in bytes, TN the corpus rows of a tile.
+template <int ST, int ELEM, int TN = BN, int SLOT = SLOT_BYTES>
 __device__ __forceinline__ void produce(unsigned char* smem, uint64_t* full, uint64_t* empty,
                                         const CUtensorMap* qmap, const CUtensorMap* cmap,
                                         int q_tiles, int tiles, int k_steps) {
   constexpr int BOX_K = K_BYTES / ELEM;
+  constexpr int TX = A_BYTES + TN * K_BYTES;  // the bytes TMA lands in a slot
+  static_assert(TX <= SLOT && SLOT % 1024 == 0, "slot layout");
   Ring ring;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int q0 = (t % q_tiles) * BM, n0 = (t / q_tiles) * BN;
+    const int q0 = (t % q_tiles) * BM, n0 = (t / q_tiles) * TN;
     for (int ks = 0; ks < k_steps; ++ks) {
       mbar_wait(&empty[ring.slot], ring.phase ^ 1);
-      unsigned char* slot = smem + ring.slot * SLOT_BYTES;
-      mbar_arrive_expect_tx(&full[ring.slot], SLOT_BYTES);
+      unsigned char* slot = smem + ring.slot * SLOT;
+      mbar_arrive_expect_tx(&full[ring.slot], TX);
       tma_load_2d(slot, qmap, ks * BOX_K, q0, &full[ring.slot]);
       tma_load_2d(slot + A_BYTES, cmap, ks * BOX_K, n0, &full[ring.slot]);
       ring.advance(ST);
@@ -135,22 +140,23 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type, cons
 }
 
 // The tensor maps of queries [q, d] (boxes of BM rows) and corpus [n, d]
-// (BN rows). Returns 0, a cudaError_t, or minus the CUresult of a failed
+// (TN rows). Returns 0, a cudaError_t, or minus the CUresult of a failed
 // encode.
-template <int ELEM>
+template <int ELEM, int TN = BN>
 int encode_operands(CUtensorMapDataType type, const void* queries, const void* corpus, int q,
                     int n, int d, CUtensorMap* qmap, CUtensorMap* cmap) {
   EncodeTiled fn;
   const cudaError_t err = encoder(&fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUresult res = encode<ELEM>(fn, qmap, type, queries, q, d, BM);
-  if (res == CUDA_SUCCESS) res = encode<ELEM>(fn, cmap, type, corpus, n, d, BN);
+  if (res == CUDA_SUCCESS) res = encode<ELEM>(fn, cmap, type, corpus, n, d, TN);
   return res == CUDA_SUCCESS ? 0 : -static_cast<int>(res);
 }
 
 // Gives `kernel` `bytes` of dynamic shared memory and sets *grid to one
-// block per SM, or one per tile where there are fewer tiles than SMs.
-template <typename Kernel>
+// block per SM, or one per tile of BM x TN where there are fewer tiles than
+// SMs.
+template <int TN = BN, typename Kernel>
 cudaError_t persistent_grid(Kernel kernel, int bytes, int q, int n, int* grid) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -159,7 +165,7 @@ cudaError_t persistent_grid(Kernel kernel, int bytes, int q, int n, int* grid) {
   err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long tiles = (long long)((q + BM - 1) / BM) * ((n + BN - 1) / BN);
+  const long long tiles = (long long)((q + BM - 1) / BM) * ((n + TN - 1) / TN);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   *grid = (int)(tiles < sms ? tiles : sms);
   return cudaSuccess;

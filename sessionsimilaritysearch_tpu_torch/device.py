@@ -5,7 +5,10 @@ index path is exact (``ops/topk.py`` ranks by full-f32 scores), and its
 encoder runs in float32; TF32 keeps about three decimal digits, which would
 reorder near-tied neighbours and break parity with the reference. bfloat16
 paths are chosen explicitly (storage and score dtypes), never by a global
-precision switch.
+precision switch. The port's own f32 kernels use TF32 tensor cores only
+through the error-compensated 3xTF32 split (``csrc/scores_bmax_f32_sm90.cu``),
+held on the card to at most twice cuBLAS SGEMM's largest error against the
+f64 product.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ streaming adds append into. ``search`` scans the filled rows in
 stays [q, chunk_size] whatever the corpus size. The scan of each chunk:
 
 - float rows (f32 or bf16): the fused score + bucket-max kernel K1
-  (``ops/mips.py``: ``csrc/scores_bmax_sm90.cu`` or ``csrc/scores_bmax.cu``);
+  (``ops/mips.py``: ``csrc/scores_bmax_f32_sm90.cu`` for f32,
+  ``csrc/scores_bmax_sm90.cu`` for bf16, ``csrc/scores_bmax.cu`` for rows
+  TMA cannot describe);
 - ``quantize='int8x8'`` (int8 codes on both sides): the int8 kernel K2
   (``ops/mips_int8.py``: ``csrc/scores_bmax_int8_sm90.cu`` or
   ``csrc/scores_bmax_int8.cu``);

@@ -6,20 +6,21 @@ Ports of the TPU kernels of ``sessionsimilaritysearch_tpu/ops/pallas_mips.py``:
 
 - K1: :144 ``_scores_bmax_kernel`` -> :177 ``scores_with_bucket_max`` -> :377
   ``pallas_exact_topk`` with the selection :408 ``_select_exact_from_scores``;
-  two kernels, chosen by :func:`k1_variant`: ``csrc/scores_bmax_sm90.cu``
-  (TMA-fed ``wgmma``, persistent, for bf16 rows TMA can describe) and
-  ``csrc/scores_bmax.cu`` (the ``score_tile.cuh`` loop: f32 operands, and
-  bf16 rows with d % 8 != 0 or unaligned bases); plain version
-  :func:`scores_with_bucket_max_ref`.
+  kernels chosen by :func:`k1_variant`: for rows TMA can describe (16-byte
+  row stride, 16-byte-aligned bases) the TMA-fed, persistent ``wgmma``
+  kernels, ``csrc/scores_bmax_sm90.cu`` for bf16 (d % 8 == 0) and
+  ``csrc/scores_bmax_f32_sm90.cu`` for f32 (d % 4 == 0: the 3xTF32 split,
+  f32-accurate on the tensor cores); for other rows ``csrc/scores_bmax.cu``
+  (the ``score_tile.cuh`` loop: WMMA for bf16, an exact FMA loop for f32);
+  plain version :func:`scores_with_bucket_max_ref`.
 - K3: :56 ``_bucket_max_kernel`` -> :88 ``scores_bucket_max`` -> :322
   ``pallas_bucketed_topk``; kernel ``csrc/bucket_max.cu``, plain version
   :func:`scores_bucket_max_ref`, top-k :func:`bucketed_topk`.
-- K6: :247 ``_scores_kernel`` -> :259 ``scores_matmul``; two kernels,
-  chosen by :func:`k6_variant`: K1's Hopper kernel with a store-only
-  epilogue (``csrc/scores_bmax_sm90.cu`` ``sss_scores_matmul_sm90``) for
-  bf16 rows TMA can describe, and ``csrc/scores_matmul.cu`` (the tile loop:
-  f32 operands, exact without TF32, and other bf16 rows); plain version
-  :func:`scores_matmul_ref`.
+- K6: :247 ``_scores_kernel`` -> :259 ``scores_matmul``; kernels chosen by
+  :func:`k6_variant`: K1's Hopper kernels with a store-only epilogue
+  (``sss_scores_matmul_sm90`` for bf16, ``sss_scores_matmul_f32_sm90`` for
+  f32) on the rows K1's would take, and ``csrc/scores_matmul.cu`` (the tile
+  loop) on the others; plain version :func:`scores_matmul_ref`.
 
 Buckets are 128 contiguous corpus rows, the layout of the JAX
 ``DenseIndex`` (``ops/topk.py:130``); the TPU kernels' strided layout was a
@@ -40,13 +41,16 @@ from sessionsimilaritysearch_tpu_torch.ops import _build
 
 BUCKET = 128
 _DTYPES = (torch.float32, torch.bfloat16)
+# elements in TMA's 16-byte unit of row stride, per operand dtype
+_TMA_ELEMS = {torch.bfloat16: 8, torch.float32: 4}
 
 # Kernel launches made by each wrapper (K1 scores_with_bucket_max, K3
 # scores_bucket_max, K6 scores_matmul), counted where the kernel is launched
 # and nowhere else (CPU tensors never count). A run resets them to 0 and
 # reads them back to show that its path went through the kernels.
 # launch_count counts every K1 launch, wgmma_launch_count those of its
-# Hopper variant (csrc/scores_bmax_sm90.cu) alone; likewise
+# Hopper variants (csrc/scores_bmax_sm90.cu for bf16,
+# csrc/scores_bmax_f32_sm90.cu for f32) alone; likewise
 # scores_matmul_launch_count and scores_matmul_wgmma_launch_count for K6.
 launch_count = 0
 wgmma_launch_count = 0
@@ -129,20 +133,22 @@ def _kernel_device(queries, corpus) -> Optional[torch.device]:
 def k1_variant(device_type: str, dtype: torch.dtype, d: int,
                data_ptrs: Tuple[int, ...]) -> str:
     """Which K1 kernel a call runs: 'plain' for CPU tensors; on CUDA
-    'wgmma' (``csrc/scores_bmax_sm90.cu``) for bf16 operands that TMA can
-    describe -- row stride a multiple of 16 bytes (d % 8 == 0) and every
-    base pointer 16-byte aligned -- else 'tile' (``csrc/scores_bmax.cu``:
-    f32 operands, exact without TF32, and bf16 rows TMA cannot take). A
+    'wgmma' for operands that TMA can describe -- row stride a multiple of
+    16 bytes (bf16: d % 8 == 0, ``csrc/scores_bmax_sm90.cu``; f32:
+    d % 4 == 0, ``csrc/scores_bmax_f32_sm90.cu``, the 3xTF32 split) and
+    every base pointer 16-byte aligned -- else 'tile'
+    (``csrc/scores_bmax.cu``; for f32 an exact FMA loop without TF32). A
     dispatch, not a fallback: the chosen kernel launches or raises."""
     if device_type == "cpu":
         return "plain"
-    if (dtype == torch.bfloat16 and d > 0 and d % 8 == 0
+    per_16_bytes = _TMA_ELEMS.get(dtype)
+    if (per_16_bytes and d > 0 and d % per_16_bytes == 0
             and all(p % 16 == 0 for p in data_ptrs)):
         return "wgmma"
     return "tile"
 
 
-# K6 runs K1's Hopper kernel (store-only epilogue) on the operands K1's
+# K6 runs K1's Hopper kernels (store-only epilogue) on the operands K1's
 # would take, and the tile loop of csrc/scores_matmul.cu on the others
 k6_variant = k1_variant
 
@@ -203,7 +209,9 @@ def scores_with_bucket_max(
     lib = _build.load_library()
     if k1_variant(dev.type, queries.dtype, d,
                   (queries.data_ptr(), corpus.data_ptr())) == "wgmma":
-        _cuda_call(lib.sss_scores_bmax_sm90, "scores_bmax_sm90", dev,
+        name = ("scores_bmax_sm90" if queries.dtype == torch.bfloat16
+                else "scores_bmax_f32_sm90")
+        _cuda_call(getattr(lib, "sss_" + name), name, dev,
                    queries.data_ptr(), corpus.data_ptr(), pen, scores.data_ptr(),
                    bmax.data_ptr(), q, n, d, vc, out_bf16)
         wgmma_launch_count += 1
@@ -356,7 +364,9 @@ def scores_matmul(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     lib = _build.load_library()
     if k6_variant(dev.type, queries.dtype, d,
                   (queries.data_ptr(), corpus.data_ptr())) == "wgmma":
-        _cuda_call(lib.sss_scores_matmul_sm90, "scores_matmul_sm90", dev,
+        name = ("scores_matmul_sm90" if queries.dtype == torch.bfloat16
+                else "scores_matmul_f32_sm90")
+        _cuda_call(getattr(lib, "sss_" + name), name, dev,
                    queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), q, n, d)
         scores_matmul_wgmma_launch_count += 1
     else:

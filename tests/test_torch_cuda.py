@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1 scores_bmax
-and its Hopper variant scores_bmax_sm90, K2 scores_bmax_int8 and its Hopper
-variant scores_bmax_int8_sm90, K3 bucket_max, K4 packed_scores_bmax, K5
-hamming_bucket_min, K6 scores_matmul and its Hopper variant) against their
+and its Hopper variants scores_bmax_sm90 for bf16 and scores_bmax_f32_sm90
+for f32, K2 scores_bmax_int8 and its Hopper variant scores_bmax_int8_sm90,
+K3 bucket_max, K4 packed_scores_bmax, K5 hamming_bucket_min, K6
+scores_matmul and its Hopper variants) against their
 plain PyTorch versions, and the indexes and engine on the card against the
 CPU.
 
@@ -92,6 +93,95 @@ def test_rows_tma_cannot_take_run_the_tile_variant(dev, d):
     torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=2.0**-7)
 
 
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [5003, 4937])  # the last 128-row tile full or ragged
+@pytest.mark.parametrize("d", [36, 200, 1600])  # 36, 200: a zero-filled last K slice
+def test_f32_wgmma_kernel_matches_plain(dev, d, n, score_dtype):
+    # K1's f32 Hopper variant (the 3xTF32 split): ragged q and n,
+    # valid_count mid-bucket, 10% of rows penalised
+    g = torch.Generator(device=dev).manual_seed(d + n)
+    q = torch.randn(37, d, device=dev, generator=g)
+    c = torch.randn(n, d, device=dev, generator=g)
+    pen = torch.where(torch.rand(n, device=dev, generator=g) < 0.1, float("-inf"), 0.0)
+    assert mips.k1_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr())) == "wgmma"
+    before, before_w = mips.launch_count, mips.wgmma_launch_count
+    s, bmax = mips.scores_with_bucket_max(q, c, 4037, pen, score_dtype)
+    torch.cuda.synchronize()
+    assert (mips.launch_count, mips.wgmma_launch_count) == (before + 1, before_w + 1)
+    s_ref, bmax_ref = mips.scores_with_bucket_max_ref(q, c, 4037, pen, score_dtype)
+    assert torch.equal(torch.isneginf(s), torch.isneginf(s_ref))
+    # f32 sums in another order (|s| ~ sqrt(d)); bf16 scores: both sides
+    # round the f32 value, one ulp apart at most
+    torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
+    rtol = 1e-5 if score_dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=rtol)
+    # no penalty and every row valid: the unmasked epilogue
+    s, bmax = mips.scores_with_bucket_max(q, c, score_dtype=score_dtype)
+    s_ref, bmax_ref = mips.scores_with_bucket_max_ref(q, c, score_dtype=score_dtype)
+    torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=rtol)
+
+
+# f32 rows with no 16-byte row stride (d 37, 202), or a corpus 4 bytes off
+@pytest.mark.parametrize("d,offset", [(37, 0), (202, 0), (200, 1)])
+def test_f32_rows_tma_cannot_take_run_the_tile_loop(dev, d, offset):
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn(37, d, device=dev, generator=g)
+    c = torch.randn(5003 * d + offset, device=dev, generator=g)[offset:].view(5003, d)
+    assert mips.k1_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr())) == "tile"
+    before = (mips.launch_count, mips.wgmma_launch_count, mips.scores_matmul_launch_count,
+              mips.scores_matmul_wgmma_launch_count)
+    s, bmax = mips.scores_with_bucket_max(q, c, 4037)
+    s6 = mips.scores_matmul(q, c)
+    torch.cuda.synchronize()
+    assert (mips.launch_count, mips.wgmma_launch_count, mips.scores_matmul_launch_count,
+            mips.scores_matmul_wgmma_launch_count) == (before[0] + 1, before[1],
+                                                       before[2] + 1, before[3])
+    s_ref, bmax_ref = mips.scores_with_bucket_max_ref(q, c, 4037)
+    torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(s, s_ref, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(s6, mips.scores_matmul_ref(q, c), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("unit", [True, False])
+def test_f32_wgmma_accuracy_within_twice_sgemm(dev, unit):
+    # the accuracy gate at a small size: the split's largest error against
+    # the f64 product at most twice cuBLAS SGEMM's (TF32 off) on the same
+    # f32 inputs: unit rows at d=1600, standard-normal rows at d=200
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=dev).manual_seed(12)
+    d = 1600 if unit else 200
+    q = torch.randn(256, d, device=dev, generator=g)
+    c = torch.randn(16384, d, device=dev, generator=g)
+    if unit:
+        q, c = (torch.nn.functional.normalize(x) for x in (q, c))
+    exact = q.double() @ c.double().T
+    before_w = mips.scores_matmul_wgmma_launch_count
+    err = (mips.scores_matmul(q, c).double() - exact).abs().max().item()
+    assert mips.scores_matmul_wgmma_launch_count == before_w + 1
+    s, _ = mips.scores_with_bucket_max(q, c)
+    err_k1 = (s.double() - exact).abs().max().item()
+    err_sgemm = (torch.matmul(q, c.T).double() - exact).abs().max().item()
+    assert max(err, err_k1) <= 2 * err_sgemm, (err, err_k1, err_sgemm)
+
+
+@pytest.mark.parametrize("q_n,n", [(37, 5003), (300, 4937)])
+@pytest.mark.parametrize("d", [36, 200])
+def test_f32_wgmma_scores_matmul_matches_plain(dev, q_n, n, d):
+    # K6's f32 Hopper variant (store-only epilogue) on ragged q and n
+    g = torch.Generator(device=dev).manual_seed(q_n + d)
+    q = torch.randn(q_n, d, device=dev, generator=g)
+    c = torch.randn(n, d, device=dev, generator=g)
+    assert mips.k6_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr())) == "wgmma"
+    b6, w6 = mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count
+    s = mips.scores_matmul(q, c)
+    torch.cuda.synchronize()
+    assert (mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count) == (
+        b6 + 1, w6 + 1)
+    # f32 sums of d products (|s| ~ sqrt(d)) in another order
+    torch.testing.assert_close(s, mips.scores_matmul_ref(q, c), atol=1e-3, rtol=1e-5)
+
+
 def test_kernel_rejects_mismatched_dtypes(dev):
     q = torch.zeros(4, 16, device=dev)
     c = torch.zeros(300, 16, device=dev, dtype=torch.bfloat16)
@@ -109,9 +199,10 @@ def test_dense_index_search_launches_kernel(dev):
     on_card.add(rows)
     on_cpu.add(rows)
     mask = rng.random(3000) < 0.5
-    before = mips.launch_count
+    before, before_w = mips.launch_count, mips.wgmma_launch_count
     D, I = on_card.search(rows[:16], 5, row_mask=mask)
-    assert mips.launch_count == before + 3  # one launch per 1024-row chunk
+    # one launch per 1024-row chunk, each the f32 Hopper variant (d = 64)
+    assert (mips.launch_count, mips.wgmma_launch_count) == (before + 3, before_w + 3)
     Dc, Ic = on_cpu.search(rows[:16], 5, row_mask=mask)
     np.testing.assert_allclose(D, Dc, atol=1e-5, rtol=0)
     assert mask[I].all()
@@ -371,8 +462,9 @@ def test_bucket_max_and_matmul_kernels_match_plain(dev, dtype):
     torch.cuda.synchronize()
     assert mips.bucket_max_launch_count == b3 + 1
     assert mips.scores_matmul_launch_count == b6 + 1
-    # bf16: K1's Hopper kernel with the store-only epilogue; f32: the tile loop
-    assert mips.scores_matmul_wgmma_launch_count == w6 + (dtype == torch.bfloat16)
+    # K1's Hopper kernels with the store-only epilogue (d = 200: a TMA stride
+    # for both dtypes)
+    assert mips.scores_matmul_wgmma_launch_count == w6 + 1
     # f32 sums of 200 terms (|s| ~ 15) in another order
     torch.testing.assert_close(bmax, mips.scores_bucket_max_ref(q, c, 4037),
                                atol=1e-3, rtol=0)

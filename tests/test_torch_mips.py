@@ -71,8 +71,12 @@ def _no_kernel_launch_on_cpu():
     ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 16-byte strided
     ("cuda", torch.bfloat16, 1600, (8, 0), "tile"),                # queries off 16 bytes
     ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 16 bytes
-    ("cuda", torch.float32, 1600, (0, 0), "tile"),                 # the default f32 engine
-    ("cuda", torch.float32, 200, (256, 512), "tile"),
+    ("cuda", torch.float32, 1600, (0, 0), "wgmma"),                # the default f32 engine
+    ("cuda", torch.float32, 200, (256, 512), "wgmma"),
+    ("cuda", torch.float32, 36, (16, 32), "wgmma"),                # a zero-filled K tail
+    ("cuda", torch.float32, 202, (0, 0), "tile"),                  # rows not 16-byte strided
+    ("cuda", torch.float32, 1600, (8, 0), "tile"),                 # queries off 8 bytes
+    ("cuda", torch.float32, 1600, (0, 6400 + 4), "tile"),          # corpus off 4 bytes
     ("cpu", torch.bfloat16, 1600, (0, 0), "plain"),
     ("cpu", torch.float32, 37, (4, 4), "plain"),
 ])
@@ -87,13 +91,16 @@ def test_k1_variant(device, dtype, d, ptrs, want):
     ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 16-byte strided
     ("cuda", torch.bfloat16, 1600, (8, 0), "tile"),                # queries off 16 bytes
     ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 16 bytes
-    ("cuda", torch.float32, 200, (0, 0), "tile"),                  # f32: exact FMA, no TF32
-    ("cuda", torch.float32, 1600, (256, 512), "tile"),
+    ("cuda", torch.float32, 200, (0, 0), "wgmma"),                 # f32: the 3xTF32 split
+    ("cuda", torch.float32, 1600, (256, 512), "wgmma"),
+    ("cuda", torch.float32, 202, (0, 0), "tile"),                  # f32 tile loop: exact FMA
+    ("cuda", torch.float32, 1600, (8, 0), "tile"),                 # queries off 8 bytes
+    ("cuda", torch.float32, 1600, (0, 6400 + 4), "tile"),          # corpus off 4 bytes
     ("cpu", torch.bfloat16, 1600, (0, 0), "plain"),
     ("cpu", torch.float32, 200, (4, 4), "plain"),
 ])
 def test_k6_variant(device, dtype, d, ptrs, want):
-    # K6 runs K1's Hopper kernel with a store-only epilogue where K1's would
+    # K6 runs K1's Hopper kernels with a store-only epilogue where K1's would
     # run, the tile loop of csrc/scores_matmul.cu elsewhere
     assert mips.k6_variant(device, dtype, d, ptrs) == want
 
