@@ -40,6 +40,33 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                search()'s scores against the plain top-100; 8 sessions
                encoded on the card and on the CPU with the same weights
                must agree;
+4d. dense maintenance -- the default f32 DenseIndex (cos) at 2^20 x 1600
+               with 1024 queries at k=100, each verb timed with K1's
+               launches (every one the f32 wgmma variant): remove_ids of
+               65,536 random rows (512 moved slots hold the rows
+               compaction_plan moved, bit for bit; then a search with
+               value-recall@10 1.0 against a torch f64 oracle on 64 queries
+               and no removed row returned), a refill of 65,536 rows into
+               the freed capacity (each its own top-1 in its new slot),
+               range_search of 64 queries at query 0's 200th best score
+               (each depth timed; the hit sets those of the f64 oracle up to
+               rows within 1e-5 of the radius), an l2 index of the same rows
+               (K1 with the penalty -|c|^2; value-recall@10 1.0 against
+               |q|^2 + |c|^2 - 2q.c in f64), merge_from of two 2^19 halves
+               (the single build's top-k), and save / load at 2^18 x 1600
+               (capture, write and load timed; the same top-k back);
+4e. engine verbs -- phase 4's encoder and 8,192 sessions in a fresh f32
+               engine: add_sessions_async of 8 stamped batches of 1,024
+               while this thread answers 256-query searches (the rows then
+               equal phase 4's), remove_sessions by 512 ids and by the
+               content of 64 sessions, expire of the first batch's stamp
+               (the stored sessions are the survivors; removed content never
+               returns; 256 rows re-encoded from their sessions agree),
+               hybrid search overlap/stan x score/rrf against a recompute of
+               the fusion on the same candidates, range_search with where=
+               against the f64 oracle, save_async while searches and an
+               ingest go on, and restore into a fresh engine (the capture
+               point's top-k);
 4b. bf16 engine -- the same encoder and sessions in an engine with
                dtype=torch.bfloat16: ingest, search 256 at k=100 (top-1
                within two bf16 ulps of 1.0), every K1 launch the wgmma
@@ -148,6 +175,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -673,6 +701,419 @@ def phase_engine(torch, mips, topk_mod, dev):
     print(f"engine stats: {json.dumps(stats)}")
     corpus = eng.index.reconstruct_batch(np.arange(eng.index.ntotal))
     return launches, bm_err, f32_small, tile_small, (cfg, tok, enc, data, corpus)
+
+
+def verb(torch, mips, card, name, fn, searches=True):
+    """Run one serving verb with K1's counters set to 0 just before it and
+    read just after; print its time (host clock around work that ends in a
+    synchronize) beside the card's name and power limit, and its K1
+    launches. Every K1 launch on these f32 paths must be the f32 wgmma
+    variant, and a verb that searches must launch K1. The clock starts
+    after the device has finished the work queued before the verb."""
+    torch.cuda.synchronize()
+    mips.launch_count = mips.wgmma_launch_count = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, wgmma = mips.launch_count, mips.wgmma_launch_count
+    check(launches == wgmma,
+          f"{name}: {launches - wgmma} of {launches} K1 launches were not the f32 wgmma variant")
+    check(launches >= 1 or not searches, f"{name}: K1 was never launched")
+    print(f"  {name}: {ms:.1f} ms [{card}]; K1 launches {launches} (wgmma {wgmma})")
+    return out, ms, launches
+
+
+def fill_rows(torch, idx, count, d, seed, dev):
+    """Add ``count`` seeded standard-normal rows to ``idx``, 65,536 at a
+    time: the same seed gives the same rows in the same batches."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for s in range(0, count, 1 << 16):
+        idx.add(torch.randn(min(1 << 16, count - s), d, generator=g, device=dev))
+
+
+def f64_scores(torch, q64, buf, n, step=1 << 16):
+    """Exact f64 products [m, n] of f64 queries with the first n rows of
+    ``buf``, 65,536 rows at a time."""
+    return torch.cat([q64 @ buf[lo: min(lo + step, n)].double().T
+                      for lo in range(0, n, step)], dim=1)
+
+
+def range_vs_oracle(torch, lims, ids, exact, radius):
+    """Holds a range search's CSR hits against the exact scores [q, n]
+    thresholded at ``radius``: (rows in one set and not the other, the
+    largest distance of such a row's exact score from the radius)."""
+    rows = np.repeat(np.arange(len(lims) - 1), np.diff(lims))
+    got = torch.zeros_like(exact, dtype=torch.bool)
+    got[torch.from_numpy(rows).to(exact.device), torch.from_numpy(ids).to(exact.device)] = True
+    differ = got ^ (exact >= radius)
+    gap = (exact[differ] - radius).abs().max().item() if differ.any() else 0.0
+    return int(differ.sum().item()), gap
+
+
+def phase_dense_maintenance(torch, mips, topk_mod, dev, card):
+    """The maintenance verbs of the default f32 DenseIndex at 2^20 x 1600:
+    remove_ids, refill, range_search, an l2 index, merge_from, save/load."""
+    from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex, compaction_plan
+
+    n, d, q_n, k, sub_q = 1 << 20, 1600, 1024, 100, 64
+    removed_n = 1 << 16
+    g = torch.Generator(device=dev).manual_seed(31)
+    rng = np.random.default_rng(31)
+    idx = DenseIndex(d, n, device=dev)  # cos, f32 rows and scores
+    fill_rows(torch, idx, n, d, 32, dev)
+    queries = torch.randn(q_n, d, generator=g, device=dev)
+    qn64 = topk_mod.l2_normalize(queries[:sub_q]).double()  # as the index scores them
+    chunks = n // idx.chunk_size
+    total = 0
+    print(f"dense maintenance: DenseIndex 2^20 x 1600 f32 (cos), {q_n} queries k={k}")
+    idx.search(queries, k)  # warm-up
+    _, cos_ms, launches = verb(torch, mips, card, "search", lambda: idx.search(queries, k))
+    check(launches == chunks, f"maintenance search: {launches} K1 launches for {chunks} chunks")
+    total += launches
+
+    # remove 65,536 random rows: the moved slots hold the rows the plan
+    # moved, bit for bit; no removed row comes back
+    rm = torch.randperm(n, generator=g, device=dev)[:removed_n].cpu().numpy()
+    src, dst, new_size = compaction_plan(n, rm)
+    pick = rng.choice(src.size, 512, replace=False)
+    moved = idx.reconstruct_batch(src[pick])
+    # a row's fingerprint: its first two f32 words as one int64
+    removed_fp = idx._buf[torch.from_numpy(rm).to(dev), :2].contiguous().view(torch.int64)
+    removed, rm_ms, _ = verb(torch, mips, card, "remove_ids 65,536 rows",
+                             lambda: idx.remove_ids(rm), searches=False)
+    check(removed == removed_n and idx.ntotal == new_size == n - removed_n,
+          f"remove_ids: removed {removed}, ntotal {idx.ntotal}")
+    check(np.array_equal(idx.reconstruct_batch(dst[pick]), moved),
+          "remove_ids: a moved slot does not hold the row compaction_plan moved there")
+    (D, I), search_rm_ms, launches = verb(torch, mips, card, "search after removal",
+                                          lambda: idx.search(queries, k))
+    total += launches
+    check(launches == -(-new_size // idx.chunk_size), f"search after removal: {launches} launches")
+    hit_fp = idx._buf[torch.from_numpy(I.reshape(-1)).to(dev), :2].contiguous().view(torch.int64)
+    check(not torch.isin(hit_fp, removed_fp).any().item(), "a removed row was returned")
+    exact = f64_scores(torch, qn64, idx._buf, new_size)
+    rec = value_recall(torch, topk_mod, exact, torch.from_numpy(I[:sub_q, :10]).to(dev), 10, 1e-5)
+    check(rec == 1.0, f"search after removal: value-recall@10 {rec}")
+    del exact
+
+    # refill the freed capacity: the new rows are found in their new slots
+    fresh_rows = torch.randn(removed_n, d, generator=g, device=dev)
+    _, add_ms, _ = verb(torch, mips, card, "add 65,536 rows into the freed capacity",
+                        lambda: idx.add(fresh_rows), searches=False)
+    check(idx.ntotal == n, f"refill: ntotal {idx.ntotal}")
+    (D, I), refill_ms, launches = verb(torch, mips, card, "search after refill",
+                                       lambda: idx.search(fresh_rows[:q_n], k))
+    total += launches
+    check((I[:, 0] == new_size + np.arange(q_n)).all() and np.abs(D[:, 0] - 1).max() <= 1e-5,
+          "refill: the added rows are not their own top-1 in the freed slots")
+
+    # range search at query 0's 200th best score, each depth timed
+    radius = float(idx.search(queries[:1], 200)[0][0, -1])
+    depths = []
+    search = idx.search
+
+    def timed_search(q, kk, row_mask=None):
+        t0 = time.perf_counter()
+        out = search(q, kk, row_mask=row_mask)  # numpy out: ends in a sync
+        depths.append(f"k={kk} {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        return out
+
+    idx.search = timed_search
+    try:
+        (lims, Dr, Ir), range_ms, launches = verb(
+            torch, mips, card, f"range_search {sub_q} queries, radius {radius:.5f}",
+            lambda: idx.range_search(queries[:sub_q], radius))
+    finally:
+        del idx.search, search, timed_search
+    total += launches
+    hits = np.diff(lims)
+    exact = f64_scores(torch, qn64, idx._buf, n)
+    differ, tie_gap = range_vs_oracle(torch, lims, Ir, exact, radius)
+    check(hits[0] >= 200 and tie_gap <= 1e-5,
+          f"range_search: {hits[0]} hits for query 0, a set differs from the f64 oracle's "
+          f"by a row {tie_gap} from the radius")
+    check(all((np.diff(Dr[lims[i]: lims[i + 1]]) <= 0).all() for i in range(sub_q)),
+          "range_search: a query's hits are not best-first")
+    print(f"  range_search depths: {', '.join(depths)}; hits per query min {hits.min()} "
+          f"median {int(np.median(hits))} max {hits.max()} (query 0: {hits[0]}); "
+          f"{differ} rows differ from the f64 oracle's sets, all within {tie_gap:.3g} of the "
+          f"radius")
+    del exact, idx, fresh_rows
+    torch.cuda.empty_cache()
+
+    # l2 at the same size: K1 with the penalty -|c|^2
+    l2 = DenseIndex(d, n, device=dev, metric="l2")
+    fill_rows(torch, l2, n, d, 32, dev)
+    l2.search(queries, k)  # warm-up
+    (D, I), l2_ms, launches = verb(torch, mips, card, "l2 search", lambda: l2.search(queries, k))
+    total += launches
+    check(launches == chunks, f"l2 search: {launches} K1 launches for {chunks} chunks")
+    check(np.isfinite(D).all() and (np.diff(D, axis=1) >= 0).all(),
+          "l2 search: distances not finite and ascending")
+    q64 = queries[:sub_q].double()
+    exact = 2 * f64_scores(torch, q64, l2._buf, n) - (q64 * q64).sum(1, keepdim=True)
+    exact -= torch.cat([(l2._buf[lo: lo + (1 << 16)].double() ** 2).sum(1)
+                        for lo in range(0, n, 1 << 16)])
+    rec = value_recall(torch, topk_mod, exact, torch.from_numpy(I[:sub_q, :10]).to(dev), 10, 1e-5)
+    check(rec == 1.0, f"l2 search: value-recall@10 {rec}")
+    print(f"  l2 search {l2_ms:.1f} ms vs cos search {cos_ms:.1f} ms [{card}]; value-recall@10 "
+          f"{rec} against |q|^2 + |c|^2 - 2q.c in f64")
+    del exact, l2
+    torch.cuda.empty_cache()
+
+    # merge two 2^19 halves: the same top-k as one build of both
+    half = n // 2
+    a = DenseIndex(d, n, device=dev)
+    b = DenseIndex(d, half, device=dev)
+    single = DenseIndex(d, n, device=dev)
+    fill_rows(torch, a, half, d, 33, dev)
+    fill_rows(torch, b, half, d, 34, dev)
+    fill_rows(torch, single, half, d, 33, dev)
+    fill_rows(torch, single, half, d, 34, dev)
+    merged, merge_ms, _ = verb(torch, mips, card, "merge_from 2^19 rows",
+                               lambda: a.merge_from(b), searches=False)
+    check(merged == half and a.ntotal == n, f"merge_from: {merged} rows, ntotal {a.ntotal}")
+    (Dm, Im), _, launches = verb(torch, mips, card, "search merged", lambda: a.search(queries, k))
+    total += launches
+    Ds, Is = single.search(queries, k)
+    check(np.array_equal(Im, Is) and np.array_equal(Dm, Ds),
+          "merge_from: the merged index's top-k differs from the single build's")
+    del a, b, single
+    torch.cuda.empty_cache()
+
+    # save / load at 2^18 rows (cut from 2^20 for disk space and the run's time)
+    snap_n = 1 << 18
+    s_idx = DenseIndex(d, snap_n, device=dev)
+    fill_rows(torch, s_idx, snap_n, d, 35, dev)
+    D1, I1 = s_idx.search(queries, k)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "snap")
+        snap, cap_ms, _ = verb(torch, mips, card, "snapshot() of 2^18 rows",
+                               s_idx.snapshot, searches=False)
+        _, write_ms, _ = verb(torch, mips, card, "write_snapshot",
+                              lambda: DenseIndex.write_snapshot(snap, path), searches=False)
+        del snap
+        size_gb = os.path.getsize(path + ".npz") / 1e9
+        back, load_ms, _ = verb(torch, mips, card, "load", lambda: DenseIndex.load(path, device=dev),
+                                searches=False)
+    (D2, I2), _, launches = verb(torch, mips, card, "search the loaded index",
+                                 lambda: back.search(queries, k))
+    total += launches
+    check(np.array_equal(I1, I2) and np.array_equal(D1, D2),
+          "save/load: the loaded index's top-k differs")
+    print(f"dense maintenance [{card}]: search {cos_ms:.1f} ms; remove_ids 65,536 {rm_ms:.1f} ms, "
+          f"search after {search_rm_ms:.1f} ms (value-recall@10 1.0, no removed row); refill "
+          f"{add_ms:.1f} ms, search {refill_ms:.1f} ms; range_search {range_ms:.1f} ms; l2 "
+          f"search {l2_ms:.1f} ms; merge_from {merge_ms:.1f} ms; snapshot of 2^18 x 1600 "
+          f"({size_gb:.2f} GB): capture {cap_ms:.1f} ms, write {write_ms:.1f} ms, load "
+          f"{load_ms:.1f} ms; {total} K1 launches, all f32 wgmma")
+    del back, s_idx
+    torch.cuda.empty_cache()
+    return total
+
+
+def items_of(sess) -> list:
+    """Product ids of a session's non-search actions, in order."""
+    return [a[-1] for a in sess if a[1] != "s"]
+
+
+def sparse_cos(kind, q, s) -> float:
+    """The hybrid fusion's sparse term, straight from its definition: the
+    cosine of binary item indicators ('overlap') or of STAN recency weights
+    exp((i - L) / 1.04) summed per item ('stan')."""
+    if kind == "overlap":
+        a, b = set(items_of(q)), set(items_of(s))
+        return len(a & b) / (len(a) * len(b)) ** 0.5 if a and b else 0.0
+
+    def stan(x):
+        seq = items_of(x)
+        w = {}
+        for i, item in enumerate(seq):
+            w[item] = w.get(item, 0.0) + np.exp((i - len(seq)) / 1.04)
+        norm = np.sqrt(sum(v * v for v in w.values()))
+        return {key: v / norm for key, v in w.items()} if norm > 0 else {}
+
+    wq, ws = stan(q), stan(s)
+    return float(sum(v * ws.get(key, 0.0) for key, v in wq.items()))
+
+
+def phase_engine_verbs(torch, mips, topk_mod, dev, parts, card):
+    """The serving verbs of the default f32 engine at Config() width, on
+    phase 4's encoder and 8,192 sessions."""
+    import collections
+
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.engine import _session_key
+
+    cfg, tok, enc, data, corpus = parts
+    n = len(data)
+    rng = np.random.default_rng(41)
+
+    def new_engine():
+        return port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,
+                                        capacity=65536, device=dev)
+
+    eng = new_engine()
+    where_from = {id(d[0]): i for i, d in enumerate(data)}  # stored session -> datum
+    total = 0
+    print(f"engine verbs: SessionSearchEngine Config() f32, {n} sessions")
+
+    # async ingest of 8 stamped batches while this thread answers searches
+    def ingest():
+        for b in range(8):
+            eng.add_sessions_async(data[b * 1024: (b + 1) * 1024], stamp=float(b))
+        answered = 0
+        while eng._ingest_q.unfinished_tasks:
+            D, I = eng.search(data[:256], k=100)
+            check(((I >= -1) & (I < eng.index.ntotal)).all() and np.isfinite(D[I >= 0]).all(),
+                  "a search during ingest returned a bad row")
+            answered += 1
+        eng.flush()
+        return answered
+
+    answered, ingest_ms, launches = verb(
+        torch, mips, card, "add_sessions_async 8 x 1,024 while searching 256 at k=100", ingest)
+    total += launches
+    check(eng.index.ntotal == n and eng.stats()["pending"] == 0,
+          f"async ingest: ntotal {eng.index.ntotal}")
+    stored_err = float(np.abs(eng.reconstruct(np.arange(n)) - corpus).max())
+    check(stored_err <= 1e-5, f"async ingest: rows differ from phase 4's by {stored_err}")
+    sample = [data[i] for i in range(0, n, 32)]
+    (D, I), _, launches = verb(torch, mips, card, "search 256 after flush",
+                               lambda: eng.search(sample, k=100))
+    total += launches
+    top1_err = float(np.abs(D[:, 0] - 1.0).max())
+    self_hits = float((I[:, 0] == np.arange(0, n, 32)).mean())
+    check(top1_err <= 1e-3, f"async ingest: top-1 score off 1.0 by {top1_err}")
+    print(f"  async ingest: {answered} searches answered during it ({n / ingest_ms * 1e3:.0f} "
+          f"sessions/s with them); rows equal phase 4's to {stored_err:.3g}; top-1 |score-1| max "
+          f"{top1_err:.3g}, self-hit ids {self_hits:.4f}")
+
+    # removal by id, by content, and by age
+    keys = collections.Counter(_session_key(s) for s in eng.sessions)
+    rm_ids = rng.choice(n, 512, replace=False)
+    keys -= collections.Counter(_session_key(eng.sessions[i]) for i in rm_ids)
+    removed, _, _ = verb(torch, mips, card, "remove_sessions(ids=) 512 rows",
+                         lambda: eng.remove_sessions(ids=rm_ids), searches=False)
+    check(removed == 512 and eng.index.ntotal == n - 512,
+          f"remove_sessions(ids=): {removed} removed, ntotal {eng.index.ntotal}")
+    check(collections.Counter(_session_key(s) for s in eng.sessions) == keys,
+          "remove_sessions(ids=): the stored sessions are not the survivors")
+    victims = [eng.sessions[i] for i in rng.choice(eng.index.ntotal, 64, replace=False)]
+    vkeys = {_session_key(s) for s in victims}
+    want = sum(c for key, c in keys.items() if key in vkeys)
+    removed, _, _ = verb(torch, mips, card, "remove_sessions(data=) 64 sessions",
+                         lambda: eng.remove_sessions(data=victims), searches=False)
+    check(removed == want and not any(_session_key(s) in vkeys for s in eng.sessions),
+          f"remove_sessions(data=): removed {removed} of {want} rows")
+    (D, I), _, launches = verb(torch, mips, card, "search the 64 removed sessions",
+                               lambda: eng.search(victims, k=10))
+    total += launches
+    check(not any(_session_key(eng.sessions[i]) in vkeys for i in I[I >= 0]),
+          "removed content was returned")
+    want = int((eng._stamps.view() < 1.0).sum())
+    removed, _, _ = verb(torch, mips, card, "expire(before=1.0)",
+                         lambda: eng.expire(before=1.0), searches=False)
+    check(removed == want and (eng._stamps.view() >= 1.0).all(),
+          f"expire: removed {removed} of {want} stamped rows")
+    pos = rng.choice(eng.index.ntotal, 256, replace=False)
+    emb = eng.embed([data[where_from[id(eng.sessions[p])]] for p in pos])
+    align_err = float(np.abs(emb / np.linalg.norm(emb, axis=1, keepdims=True)
+                             - eng.reconstruct(pos)).max())
+    check(align_err <= 1e-5, f"removal: a stored row and its session differ by {align_err}")
+    print(f"  removal: ntotal {eng.index.ntotal} after 512 by id, {want} expired and the "
+          f"rows of 64 sessions by content; 256 stored rows re-encoded from their sessions "
+          f"agree to {align_err:.3g}")
+
+    # hybrid fusion against a recompute of the fusion on the same candidates
+    live = [data[where_from[id(eng.sessions[p])]] for p in rng.choice(eng.index.ntotal, 64,
+                                                                      replace=False)]
+    D2, I2 = eng.search(live, k=40)  # the candidates: overfetch 4 x k=10
+    for kind in ("overlap", "stan"):
+        for fusion in ("score", "rrf"):
+            (Dh, Ih), _, launches = verb(
+                torch, mips, card, f"hybrid search {kind}/{fusion}, 64 queries k=10",
+                lambda: eng.search(live, k=10, hybrid_alpha=0.5, hybrid_kind=kind,
+                                   hybrid_fusion=fusion))
+            total += launches
+            D_ref = np.zeros((64, 10))
+            I_ref = np.zeros((64, 10), np.int64)
+            for r, (q, _) in enumerate(live):
+                sp = [sparse_cos(kind, q, eng.sessions[g]) for g in I2[r]]
+                if fusion == "score":
+                    fused = [0.5 * D2[r, c] + 0.5 * sp[c] for c in range(40)]
+                else:  # sparse ranks of the f32 sparse scores, ties in column order
+                    sp32 = np.float32(sp)
+                    sp_rank = {c: w for w, c in enumerate(sorted(range(40), key=lambda c: -sp32[c]))}
+                    fused = [1 / (60 + c) + 1 / (60 + sp_rank[c]) for c in range(40)]
+                top = sorted(range(40), key=lambda c: -fused[c])[:10]
+                D_ref[r] = [fused[c] for c in top]
+                I_ref[r] = I2[r, top]
+            err = float(np.abs(Dh - D_ref).max())
+            same = float((Ih == I_ref).mean())
+            check(err <= 1e-5 and same >= 0.99,
+                  f"hybrid {kind}/{fusion}: scores off the recompute by {err}, ids equal {same}")
+            print(f"    {kind}/{fusion}: fused scores vs the recompute max_abs_err {err:.3g}, "
+                  f"ids equal {same:.4f}")
+
+    # range search with a filter, against the f64 oracle's thresholded sets
+    def where(sess):
+        return len(sess) % 2 == 0
+
+    Dk, _ = eng.search(live, k=100, where=where)
+    radius = float(Dk[0, 49])
+    (lims, Dr, Ir), _, launches = verb(
+        torch, mips, card, f"range_search 64 queries where=, radius {radius:.5f}",
+        lambda: eng.range_search(live, radius, where=where))
+    total += launches
+    allowed = torch.from_numpy(eng._where_mask(where)).to(dev)
+    check(bool(allowed[torch.from_numpy(Ir).to(dev)].all().item()),
+          "range_search: a row the filter refuses was returned")
+    qe = topk_mod.l2_normalize(eng.embed(live, out="device").float()).double()
+    exact = f64_scores(torch, qe, eng.index._buf, eng.index.ntotal)
+    exact[:, ~allowed] = float("-inf")
+    hits = np.diff(lims)
+    differ, tie_gap = range_vs_oracle(torch, lims, Ir, exact, radius)
+    check(hits[0] >= 50 and tie_gap <= 1e-5,
+          f"range_search where=: {hits[0]} hits for query 0, a set differs from the oracle's "
+          f"by a row {tie_gap} from the radius")
+    print(f"  range_search where=: hits per query min {hits.min()} median {int(np.median(hits))} "
+          f"max {hits.max()}; {differ} rows differ from the f64 oracle's sets")
+
+    # save_async while searches and ingest go on, then restore into a fresh engine
+    D_cap, I_cap = eng.search(sample, k=100)
+    n_cap = eng.index.ntotal
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "engine")
+        handle, cap_ms, _ = verb(torch, mips, card, "save_async (capture)",
+                                 lambda: eng.save_async(prefix), searches=False)
+        t0 = time.perf_counter()
+        eng.add_sessions_async(data[:256])  # ingest during the write
+        during = 0
+        while not handle.done():
+            eng.search(live, k=10)
+            during += 1
+        handle.join()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        eng.close()
+        check(eng.index.ntotal == n_cap + 256, f"save_async: live ntotal {eng.index.ntotal}")
+        del eng
+        torch.cuda.empty_cache()
+        fresh = new_engine()
+        _, restore_ms, _ = verb(torch, mips, card, "restore into a fresh engine",
+                                lambda: fresh.restore(prefix), searches=False)
+    check(fresh.index.ntotal == n_cap, f"restore: ntotal {fresh.index.ntotal}, captured {n_cap}")
+    (D_r, I_r), _, launches = verb(torch, mips, card, "search the restored engine",
+                                   lambda: fresh.search(sample, k=100))
+    total += launches
+    check(np.array_equal(I_r, I_cap) and np.array_equal(D_r, D_cap),
+          "restore: the restored engine's top-k differs from the capture point's")
+    print(f"engine verbs [{card}]: save_async capture {cap_ms:.1f} ms, write {write_ms:.1f} ms "
+          f"with {during} searches and a 256-session ingest beside it, restore {restore_ms:.1f} "
+          f"ms; {total} K1 launches, all f32 wgmma")
+    print(f"engine verbs stats: {json.dumps(fresh.stats())}")
+    return total
 
 
 def phase_bf16_engine(torch, mips, topk_mod, dev, parts):
@@ -1620,6 +2061,7 @@ def phase_scores_matmul_f32(torch, mips, lib, dev, g):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1674,6 +2116,11 @@ def main() -> int:
     err_index = run_phase(torch, "index", phase_index, torch, mips, topk_mod, dev)
     launches, err_engine, f32_small, tile_small, parts = run_phase(
         torch, "engine", phase_engine, torch, mips, topk_mod, dev)
+    card_line = card[0] if card else "unknown card"
+    maint_launches = run_phase(torch, "dense maintenance", phase_dense_maintenance, torch, mips,
+                               topk_mod, dev, card_line)
+    verbs_launches = run_phase(torch, "engine verbs", phase_engine_verbs, torch, mips, topk_mod,
+                               dev, parts, card_line)
     wgmma_launches, err_bf16_engine = run_phase(torch, "bf16 engine", phase_bf16_engine,
                                                 torch, mips, topk_mod, dev, parts)
     err_f32, f32_bench, tile_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch,
@@ -1720,6 +2167,8 @@ def main() -> int:
     f32_entry.update(gate=f32_bench["gate"], q256_n8192_d1600=f32_small,
                      index_search_ms=f32_search_ms)
     k1_entry.update(wgmma_launches=wgmma_launches, tile_source=f"{src}scores_bmax.cu",
+                    dense_maintenance_launches=maint_launches,
+                    engine_verbs_launches=verbs_launches,
                     f32_wgmma=f32_entry,
                     tile_f32={"q1024_n1048576_d1600": tile_bench,
                               "q256_n8192_d1600": tile_small},
@@ -1738,6 +2187,7 @@ def main() -> int:
                     tile=k6["tile"],
                     f32_wgmma=entry("scores_matmul_f32", "247", k6_f32["launches"],
                                     k6_f32["err"], k6_f32, "scores_bmax_f32_sm90.cu"))
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         k1_entry,
         entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4),

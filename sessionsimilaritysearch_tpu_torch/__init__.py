@@ -8,8 +8,13 @@ the JAX package's, with their imports pointed at this package.
 
 Covered so far: the serving path. Sessions -> padded graphs -> the
 flagship ``GraphLevelEncoder`` -> ``DenseIndex`` -> exact top-k through the
-hand-written fused score + bucket-max CUDA kernel (``csrc/scores_bmax.cu``),
-driven by ``SessionSearchEngine``; int8 storage (``quantize='int8'`` and
+hand-written fused score + bucket-max CUDA kernel K1 (``csrc/scores_bmax*.cu``),
+driven by ``SessionSearchEngine``, with the serving verbs of the JAX
+package's: the index's ``remove_ids``, ``range_search``, ``merge_from``,
+snapshots (``save`` / ``load``, the JAX package's npz format), centered
+cosine and ``metric='l2'`` (K1 with a per-row penalty of -|c|^2), and the
+engine's async ingest, removal, expiry, hybrid fusion, range search and
+save / restore, all searching through K1; int8 storage (``quantize='int8'`` and
 ``'int8x8'``, the latter through ``csrc/scores_bmax_int8.cu``); the packed
 binary tier: two-stage serving (``TwoStageIndex``, ITQ or SimHash sign codes
 packed 1 bit per bit, an exact Hamming top-pool through

@@ -4,7 +4,8 @@ for f32, K2 scores_bmax_int8 and its Hopper variant scores_bmax_int8_sm90,
 K3 bucket_max, K4 packed_scores_bmax, K5 hamming_bucket_min, K6
 scores_matmul and its Hopper variants) against their
 plain PyTorch versions, and the indexes and engine on the card against the
-CPU.
+CPU: among them DenseIndex's l2 search through K1's penalty, remove_ids
+and a snapshot round trip.
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so on a
@@ -19,7 +20,7 @@ import torch
 
 import sessionsimilaritysearch_tpu_torch as port
 from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
-from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
+from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex, compaction_plan
 from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
 from sessionsimilaritysearch_tpu_torch.ops import hamming, mips, mips_int8, packed, popcount
 
@@ -206,6 +207,73 @@ def test_dense_index_search_launches_kernel(dev):
     Dc, Ic = on_cpu.search(rows[:16], 5, row_mask=mask)
     np.testing.assert_allclose(D, Dc, atol=1e-5, rtol=0)
     assert mask[I].all()
+
+
+@pytest.mark.parametrize("d", [36, 200, 1600])
+def test_l2_index_runs_k1_with_its_penalty(dev, d):
+    # metric='l2' through K1's per-row penalty -|c|^2 (and -inf for masked
+    # rows): every launch the f32 wgmma variant, and the distances those of
+    # the plain version (the CPU index over the same rows) to 1e-5 of
+    # |q|^2 + max|c|^2
+    rng = np.random.default_rng(d)
+    rows = rng.standard_normal((3000, d)).astype(np.float32)
+    q = rows[:16] + 0.1 * rng.standard_normal((16, d)).astype(np.float32)
+    on_card = DenseIndex(d, 4096, device=dev, metric="l2", chunk_size=1024)
+    on_cpu = DenseIndex(d, 4096, device="cpu", metric="l2", chunk_size=1024)
+    on_card.add(rows)
+    on_cpu.add(rows)
+    mask = rng.random(3000) < 0.7
+    before, before_w = mips.launch_count, mips.wgmma_launch_count
+    D, I = on_card.search(q, 10, row_mask=mask)
+    assert (mips.launch_count, mips.wgmma_launch_count) == (before + 3, before_w + 3)
+    Dc, Ic = on_cpu.search(q, 10, row_mask=mask)
+    scale = float((q**2).sum(1).max() + (rows**2).sum(1).max())
+    np.testing.assert_allclose(D, Dc, atol=1e-5 * scale, rtol=0)
+    assert mask[I].all() and (np.diff(D, axis=1) >= 0).all()
+    exact = ((q[:, None, :].astype(np.float64) - rows[None]) ** 2).sum(-1)
+    np.testing.assert_allclose(np.take_along_axis(exact, I, axis=1),
+                               np.take_along_axis(exact, Ic, axis=1), atol=1e-5 * scale, rtol=0)
+
+
+def test_remove_ids_on_card_matches_rebuilt(dev):
+    # 'ip' stores the rows as given, so the rebuilt index holds the same
+    # bits in the same slots and must return the same top-k, ties included
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal((3200, 64)).astype(np.float32)
+    idx = DenseIndex(64, 4096, device=dev, metric="ip", chunk_size=1024)
+    idx.add(rows[:3000])
+    gone = rng.choice(3000, size=500, replace=False)
+    stored = idx.reconstruct_batch(np.arange(3000))
+    src, dst, new_size = compaction_plan(3000, gone)
+    assert idx.remove_ids(gone) == 500 and idx.ntotal == new_size == 2500
+    survivors = stored.copy()
+    survivors[dst] = survivors[src]
+    np.testing.assert_array_equal(idx.reconstruct_batch(np.arange(2500)), survivors[:2500])
+    idx.add(rows[3000:])  # into the freed capacity
+    fresh = DenseIndex(64, 4096, device=dev, metric="ip", chunk_size=1024)
+    fresh.add(np.concatenate([survivors[:2500], rows[3000:]]))
+    D, I = idx.search(rows[:32], 10)
+    Df, If = fresh.search(rows[:32], 10)
+    np.testing.assert_array_equal(I, If)
+    np.testing.assert_array_equal(D, Df)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_snapshot_round_trip_on_card(dev, dtype, tmp_path):
+    rng = np.random.default_rng(4)
+    rows = rng.standard_normal((3000, 64)).astype(np.float32)
+    idx = DenseIndex(64, 4096, device=dev, dtype=dtype, chunk_size=1024)
+    idx.add(rows)
+    idx.remove_ids([0, 5, 2999])
+    idx.save(str(tmp_path / "snap"))
+    back = DenseIndex.load(str(tmp_path / "snap"), device=dev)
+    on_cpu = DenseIndex.load(str(tmp_path / "snap"), device="cpu")
+    assert back.dtype == on_cpu.dtype == dtype and back.ntotal == 2997
+    stored = idx.reconstruct_batch(np.arange(2997))
+    np.testing.assert_array_equal(back.reconstruct_batch(np.arange(2997)), stored)
+    np.testing.assert_array_equal(on_cpu.reconstruct_batch(np.arange(2997)), stored)
+    for a, b in zip(back.search(rows[:16], 10), idx.search(rows[:16], 10)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_engine_on_card_matches_cpu(dev):

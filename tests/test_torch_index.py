@@ -145,25 +145,43 @@ def test_capacity_and_bounds():
 @pytest.mark.parametrize("kw", [{"metric": "l2"}, {"quantize": "int8"},
                                 {"center": "auto"}])
 def test_unported_options_raise(kw):
-    if "quantize" in kw:
-        # ported since: the option builds and searches (parity with the JAX
-        # index in tests/test_torch_int8.py)
-        rows = np.random.default_rng(0).standard_normal((50, DIM)).astype(np.float32)
-        t = DenseIndex(DIM, CAP, device="cpu", **kw)
-        t.add(rows)
-        D, I = t.search(rows[:5], 3)
-        np.testing.assert_array_equal(I[:, 0], np.arange(5))
-        assert np.isfinite(D).all()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenseIndex(DIM, CAP, device="cpu", **kw)
+    # each option is ported since: it builds and searches (parity with the
+    # JAX index in tests/test_torch_int8.py and tests/test_torch_maintenance.py)
+    rows = np.random.default_rng(0).standard_normal((50, DIM)).astype(np.float32)
+    t = DenseIndex(DIM, CAP, device="cpu", **kw)
+    t.add(rows)
+    D, I = t.search(rows[:5], 3)
+    np.testing.assert_array_equal(I[:, 0], np.arange(5))
+    assert np.isfinite(D).all()
+    if "metric" in kw:  # squared distances, ascending from ~0 at the row itself
+        assert (np.diff(D, axis=1) >= 0).all() and np.abs(D[:, 0]).max() < 1e-4
 
 
 @pytest.mark.parametrize("call", ["remove_ids", "range_search", "merge_from",
                                   "snapshot", "save"])
-def test_unported_methods_raise(call):
+def test_unported_methods_raise(call, tmp_path):
+    # each method is ported since: it runs and does what the JAX index's does
+    rows = np.random.default_rng(0).standard_normal((50, DIM)).astype(np.float32)
     t = DenseIndex(DIM, CAP, device="cpu")
-    args = {"remove_ids": ([0],), "range_search": (np.ones((1, DIM)), 0.5),
-            "merge_from": (t,), "snapshot": (), "save": ("x",)}[call]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(t, call)(*args)
+    t.add(rows)
+    if call == "remove_ids":
+        assert t.remove_ids([0, 49]) == 2 and t.ntotal == 48
+        np.testing.assert_array_equal(t.search(rows[1:4], 1)[1][:, 0], [1, 2, 3])
+    elif call == "range_search":
+        lims, D, I = t.range_search(rows[:3], 0.999)
+        np.testing.assert_array_equal(lims, [0, 1, 2, 3])
+        np.testing.assert_array_equal(I, [0, 1, 2])
+    elif call == "merge_from":
+        other = DenseIndex(DIM, 10, device="cpu")
+        other.add(rows[:10])
+        assert t.merge_from(other) == 10 and t.ntotal == 60
+        np.testing.assert_array_equal(t.reconstruct(55), other.reconstruct(5))
+    elif call == "snapshot":
+        snap = t.snapshot()
+        assert snap["buf"].shape == (50, DIM) and snap["mode"] == "exact"
+        assert snap["buf"].data_ptr() != t._buf.data_ptr()  # a copy, not a view
+    else:
+        t.save(str(tmp_path / "snap"))
+        back = DenseIndex.load(str(tmp_path / "snap"), device="cpu")
+        np.testing.assert_array_equal(back.reconstruct_batch(np.arange(50)),
+                                      t.reconstruct_batch(np.arange(50)))

@@ -1,7 +1,11 @@
 """The port's copies of the JAX package's jax-free modules (config,
 tokenizer, data, native, evalharness.metrics) held against the originals:
 the same fields, token ids, synthetic sessions, graph arrays, metrics and
-native graph batches. The port imports none of the originals
+native graph batches; and the jax-free helpers it copies out of modules
+that import JAX (index/dense.py compaction_plan and _range_from_search;
+engine.py _item_set, _overlap_cos, _item_stan_weights, _session_key,
+_GrowArr, _hybrid_rerank and _dedup_topk), which must return what the
+originals return. The port imports none of the originals
 (tests/test_torch_package.py); these tests keep the copies equal."""
 
 import dataclasses
@@ -101,3 +105,114 @@ def test_native_graphs_match_jax_native_and_python():
         assert a.dtype == b.dtype == c.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
         np.testing.assert_array_equal(a, c, err_msg=name)
+
+
+# --- the jax-free helpers the port's index and engine copy from modules that
+# import JAX (index/dense.py, engine.py)
+
+from sessionsimilaritysearch_tpu import engine as j_engine  # noqa: E402
+from sessionsimilaritysearch_tpu.index import dense as j_dense  # noqa: E402
+from sessionsimilaritysearch_tpu_torch import engine as t_engine  # noqa: E402
+from sessionsimilaritysearch_tpu_torch.index import dense as t_dense  # noqa: E402
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_compaction_plan(seed):
+    rng = np.random.default_rng(seed)
+    size = int(rng.integers(1, 300))
+    ids = rng.integers(0, size, size=int(rng.integers(0, size + 1)))
+    for got, want in zip(t_dense.compaction_plan(size, ids), j_dense.compaction_plan(size, ids)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("descending", [True, False])
+def test_range_from_search(descending):
+    rng = np.random.default_rng(5)
+    scores = rng.standard_normal((6, 200)).astype(np.float32)
+    scores[2] = 3.0  # a query every row is within radius of: depth reaches total
+
+    def search_fn(k):
+        order = np.argsort(-scores if descending else scores, axis=1, kind="stable")[:, :k]
+        return np.take_along_axis(scores, order, axis=1), order.astype(np.int64)
+
+    kw = dict(descending=descending, total=200, k0=8)
+    got = t_dense._range_from_search(search_fn, 6, 1.5 if descending else -1.5, **kw)
+    want = j_dense._range_from_search(search_fn, 6, 1.5 if descending else -1.5, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    empty = t_dense._range_from_search(search_fn, 0, 0.0, **kw)
+    for a, b in zip(empty, j_dense._range_from_search(search_fn, 0, 0.0, **kw)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+
+
+def test_session_helpers():
+    sessions = [s for s, _ in _sessions(t_data, 40, seed=6)]
+    for a in sessions:
+        assert t_engine._item_set(a) == j_engine._item_set(a)
+        assert t_engine._session_key(a) == j_engine._session_key(a)
+        assert t_engine._item_stan_weights(a) == j_engine._item_stan_weights(a)
+        for b in sessions[:8]:
+            sa, sb = t_engine._item_set(a), t_engine._item_set(b)
+            assert t_engine._overlap_cos(sa, sb) == j_engine._overlap_cos(sa, sb)
+
+
+def test_grow_arr():
+    arrs = [mod._GrowArr(np.int64) for mod in (t_engine, j_engine)]
+    for a in arrs:
+        for i in range(1500):  # past the first growth
+            a.append(i * 3)
+        a.extend(range(7))
+        a[4] = -1
+    t, j = arrs
+    assert len(t) == len(j) == 1507 and t[4] == j[4] == -1
+    np.testing.assert_array_equal(t.view(), j.view())
+    np.testing.assert_array_equal(t.view(10), j.view(10))
+    built = [mod._GrowArr(np.float64, [1.0, 2.5]) for mod in (t_engine, j_engine)]
+    np.testing.assert_array_equal(built[0].view(), built[1].view())
+
+
+def _bare_engine(mod, n_rows, seed):
+    """An engine shell of ``mod`` with synthetic per-row metadata (no
+    encoder or index): the host-side query helpers alone."""
+    rng = np.random.default_rng(seed)
+    eng = mod.SessionSearchEngine.__new__(mod.SessionSearchEngine)
+    eng._key_to_id = {}
+    for name, dt in (("_canon_ids", np.int64), ("_item_flat", np.int64),
+                     ("_item_wstan", np.float64), ("_item_lens", np.int64)):
+        setattr(eng, name, mod._GrowArr(dt))
+    eng._meta_cache = None
+    for _ in range(n_rows):
+        items = sorted(set(rng.integers(0, 5000, size=rng.integers(1, 12)).tolist()))
+        eng._canon_ids.append(eng._key_to_id.setdefault(tuple(items), len(eng._key_to_id)))
+        eng._item_flat.extend(items)
+        eng._item_wstan.extend(rng.random(len(items)).tolist())
+        eng._item_lens.append(len(items))
+    return eng, rng
+
+
+@pytest.mark.parametrize("kind", ["overlap", "stan"])
+@pytest.mark.parametrize("fusion", ["score", "rrf"])
+def test_hybrid_rerank_on_random_candidates(kind, fusion):
+    (t, rng), (j, _) = _bare_engine(t_engine, 400, 7), _bare_engine(j_engine, 400, 7)
+    q, m, k = 12, 40, 10
+    D2 = np.sort(rng.standard_normal((q, m)).astype(np.float32), axis=1)[:, ::-1].copy()
+    gid = np.stack([rng.choice(400, size=m, replace=False) for _ in range(q)]).astype(np.int64)
+    gid[:, -3:] = -1  # short rows
+    q_w = [{int(i): float(w) for i, w in zip(rng.integers(0, 5000, 5), rng.random(5))}
+           for _ in range(q)]
+    got = t._hybrid_rerank(D2, gid, q_w, k, 0.3, kind, fusion=fusion)
+    want = j._hybrid_rerank(D2, gid, q_w, k, 0.3, kind, fusion=fusion)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_dedup_topk():
+    (t, rng), (j, _) = _bare_engine(t_engine, 64, 8), _bare_engine(j_engine, 64, 8)
+    for eng in (t, j):  # duplicates: the second half mirrors the first
+        for g in range(32, 64):
+            eng._canon_ids[g] = eng._canon_ids[g - 32]
+    D2 = np.sort(rng.standard_normal((8, 24)).astype(np.float32), axis=1)[:, ::-1].copy()
+    gid = np.stack([rng.choice(64, size=24, replace=False) for _ in range(8)]).astype(np.int64)
+    for a, b in zip(t._dedup_topk(D2, gid, 6), j._dedup_topk(D2, gid, 6)):
+        np.testing.assert_array_equal(a, b)

@@ -140,11 +140,11 @@ def test_where_filter(parts):
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"quantize": "int8"},
                                 {"prefilter": "binary"}, {"center": "auto"}])
 def test_unported_engine_options_raise(parts, kw):
-    # the port's engine has no mesh or center options yet: a call that sets
-    # one is rejected, never served by the plain dense path; a prefilter
-    # with the default stage1='matmul' (approximate selection) raises naming
-    # its ROADMAP item. quantize is ported since: it builds and searches.
-    cfg, tok, data, _, tenc = parts
+    # the port's engine has no mesh yet: a call that sets one raises naming
+    # its ROADMAP item, never served by the plain dense path; so does a
+    # prefilter with the default stage1='matmul' (approximate selection).
+    # quantize and center are ported since: each builds and searches.
+    cfg, tok, data, encode_fn, tenc = parts
     if "quantize" in kw:
         t = SessionSearchEngine(*_port_side(cfg), tenc, dim=cfg.session_emb_dim,
                                 capacity=64, batch_size=8, device="cpu", **kw)
@@ -157,9 +157,16 @@ def test_unported_engine_options_raise(parts, kw):
                                 capacity=8, device="cpu", prefilter="itq",
                                 stage1="packed", **kw)
         return
-    err, match = ((NotImplementedError, "Queue 1 item 2") if "prefilter" in kw
-                  else (TypeError, next(iter(kw))))
-    with pytest.raises(err, match=match):
+    if "center" in kw:
+        j, t = _engines(parts, data, **kw)
+        assert t.index.center_mode == "auto"
+        Dj, Ij = j.search(data[:5], k=3)
+        Dt, It = t.search(data[:5], k=3)
+        np.testing.assert_allclose(Dt, Dj, atol=TOL, rtol=0)
+        np.testing.assert_array_equal(It[:, 0], np.arange(5))
+        return
+    match = "Queue 1 item 2" if "prefilter" in kw else "Queue 1 item 8"
+    with pytest.raises(NotImplementedError, match=match):
         SessionSearchEngine(cfg, tok, tenc, dim=cfg.session_emb_dim,
                             capacity=8, device="cpu", **kw)
 
