@@ -72,6 +72,27 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                within two bf16 ulps of 1.0), every K1 launch the wgmma
                variant, which equals its plain version on the engine's own
                bf16 queries and rows (beside a cuBLAS bf16 GEMM);
+4f. flagship serving -- the JAX package's serving recipe at Config() width:
+               phase 4's encoder and sessions, bf16 serving_params, the
+               catalog title table over all 391,572 titles and the keyword
+               table over the sessions' keywords (time and bytes of each, for
+               f32 and bf16 weights); on 256 sessions with products the cached
+               forwards (title-only and fully cached) against the uncached one
+               on the card (f32: rtol 1e-5, atol 1e-4 of the output scale;
+               bf16: every row's cosine >= 0.999 and max |diff| <= 2^-6 of
+               max |ref|), the card's bf16 cached forward and 256 title rows
+               against the CPU's on the same weights and tables (bf16
+               tolerance); the 8,192 sessions ingested bf16 uncached, bf16
+               title-only and bf16 fully cached (sessions/s beside phase 4's
+               f32 uncached rate); the fully cached engine (f32 DenseIndex)
+               searched with 256 queries at k=100, every K1 launch from its
+               ingest to its search the f32 wgmma variant, held against its
+               plain version on the engine's inputs; one 256-session batch of
+               the fully cached forward stage by stage (host graph build,
+               keyword lookup, upload, node gather, GNN, pooling; host clock
+               and torch.profiler device time); a product_pooling='recency'
+               engine of 1,024 sessions on the same tables; no batch may take
+               the out-of-vocabulary path;
 4c. f32 kernel -- K1's f32 wgmma variant at q=1024, n=2^20, d=1600 f32 ->
                f32 on seeded f32 unit rows against its plain version, timed
                in the same rounds as the tile loop (through its own C entry
@@ -147,7 +168,8 @@ right after it. Before phase 4 the shared native graph builder must load
 used is printed).
 The second-to-last line is a JSON object describing each of the six
 kernels: the launches counted on its path (K1: phase 4's f32 engine, and
-``wgmma_launches`` phase 4b's bf16 engine; K1's times and bound are the bf16
+``wgmma_launches`` phase 4b's bf16 engine, ``flagship_serving_launches``
+phase 4f's fully cached engine; K1's times and bound are the bf16
 wgmma variant's at the bench point, ``f32_wgmma`` holds the f32 wgmma
 variant's (launches on phase 4's engine, times at the bench point and the
 engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
@@ -182,6 +204,12 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BF16_TOL = 2 * 2.0**-8  # two bf16 ulps, relative to the per-query scale
+# two bf16 forwards agree when every row's cosine is >= BF16_COS and the
+# largest |difference| is <= BF16_REL of the largest |reference|
+BF16_COS, BF16_REL = 0.999, 2.0**-6
+# the card's bf16 fully cached forward against the CPU's on the same tables:
+# the largest |difference| over the largest |reference|
+CARD_CPU_REL = 1e-4
 # published H100 SXM peaks (dense, at the 700 W limit): bytes and operations
 # per second; a kernel's bound is the larger of its bytes and its operations
 # over these
@@ -700,7 +728,8 @@ def phase_engine(torch, mips, topk_mod, dev):
           f"{v_err:.3g}, search() top-100 vs plain max_abs_err {d_err:.3g}")
     print(f"engine stats: {json.dumps(stats)}")
     corpus = eng.index.reconstruct_batch(np.arange(eng.index.ntotal))
-    return launches, bm_err, f32_small, tile_small, (cfg, tok, enc, data, corpus)
+    return (launches, bm_err, f32_small, tile_small, (cfg, tok, enc, data, corpus),
+            8192 / ingest_s)
 
 
 def verb(torch, mips, card, name, fn, searches=True):
@@ -1171,6 +1200,327 @@ def phase_bf16_engine(torch, mips, topk_mod, dev, parts):
           f"{s_err:.3g}, search() top-100 vs plain {d_err:.3g}")
     print(f"bf16 engine stats: {json.dumps(eng.stats())}")
     return wgmma, bm_err
+
+
+def has_product(datum) -> bool:
+    return any(a[1] != "s" for a in datum[0])
+
+
+def bf16_agreement(torch, got, want) -> tuple:
+    """(smallest row cosine, largest |difference| over the largest |want|)
+    of two [B, d] outputs; the bf16 tolerance asks >= 0.999 and <= 2^-6."""
+    got, want = got.double().cpu(), want.double().cpu()
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1).min().item()
+    return cos, ((got - want).abs().max() / want.abs().max()).item()
+
+
+def check_bf16(torch, got, want, what) -> tuple:
+    cos, rel = bf16_agreement(torch, got, want)
+    check(cos >= BF16_COS and rel <= BF16_REL,
+          f"{what}: min row cosine {cos:.6f} (>= {BF16_COS}), max |diff| / max |ref| "
+          f"{rel:.3g} (<= 2^-6)")
+    return cos, rel
+
+
+def staged_forward(torch, encoder, fn, sessions, tok, cfg, dev, sync):
+    """One batch of the fully cached forward, stage by stage, each stage in
+    its own torch.profiler span: host graph build, keyword lookup (host),
+    upload, node gather (the table rows), GNN, pooling. With ``sync`` the
+    card is synchronized after each stage and the host clock read."""
+    from torch.profiler import record_function
+
+    from sessionsimilaritysearch_tpu_torch.data import build_graph_batch
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import _upload, to_device
+
+    times, t0 = {}, time.perf_counter()
+
+    def stage(name):
+        nonlocal t0
+        if sync:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        times[name] = (t - t0) * 1e3
+        t0 = t
+
+    with torch.inference_mode():
+        with record_function("graph build"):
+            batch = build_graph_batch(sessions, tok, cfg.dims, ignore_query=cfg.ignore_query)
+        stage("graph build")
+        with record_function("keyword lookup"):
+            kw = fn.prepare(batch)["query_kw"]
+        stage("keyword lookup")
+        with record_function("upload"):
+            g, kw = to_device(batch, dev), _upload(kw, dev)
+        stage("upload")
+        with record_function("node gather"):
+            emb = encoder.node_embeddings(g, title_table=fn.title_table,
+                                          query_table=fn.query_table, query_kw=kw)
+        stage("node gather")
+        with record_function("gnn"):
+            nodes = encoder.gnn(emb, g)
+        stage("gnn")
+        with record_function("pooling"):
+            out = encoder.readout(nodes, g)
+        stage("pooling")
+    return out, g, times
+
+
+def device_rows(torch, prof, calls) -> list:
+    """(name, device ms per call, count per call) of every event the
+    profiler put on the card's timeline, largest first: the kernels and
+    copies, and each ``record_function`` span that covers device work (as
+    the profiler's GPU annotation of that span)."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0)
+        if t > 0:
+            rows.append((e.key, t / 1e3 / calls, e.count // calls))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_flagship_serving(torch, mips, topk_mod, dev, parts, card, f32_rate):
+    """The flagship serving forward at Config() width: bf16 serving_params,
+    the catalog title and keyword tables, make_cached_encode_fn inside a
+    default f32 engine searched through K1 (every launch the f32 wgmma
+    variant), the recency pooling; returns K1's launches on this path from
+    the fully cached engine's ingest to its search, and the kernel's largest
+    error against its plain version."""
+    import copy
+
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.data import build_graph_batch
+    from sessionsimilaritysearch_tpu_torch.evalharness import harness as H
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device
+    from sessionsimilaritysearch_tpu_torch.utils.precision import serving_params
+
+    cfg, tok, enc, data, _ = parts
+    titles = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0).titles
+    keywords = [a[2] or "" for s, _ in data for a in s if a[1] == "s"]
+    bf = serving_params(enc)
+    n_bf16 = sum(p.numel() for p in bf.parameters() if p.dtype == torch.bfloat16)
+    n_all = sum(p.numel() for p in bf.parameters())
+    tables = {}
+    for name, e in (("f32", enc), ("bf16", bf)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        title = H.build_title_table(cfg, tok, titles, e)
+        torch.cuda.synchronize()
+        title_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qtab, lookup = H.build_keyword_table(cfg, tok, keywords, e)
+        torch.cuda.synchronize()
+        kw_s = time.perf_counter() - t0
+        tables[name] = (title, qtab, lookup)
+        print(f"flagship serving {name} tables [{card}]: title table {tuple(title.shape)} "
+              f"{title.dtype} {title.numel() * title.element_size() / 1e9:.3f} GB in "
+              f"{title_s:.2f} s ({len(titles) / title_s:.0f} titles/s, batches of 1024); "
+              f"keyword table {tuple(qtab.shape)} {qtab.numel() * qtab.element_size()} bytes "
+              f"in {kw_s * 1e3:.1f} ms ({len(set(keywords))} distinct keywords)")
+    check(tables["bf16"][0].dtype == torch.bfloat16 and tables["f32"][0].dtype == torch.float32,
+          "flagship serving: table dtypes do not follow the weights")
+    check(tables["bf16"][2] == tables["f32"][2], "flagship serving: keyword lookups differ")
+    title, qtab, lookup = tables["bf16"]
+    fns = {"f32": H.make_cached_encode_fn(enc, *tables["f32"]),
+           "bf16": H.make_cached_encode_fn(bf, title, qtab, lookup)}
+
+    # 256 sessions with products: cached against uncached on the card
+    sel = [d for d in data if has_product(d)][:256]
+    batch = build_graph_batch(sel, tok, cfg.dims, ignore_query=cfg.ignore_query)
+    g = to_device(batch, dev)
+    kw = torch.from_numpy(H.keyword_ids(lookup, batch.query_input_ids)).to(dev)
+    out = {}
+    with torch.inference_mode():
+        for name, e in (("f32", enc), ("bf16", bf)):
+            t, q, _ = tables[name]
+            out[name] = {"uncached": e(g), "title": e(g, title_table=t),
+                         "full": e(g, title_table=t, query_table=q, query_kw=kw)}
+    ref = out["f32"]["uncached"]
+    scale = ref.abs().max().item()
+    errs = {}
+    for form in ("title", "full"):
+        got = out["f32"][form]
+        # the JAX package's cached-forward test (rtol 1e-5, atol 1e-4),
+        # its atol taken relative to the output's scale where that exceeds 1
+        excess = ((got - ref).abs() - 1e-5 * ref.abs()).max().item()
+        errs[form] = (got - ref).abs().max().item()
+        check(excess <= 1e-4 * max(1.0, scale),
+              f"flagship serving: f32 {form}-cached vs uncached exceeds rtol 1e-5 by "
+              f"{excess:.3g} (atol {1e-4 * max(1.0, scale):.3g})")
+    bf_agree = {form: check_bf16(torch, out["bf16"][form], out["bf16"]["uncached"],
+                                 f"flagship serving: bf16 {form}-cached vs uncached")
+                for form in ("title", "full")}
+    cos_f32 = bf16_agreement(torch, out["bf16"]["full"], ref)[0]
+    check(cos_f32 >= 0.98, f"flagship serving: bf16 vs f32 min row cosine {cos_f32:.4f}")
+
+    # the card's bf16 cached forward against the CPU's, the same weights and
+    # tables; and the card's title table rows against the CPU's text backbone
+    cpu = torch.device("cpu")
+    cpu_bf = copy.deepcopy(bf).to(cpu)
+    with torch.inference_mode():
+        on_cpu = cpu_bf(to_device(batch, cpu), title_table=title.cpu(), query_table=qtab.cpu(),
+                        query_kw=kw.cpu())
+        asins = np.unique(batch.product_asin[batch.product_node_mask > 0])[:256]
+        t = tok([titles[i] for i in asins], max_length=cfg.dims.token_len)
+        rows_cpu = cpu_bf.embed_texts(*(torch.from_numpy(t[k]) for k in (
+            "input_ids", "token_type_ids", "attention_mask")))
+    # on the same tables the fully cached forward runs no text backbone, so
+    # card and CPU agree far inside the bf16 tolerance: CARD_CPU_REL, which
+    # the card's f32 fully cached forward must miss (the bound tells the
+    # bf16 serving policy from f32)
+    cpu_agree = check_bf16(torch, out["bf16"]["full"], on_cpu,
+                           "flagship serving: card vs CPU bf16 cached forward")
+    f32_agree = bf16_agreement(torch, out["f32"]["full"], on_cpu)
+    check(cpu_agree[1] <= CARD_CPU_REL < f32_agree[1],
+          f"flagship serving: card vs CPU bf16 cached forward max |diff| / max |ref| "
+          f"{cpu_agree[1]:.3g}, the f32 forward's {f32_agree[1]:.3g}: the bound "
+          f"{CARD_CPU_REL} must hold for bf16 and fail for f32")
+    rows = torch.from_numpy(asins).to(dev)
+    row_agree = check_bf16(torch, title[rows].float(), rows_cpu.float(),
+                           "flagship serving: card vs CPU title rows")
+    row_f32 = bf16_agreement(torch, tables["f32"][0][rows], rows_cpu.float())
+    del cpu_bf
+    print(f"flagship serving, 256 sessions with products [{card}]: f32 cached vs uncached "
+          f"max_abs_err title {errs['title']:.3g}, full {errs['full']:.3g} (scale {scale:.3g}); "
+          f"bf16 cached vs uncached (min row cosine, max |diff| / max |ref|) title "
+          f"{bf_agree['title'][0]:.6f} / {bf_agree['title'][1]:.3g}, full "
+          f"{bf_agree['full'][0]:.6f} / {bf_agree['full'][1]:.3g}; bf16 vs f32 min row cosine "
+          f"{cos_f32:.5f}; card vs CPU bf16 full {cpu_agree[0]:.6f} / {cpu_agree[1]:.3g} "
+          f"(card f32 full vs CPU bf16 {f32_agree[0]:.6f} / {f32_agree[1]:.3g}), "
+          f"{len(asins)} title rows {row_agree[0]:.6f} / {row_agree[1]:.3g} (card f32 rows "
+          f"vs CPU bf16 {row_f32[0]:.6f} / {row_f32[1]:.3g}); serving "
+          f"parameters {n_bf16 / 1e6:.1f} M of {n_all / 1e6:.1f} M in bf16")
+
+    # ingest the 8,192 sessions three ways; the fully cached engine is the
+    # main path: K1's counts go to 0 just before its ingest, read after search
+    forms = (("bf16 uncached", bf), ("bf16 title-only", H.make_cached_encode_fn(bf, title)),
+             ("bf16 fully cached", fns["bf16"]))
+    rates = {}
+    for name, fn in forms:
+        eng = port.SessionSearchEngine(cfg, tok, fn, dim=cfg.session_emb_dim,
+                                       capacity=65536, device=dev)
+        eng.embed(data[:8])  # warm-up, counted as set-up
+        torch.cuda.synchronize()
+        mips.launch_count = mips.wgmma_launch_count = 0
+        t0 = time.perf_counter()
+        eng.add_sessions(data)
+        torch.cuda.synchronize()
+        rates[name] = len(data) / (time.perf_counter() - t0)
+        check(eng.index.ntotal == len(data), f"flagship serving: {name} ntotal {eng.index.ntotal}")
+    t0 = time.perf_counter()
+    D, I = eng.search(data[:256], k=100)
+    search_s = time.perf_counter() - t0
+    launches, wgmma = mips.launch_count, mips.wgmma_launch_count
+    check(launches >= 1 and wgmma == launches,
+          f"flagship serving: {launches - wgmma} of {launches} K1 launches were not the "
+          "f32 wgmma variant")
+    check(eng.index.dtype == torch.float32, "flagship serving: the index is not f32")
+    check(D.shape == (256, 100) and np.isfinite(D).all(), "flagship serving: bad result")
+    top1_err = float(np.abs(D[:, 0] - 1.0).max())
+    check(top1_err <= 1e-3, f"flagship serving: top-1 score off 1.0 by {top1_err}")
+    self_hits = float((I[:, 0] == np.arange(256)).mean())
+    qs = topk_mod.l2_normalize(eng.embed(data[:256], out="device").float()).contiguous()
+    corpus = eng.index._buf[: eng.index.ntotal]
+    check(mips.k1_variant(dev.type, qs.dtype, qs.shape[1], (qs.data_ptr(), corpus.data_ptr()))
+          == "wgmma", "flagship serving: the engine's rows do not take the f32 wgmma variant")
+    s, bm = mips.scores_with_bucket_max(qs, corpus)
+    s_ref, bm_ref = mips.scores_with_bucket_max_ref(qs, corpus)
+    bm_err = (bm - bm_ref).abs().max().item()
+    s_err = (s - s_ref).abs().max().item()
+    v_ref, _ = mips.select_topk(s_ref, bm_ref, 100)
+    d_err = float(np.abs(D - v_ref.cpu().numpy()).max())
+    check(bm_err <= 1e-5 and s_err <= 1e-5 and d_err <= 1e-5,
+          f"flagship serving: K1 vs plain bmax {bm_err}, scores {s_err}, search() top-100 "
+          f"{d_err}")
+    print(f"flagship serving ingest of {len(data)} sessions [{card}]: "
+          + ", ".join(f"{name} {r:.0f} sessions/s" for name, r in rates.items())
+          + f"; phase 4's f32 uncached {f32_rate:.0f} sessions/s")
+    print(f"flagship serving search 256 k=100 on the fully cached engine: {search_s * 1e3:.1f} "
+          f"ms; top-1 |score-1| max {top1_err:.3g}, self-hit ids {self_hits:.4f}; K1 launches "
+          f"{launches} from ingest to search, all f32 wgmma; kernel vs plain on the engine's "
+          f"inputs: bmax max_abs_err {bm_err:.3g}, scores {s_err:.3g}, search() top-100 "
+          f"{d_err:.3g}")
+    print(f"flagship serving stats: {json.dumps(eng.stats())}")
+    del eng
+
+    # where one 256-session batch of the fully cached forward goes: stage
+    # times on the host clock with a synchronize after each stage, then the
+    # same batch under torch.profiler (device time per stage and kernel)
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    fn = fns["bf16"]
+    staged, g256, _ = staged_forward(torch, bf, fn, data[:256], tok, cfg, dev, True)
+    with torch.inference_mode():
+        whole = fn(g256)  # the keyword ids read back from the graph on the card
+    check((staged - whole).abs().max().item() <= 1e-5 * whole.abs().max().item(),
+          "flagship serving: the staged forward is not the cached forward")
+    calls = 3
+    stage_ms = {}
+    for _ in range(calls):
+        _, _, times = staged_forward(torch, bf, fn, data[:256], tok, cfg, dev, True)
+        for k, v in times.items():
+            stage_ms[k] = stage_ms.get(k, 0.0) + v / calls
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            staged_forward(torch, bf, fn, data[:256], tok, cfg, dev, False)
+        torch.cuda.synchronize()
+    rows = device_rows(torch, prof, calls)
+    spans = {name: ms for name, ms, _ in rows if name in stage_ms}
+    kernels = [r for r in rows if r[0] not in stage_ms]
+    busy = sum(t for _, t, _ in kernels)
+    total = sum(stage_ms.values())
+    print(f"flagship serving profile, one 256-session batch of the bf16 fully cached forward "
+          f"[{card}]: {total:.2f} ms on the host clock ({256 / total * 1e3:.0f} sessions/s "
+          f"alone), device busy {busy:.3f} ms")
+    for name, ms in stage_ms.items():
+        dev_ms = spans.get(name)
+        print(f"  {name:15s} {ms:8.3f} ms host clock (synchronized), device span "
+              + ("none (no device work)" if dev_ms is None else f"{dev_ms:.3f} ms"))
+    for key, ms, count in kernels[:8]:
+        print(f"  {ms:9.3f} ms  x{count:<3d} {key[:90]}")
+
+    # the recency pooling on the card: the flagship's text backbone and asin
+    # table (so the same tables), its own pooling, 1,024 sessions ingested
+    rcfg = cfg.replace(product_pooling="recency")
+    renc = port.build_graph_encoder(rcfg, dev, torch.Generator(device=dev).manual_seed(1))
+    shared = {k: v for k, v in enc.state_dict().items() if not k.startswith("product_pooling.")}
+    missing, unexpected = renc.load_state_dict(shared, strict=False)
+    check(not unexpected and missing and all(k.startswith("product_pooling.") for k in missing),
+          f"flagship serving: recency encoder state {missing} {unexpected}")
+    rbf = serving_params(renc)
+    del renc
+    rfn = H.make_cached_encode_fn(rbf, title, qtab, lookup)
+    reng = port.SessionSearchEngine(rcfg, tok, rfn, dim=rcfg.session_emb_dim, capacity=4096,
+                                    device=dev)
+    r_data = data[:1024]
+    t0 = time.perf_counter()
+    reng.add_sessions(r_data)
+    torch.cuda.synchronize()
+    r_rate = len(r_data) / (time.perf_counter() - t0)
+    rD, rI = reng.search(data[:64], k=10)
+    r_top1 = float(np.abs(rD[:, 0] - 1.0).max())
+    check(np.isfinite(rD).all() and r_top1 <= 1e-3,
+          f"flagship serving: recency engine top-1 off 1.0 by {r_top1}")
+    with torch.inference_mode():
+        r_agree = check_bf16(torch, rfn(g, query_kw=kw), rbf(g),
+                             "flagship serving: recency cached vs uncached")
+    lam = torch.nn.functional.softplus(rbf.product_pooling.raw_lambda.float()).item()
+    oov = sum(f.oov_batches for f in (*fns.values(), forms[1][1], rfn))
+    check(oov == 0, f"flagship serving: {oov} batches took the out-of-vocabulary path")
+    print(f"flagship serving recency pooling (lambda {lam:.4f}): ingest {len(r_data)} sessions "
+          f"{r_rate:.0f} sessions/s, search 64 k=10 top-1 |score-1| max {r_top1:.3g}, self-hit "
+          f"ids {float((rI[:, 0] == np.arange(64)).mean()):.4f}; cached vs uncached on the "
+          f"256 sessions {r_agree[0]:.6f} / {r_agree[1]:.3g}")
+    print(f"flagship serving: out-of-vocabulary fallbacks {oov}")
+    del reng, rbf, tables, fns, out
+    torch.cuda.empty_cache()
+    return launches, bm_err
 
 
 def phase_f32_kernel(torch, mips, dev):
@@ -1688,7 +2038,6 @@ def profile(torch, fn, calls=3):
     by kernel). The busy time sums the device time of every kernel on the
     card's one stream; the operators that launched them are left out, so
     nothing counts twice."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1700,16 +2049,7 @@ def profile(torch, fn, calls=3):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / calls
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = getattr(e, "self_cuda_time_total", 0)
-        if t > 0:
-            rows.append((e.key, t / 1e3 / calls, e.count // calls))
-    rows.sort(key=lambda r: -r[1])
+    rows = device_rows(torch, prof, calls)
     return wall, sum(t for _, t, _ in rows), rows[:10]
 
 
@@ -2114,7 +2454,7 @@ def main() -> int:
     err_f32_index, f32_search_ms = run_phase(torch, "f32 index", phase_f32_index, torch,
                                              mips, topk_mod, dev)
     err_index = run_phase(torch, "index", phase_index, torch, mips, topk_mod, dev)
-    launches, err_engine, f32_small, tile_small, parts = run_phase(
+    launches, err_engine, f32_small, tile_small, parts, f32_rate = run_phase(
         torch, "engine", phase_engine, torch, mips, topk_mod, dev)
     card_line = card[0] if card else "unknown card"
     maint_launches = run_phase(torch, "dense maintenance", phase_dense_maintenance, torch, mips,
@@ -2123,6 +2463,9 @@ def main() -> int:
                                dev, parts, card_line)
     wgmma_launches, err_bf16_engine = run_phase(torch, "bf16 engine", phase_bf16_engine,
                                                 torch, mips, topk_mod, dev, parts)
+    serving_launches, err_serving = run_phase(torch, "flagship serving", phase_flagship_serving,
+                                              torch, mips, topk_mod, dev, parts, card_line,
+                                              f32_rate)
     err_f32, f32_bench, tile_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch,
                                                mips, dev)
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
@@ -2160,15 +2503,16 @@ def main() -> int:
     # accuracy gate beside), `tile_f32` the tile loop on f32 at both shapes
     k1_entry = entry("scores_bmax", "144", launches,
                      max(err_ragged, err_bench, err_f32_index, err_index, err_engine,
-                         err_bf16_engine, err_f32), k1, "scores_bmax_sm90.cu")
+                         err_bf16_engine, err_f32, err_serving), k1, "scores_bmax_sm90.cu")
     f32_entry = entry("scores_bmax_f32", "144", launches,
-                      max(err_f32_index, err_engine, err_f32), f32_bench,
+                      max(err_f32_index, err_engine, err_f32, err_serving), f32_bench,
                       "scores_bmax_f32_sm90.cu")
     f32_entry.update(gate=f32_bench["gate"], q256_n8192_d1600=f32_small,
                      index_search_ms=f32_search_ms)
     k1_entry.update(wgmma_launches=wgmma_launches, tile_source=f"{src}scores_bmax.cu",
                     dense_maintenance_launches=maint_launches,
                     engine_verbs_launches=verbs_launches,
+                    flagship_serving_launches=serving_launches,
                     f32_wgmma=f32_entry,
                     tile_f32={"q1024_n1048576_d1600": tile_bench,
                               "q256_n8192_d1600": tile_small},

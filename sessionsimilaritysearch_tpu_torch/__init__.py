@@ -3,8 +3,9 @@
 The JAX package stays the reference; every module here is tested against
 its counterpart there. This package imports ``torch`` and nothing of JAX or
 of the JAX package: the jax-free modules it needs (``config``,
-``tokenizer``, ``data``, ``native``, ``evalharness.metrics``) are copies of
-the JAX package's, with their imports pointed at this package.
+``tokenizer``, ``data``, ``native``, ``evalharness.metrics``,
+``evalharness.knn``, ``index.sparse``, ``utils.logging``) are copies of the
+JAX package's, with their imports pointed at this package.
 
 Covered so far: the serving path. Sessions -> padded graphs -> the
 flagship ``GraphLevelEncoder`` -> ``DenseIndex`` -> exact top-k through the
@@ -22,12 +23,19 @@ packed 1 bit per bit, an exact Hamming top-pool through
 ``BinaryIndex`` and ``ops.hamming.hamming_topk``
 (``csrc/hamming_bucket_min.cu``); and ``ops.mips.bucketed_topk``
 (``csrc/bucket_max.cu``) and ``ops.mips.scores_matmul``
-(``csrc/scores_matmul.cu``).
+(``csrc/scores_matmul.cu``). The flagship serving forward: bf16 serving
+parameters (``utils.precision.serving_params``), catalog title and keyword
+tables and the cached forward that gathers from them
+(``evalharness.harness.build_title_table``, ``build_keyword_table``,
+``make_cached_encode_fn``), the recency SR-GNN pooling, and the evaluation
+harness's runners (``evaluate_encoder``, ``evaluate_binary``, the kNN,
+sparse and hybrid runners, saved results).
 
 Layer map:
 
-- ``config``, ``tokenizer``, ``data``, ``native``, ``evalharness.metrics``
-  -- copies of the JAX package's jax-free modules
+- ``config``, ``tokenizer``, ``data``, ``native``, ``evalharness.metrics``,
+  ``evalharness.knn``, ``index.sparse``, ``utils.logging`` -- copies of the
+  JAX package's jax-free modules
 - ``device``      -- device resolution; TF32 off
 - ``weights``     -- Flax params tree -> port ``state_dict``; SimHash projection
 - ``native_build`` -- builds the native graph builder from ``native/``
@@ -36,7 +44,9 @@ Layer map:
   ``packed``, ``popcount``), Hamming search (``hamming``), projections,
   top-k helpers
 - ``index``       -- ``DenseIndex``, ``BinaryIndex``, ``TwoStageIndex``
-- ``evalharness`` -- ``EmbeddingPipeline``, metrics
+- ``utils``       -- precision policies (``serving_params``), profiling
+- ``evalharness`` -- ``EmbeddingPipeline``, catalog tables and the cached
+  encode fn, the evaluation runners, metrics
 - ``engine``      -- ``SessionSearchEngine``
 """
 

@@ -199,8 +199,11 @@ class SessionSearchEngine:
       cfg: config (graph dims, ignore_query, retrieval defaults).
       tokenizer: host tokenizer.
       encode_fn: ``SessionGraph`` of tensors -> [B, d] embeddings, e.g. the
-        port's ``GraphLevelEncoder``; it is called under
-        ``torch.inference_mode``.
+        port's ``GraphLevelEncoder``, or the flagship serving forward
+        ``evalharness.harness.make_cached_encode_fn(serving_params(enc),
+        title_table, query_table, kw_lookup)``; it is called under
+        ``torch.inference_mode`` (see ``EmbeddingPipeline`` for its
+        ``prepare`` hook).
       dim: embedding dimension.
       capacity: max corpus size.
       device: where the encoder runs and the corpus lives ('cpu' or a CUDA

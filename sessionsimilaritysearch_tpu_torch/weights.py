@@ -19,6 +19,11 @@ same function. What differs between the two naming schemes:
 - Transformer layers ``layer_{i}`` live in ``layers.{i}``; GNN convs
   ``l{i}_{qp,pq,pp}`` in ``gnn.convs``.
 - ``att_src`` / ``att_dst`` are ``[out, 1]`` on both sides.
+
+Other leaves keep their name and shape: the recency pooling's 0-d
+``raw_lambda`` becomes the 0-d ``product_pooling.raw_lambda`` and its
+``lin_rec`` a Linear like the others. An encoder built with
+``use_id_embedding=False`` has no ``product_node_embedder`` on either side.
 """
 
 from __future__ import annotations
@@ -68,7 +73,8 @@ def flax_to_state_dict(params) -> Dict[str, torch.Tensor]:
     """Convert a Flax ``GraphLevelEncoder`` params tree (numpy leaves) into a
     float32 ``state_dict`` for ``models.encoder.GraphLevelEncoder``. Load it
     with ``load_state_dict(..., strict=True)`` so a missing or extra name
-    fails loudly."""
+    fails loudly. Carry the float32 training parameters across and apply
+    ``utils.precision.serving_params`` on the port's side."""
     tree = params["params"] if "params" in params else params
     out = {}
     for path, arr in _leaves(tree):

@@ -4,8 +4,9 @@ for f32, K2 scores_bmax_int8 and its Hopper variant scores_bmax_int8_sm90,
 K3 bucket_max, K4 packed_scores_bmax, K5 hamming_bucket_min, K6
 scores_matmul and its Hopper variants) against their
 plain PyTorch versions, and the indexes and engine on the card against the
-CPU: among them DenseIndex's l2 search through K1's penalty, remove_ids
-and a snapshot round trip.
+CPU: among them DenseIndex's l2 search through K1's penalty, remove_ids,
+a snapshot round trip, and the flagship serving path (bf16 serving
+parameters, catalog tables, the cached forward in a default engine).
 
 Every test here carries the ``cuda`` marker and skips where
 ``torch.cuda.is_available()`` is False. The file imports no JAX, so on a
@@ -568,3 +569,37 @@ def test_bucketed_topk_matches_exact_topk(dev):
     # the two differ only in the order of f32 sums over unit rows
     torch.testing.assert_close(v, v_ex, atol=1e-5, rtol=1e-5)
     assert (i < 19000).all() and torch.equal(i[:, 0], torch.arange(8, device=dev))
+
+
+@pytest.mark.parametrize("pooling", ["srgnn", "recency"])
+def test_flagship_serving_on_the_card_matches_the_cpu(dev, pooling):
+    # bf16 serving parameters, catalog tables and the cached forward in a
+    # default engine on the card; the same weights on the CPU
+    from sessionsimilaritysearch_tpu_torch.evalharness import harness as H
+    from sessionsimilaritysearch_tpu_torch.utils.precision import serving_params
+
+    cfg = port.tiny_test_config().replace(product_pooling=pooling)
+    tok = port.get_tokenizer(cfg.vocab_size)
+    gen = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0)
+    data = [d for d in gen.dataset(120) if any(a[1] != "s" for a in d[0])]
+    kws = [a[2] or "" for s, _ in data for a in s if a[1] == "s"]
+    enc = port.build_graph_encoder(cfg, "cpu", torch.Generator().manual_seed(0))
+    out, fns = {}, []
+    for where in (torch.device("cpu"), dev):
+        served = serving_params(enc).to(where)
+        fn = H.make_cached_encode_fn(served, H.build_title_table(cfg, tok, gen.titles, served),
+                                     *H.build_keyword_table(cfg, tok, kws, served))
+        eng = port.SessionSearchEngine(cfg, tok, fn, dim=cfg.session_emb_dim, capacity=256,
+                                       batch_size=32, device=where)
+        before = mips.launch_count
+        eng.add_sessions(data)
+        D, I = eng.search(data[:16], k=5)
+        if where.type == "cuda":
+            assert mips.launch_count > before
+        assert (I[:, 0] == np.arange(16)).all() and np.abs(D[:, 0] - 1.0).max() <= 1e-3
+        out[where.type] = eng.reconstruct(range(len(data)))
+        fns.append(fn)
+    assert all(f.oov_batches == 0 for f in fns)
+    got, want = out["cuda"].astype(np.float64), out["cpu"].astype(np.float64)
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
+    assert cos.min() >= 0.999 and np.abs(got - want).max() <= 2.0**-6 * np.abs(want).max()

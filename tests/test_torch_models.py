@@ -233,5 +233,11 @@ def test_build_graph_encoder_seeded_init():
     assert not torch.equal(a.gnn.convs.l0_qp.lin_src.weight,
                            c.gnn.convs.l0_qp.lin_src.weight)
     assert not a.training
-    with pytest.raises(NotImplementedError):
-        build_graph_encoder(cfg.replace(product_pooling="recency"), "cpu")
+    # the recency pooling: seeded like the rest, its decay length at 1.04
+    r = build_graph_encoder(cfg.replace(product_pooling="recency"), "cpu",
+                            torch.Generator().manual_seed(3))
+    assert torch.equal(r.gnn.convs.l0_qp.lin_src.weight, a.gnn.convs.l0_qp.lin_src.weight)
+    lam = torch.nn.functional.softplus(r.product_pooling.raw_lambda)
+    assert lam.item() == pytest.approx(1.04, rel=1e-6)
+    with pytest.raises(KeyError):
+        build_graph_encoder(cfg.replace(product_pooling="mean"), "cpu")

@@ -38,7 +38,9 @@ def test_port_never_imports_jax():
     for name in ("engine", "weights", "native_build", "index.binary",
                  "index.twostage", "ops.hamming", "ops.packed", "ops.popcount",
                  "ops.projection", "ops.mips_int8", "config", "tokenizer",
-                 "data.graph", "data.loader", "native", "evalharness.metrics"):
+                 "data.graph", "data.loader", "native", "evalharness.metrics",
+                 "evalharness.harness", "evalharness.knn", "index.sparse", "data.etl",
+                 "data.augment", "utils.logging", "utils.precision"):
         assert f"sessionsimilaritysearch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -77,6 +79,40 @@ def test_serving_on_the_cpu_loads_no_jax_package():
         "    D, I = eng.search(data[:4], k=3)\n"
         "    assert (I[:, 0] == range(4)).all(), I\n"
         "    eng.report(data[:4], I, D)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'sessionsimilaritysearch_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_flagship_serving_on_the_cpu_loads_no_jax_package():
+    # bf16 serving parameters, catalog tables and the cached forward inside
+    # a default engine, and the harness runners, in a fresh interpreter
+    code = (
+        "import sys\n"
+        "import sessionsimilaritysearch_tpu_torch as port\n"
+        "from sessionsimilaritysearch_tpu_torch.evalharness import harness as H\n"
+        "from sessionsimilaritysearch_tpu_torch.utils.precision import serving_params\n"
+        "cfg = port.tiny_test_config()\n"
+        "tok = port.get_tokenizer(cfg.vocab_size)\n"
+        "gen = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0)\n"
+        "data = [d for d in gen.dataset(40) if any(a[1] != 's' for a in d[0])][:16]\n"
+        "enc = serving_params(port.build_graph_encoder(cfg, 'cpu'))\n"
+        "title = H.build_title_table(cfg, tok, gen.titles, enc)\n"
+        "kws = [a[2] or '' for s, _ in data for a in s if a[1] == 's']\n"
+        "fn = H.make_cached_encode_fn(enc, title, *H.build_keyword_table(cfg, tok, kws, enc))\n"
+        "eng = port.SessionSearchEngine(cfg, tok, fn, dim=cfg.session_emb_dim,\n"
+        "                               capacity=32, batch_size=8, device='cpu')\n"
+        "eng.add_sessions(data)\n"
+        "D, I = eng.search(data[:4], k=3)\n"
+        "assert (I[:, 0] == range(4)).all() and fn.oov_batches == 0, I\n"
+        "H.evaluate_encoder(cfg, tok, fn, data[:12], data[12:], k=3, batch_size=8, device='cpu')\n"
+        "H.evaluate_sparse(cfg, [s for s, _ in data[:12]], data[12:], k=3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'sessionsimilaritysearch_tpu'))\n"
         "assert not bad, bad\n"

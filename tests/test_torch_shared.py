@@ -5,7 +5,9 @@ native graph batches; and the jax-free helpers it copies out of modules
 that import JAX (index/dense.py compaction_plan and _range_from_search;
 engine.py _item_set, _overlap_cos, _item_stan_weights, _session_key,
 _GrowArr, _hybrid_rerank and _dedup_topk), which must return what the
-originals return. The port imports none of the originals
+originals return; and the evaluation harness's copies (data/augment.py,
+data/etl.py, evalharness/knn.py, index/sparse.py, utils/logging.py),
+function by function. The port imports none of the originals
 (tests/test_torch_package.py); these tests keep the copies equal."""
 
 import dataclasses
@@ -216,3 +218,120 @@ def test_dedup_topk():
     gid = np.stack([rng.choice(64, size=24, replace=False) for _ in range(8)]).astype(np.int64)
     for a, b in zip(t._dedup_topk(D2, gid, 6), j._dedup_topk(D2, gid, 6)):
         np.testing.assert_array_equal(a, b)
+
+
+# --- the jax-free modules the evaluation harness copies (data/augment.py,
+# data/etl.py, evalharness/knn.py, index/sparse.py, utils/logging.py)
+
+import json  # noqa: E402
+
+from sessionsimilaritysearch_tpu.data import augment as j_augment  # noqa: E402
+from sessionsimilaritysearch_tpu.data import etl as j_etl  # noqa: E402
+from sessionsimilaritysearch_tpu.evalharness import knn as j_knn  # noqa: E402
+from sessionsimilaritysearch_tpu.index import sparse as j_sparse  # noqa: E402
+from sessionsimilaritysearch_tpu.utils import logging as j_logging  # noqa: E402
+from sessionsimilaritysearch_tpu_torch.data import augment as t_augment  # noqa: E402
+from sessionsimilaritysearch_tpu_torch.data import etl as t_etl  # noqa: E402
+from sessionsimilaritysearch_tpu_torch.evalharness import knn as t_knn  # noqa: E402
+from sessionsimilaritysearch_tpu_torch.index import sparse as t_sparse  # noqa: E402
+from sessionsimilaritysearch_tpu_torch.utils import logging as t_logging  # noqa: E402
+
+
+@pytest.mark.parametrize("fn", ["random_exchange_order", "random_drop_action",
+                                "random_mask_product", "random_perturb_product"])
+def test_augment(fn):
+    extra = (500,) if fn == "random_perturb_product" else ()
+    for seed, datum in enumerate(_sessions(t_data, 30, seed=12)):
+        got = getattr(t_augment, fn)(datum, np.random.default_rng(seed), *extra)
+        want = getattr(j_augment, fn)(datum, np.random.default_rng(seed), *extra)
+        assert got == want
+
+
+def test_etl_csv_round_trip(tmp_path):
+    sessions = [s for s, _ in _sessions(t_data, 25, seed=13)]
+    for mod in ("t", "j"):
+        etl = t_etl if mod == "t" else j_etl
+        etl.decompose_sessions(sessions, str(tmp_path / f"{mod}_a.csv"),
+                               str(tmp_path / f"{mod}_c.csv"), id_offset=3)
+    for name in ("a", "c"):
+        assert (tmp_path / f"t_{name}.csv").read_bytes() == (tmp_path / f"j_{name}.csv").read_bytes()
+    got = t_etl.load_sessions_from_csv(str(tmp_path / "t_a.csv"), str(tmp_path / "t_c.csv"))
+    want = j_etl.load_sessions_from_csv(str(tmp_path / "t_a.csv"), str(tmp_path / "t_c.csv"))
+    assert got == want and len(got[0]) == len(sessions)
+
+
+def test_etl_pickles_item_sequences_and_splits(tmp_path):
+    seqs = [[3, 7, 7, 1], [2], [9, 4]]
+    got, want = t_etl.sessions_from_item_sequences(seqs), j_etl.sessions_from_item_sequences(seqs)
+    assert got == want
+    t_etl.save_sessions(got, str(tmp_path / "s.pkl"))
+    assert j_etl.load_sessions(str(tmp_path / "s.pkl")) == t_etl.load_sessions(
+        str(tmp_path / "s.pkl")) == want
+    sessions = [s for s, _ in _sessions(t_data, 20, seed=14)] + [[]]
+    for min_prefix in (1, 2):  # min_prefix 2 needs sessions of 3 or more
+        sessions = [s for s in sessions if min_prefix == 1 or len(s) != 2]
+        assert (t_etl.split_prefix_future(sessions, np.random.default_rng(1), min_prefix)
+                == j_etl.split_prefix_future(sessions, np.random.default_rng(1), min_prefix))
+
+
+def _knn_case(seed):
+    data = _sessions(t_data, 70, seed=seed)
+    corpus, test = [s for s, _ in data[:50]], data[50:]
+    rng = np.random.default_rng(seed)
+    I = rng.integers(-1, 50, (len(test), 12))
+    D = np.sort(rng.random((len(test), 12)), axis=1)[:, ::-1].copy()
+    return corpus, test, D, I
+
+
+@pytest.mark.parametrize("seed", [15, 16])
+def test_knn(seed):
+    corpus, test, D, I = _knn_case(seed)
+    for i in range(len(test)):
+        got = t_knn.get_prediction_by_knn(D[i], I[i], corpus, 5)
+        assert got == j_knn.get_prediction_by_knn(D[i], I[i], corpus, 5)
+        gt = t_data.schema.get_item(test[i][1])
+        assert t_knn.get_p_r(gt, got, 5) == j_knn.get_p_r(gt, got, 5)
+    for K, sample in ((5, 12), (3, 4)):
+        assert (t_knn.knn_recommendation_recall(D, I, test, corpus, K, sample)
+                == j_knn.knn_recommendation_recall(D, I, test, corpus, K, sample))
+
+
+@pytest.mark.parametrize("kind", ["binary", "stan"])
+def test_sparse(kind):
+    data = _sessions(t_data, 60, seed=17)
+    corpus, test = [s for s, _ in data[:45]], data[45:]
+    for s in corpus[:10] + [[]]:
+        np.testing.assert_array_equal(t_sparse.sequence_to_stan_vec(s, 500, 0.8),
+                                      j_sparse.sequence_to_stan_vec(s, 500, 0.8))
+        np.testing.assert_array_equal(t_sparse.sequence_to_binary_vec(s, 500),
+                                      j_sparse.sequence_to_binary_vec(s, 500))
+    tc = t_sparse.build_sparse_corpus(corpus, 500, kind=kind, lammy=0.9)
+    jc = j_sparse.build_sparse_corpus(corpus, 500, kind=kind, lammy=0.9)
+    assert (tc != jc).nnz == 0
+    q = np.stack([t_sparse.sequence_to_binary_vec(t[0], 500) for t in test])
+    for K in (7, 60):  # 60 > corpus: the (-inf, -1) fill
+        for a, b in zip(t_sparse.find_K_sparse_dense(tc, q, K), j_sparse.find_K_sparse_dense(jc, q, K)):
+            np.testing.assert_array_equal(a, b)
+    _, I = t_sparse.find_K_sparse_dense(tc, q, 60)
+    assert (t_sparse.get_STAN_score(I, test, corpus, 500)
+            == j_sparse.get_STAN_score(I, test, corpus, 500))
+
+
+def test_logging(tmp_path):
+    cfg = t_config.tiny_test_config()
+    for mod, logmod in (("t", t_logging), ("j", j_logging)):
+        run = logmod.RunDir(str(tmp_path / mod), config=cfg, name="exp")
+        log = logmod.MetricLogger(run.file("metrics.jsonl"), echo=run.logger)
+        log.log(1, loss=np.float32(0.5), tag="warm")
+        log.log(2, recall=0.25)
+        log.close()
+    t_rows = t_logging.read_metrics(str(tmp_path / "t" / "metrics.jsonl"))
+    j_rows = j_logging.read_metrics(str(tmp_path / "j" / "metrics.jsonl"))
+    assert t_rows == j_logging.read_metrics(str(tmp_path / "t" / "metrics.jsonl"))
+    for a, b in zip(t_rows, j_rows):  # the same rows but for the clock
+        assert {k: v for k, v in a.items() if k != "t"} == {k: v for k, v in b.items() if k != "t"}
+    assert len(t_rows) == 2 and t_rows[0]["tag"] == "warm"
+    for name in ("config.json", "exp.log"):
+        assert (tmp_path / "t" / name).exists() and (tmp_path / "j" / name).exists()
+    assert (json.loads((tmp_path / "t" / "config.json").read_text())
+            == json.loads((tmp_path / "j" / "config.json").read_text()))
