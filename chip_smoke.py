@@ -116,17 +116,46 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                product over the same codes; K1's tile variant alone at sign
                mode's shape (bf16 scores) equal to its plain version, beside
                a cuBLAS bf16 GEMM;
-8. two-stage index -- TwoStageIndex(1600-d, 2^20 rows, 'itq' 250-bit codes
-               fitted on a 32,768-row sample, packed stage 1, pool 128, bf16
-               rows), 1024 queries planted at cosine ~0.9 to stored rows:
-               stage-1 distances equal the plain version's, the top-100
-               equals the exact re-rank of the pool within 1e-5, every
-               planted row is the top-1; stage-1, re-rank and total times;
+7b. binary maintenance -- BinaryIndex(256 bits, 2^20 rows), packed (K4)
+               and sign (K1's wgmma variant), 1024 queries at k=100:
+               remove_ids of 1% of the rows (scattered), a refill of as many,
+               range_search of 64 queries at query 0's 100th distance, save /
+               load (32 MB of packed words; 256 MB of int8 sign rows), and
+               merge_from of two 2^19 halves across modes, each timed; after
+               each verb the buffer equals that of a fresh index built from
+               the surviving codes word for word (the freed packed slots
+               zero), the search's sorted distances equal the fresh one's,
+               and range_search's hits equal the plain distances' below the
+               radius;
+8. two-stage index -- every tier of TwoStageIndex at 2^20 x 1600 bf16 rows,
+               one index at a time, 1024 queries planted at cosine ~0.9 to
+               stored rows, k=100, pools 128 and 512: 'binary' + 'matmul' at
+               256 bits (K1 wgmma), 'itq' + 'matmul' at 250 bits (K1 tile;
+               ITQ and PCA fitted on a 32,768-row sample), 'int8x8' (K2
+               wgmma, bf16 scores), 'pca' at 64 (K1 wgmma) and 'itq' +
+               'packed' (K4). Per tier and pool: the pool's stage-1 scores
+               hold value recall 1.0 at two bf16 ulps against the top-pool of
+               the plain stage 1 on the same codes, the top-100 equals the
+               exact (f64) re-rank of the pool within 1e-5, every planted row
+               is the top-1; stage-1, re-rank (CUDA events) and total (host
+               clock, best of 3) times and QPS; the stage-1 kernel alone
+               beside its bound; the launches of one search,
+               per kernel and variant; value-recall@100 against the f64 dense
+               oracle printed, not gated;
 9. two-stage engine -- SessionSearchEngine at Config() width with
                prefilter='itq', stage1='packed', pool=512 (projector fitted
                on phase 4's 8,192 embeddings): ingest, search 256 sessions,
                top-1 within two bf16 ulps of 1.0, K4 launched, K4 against its
                plain version on the engine's own codes;
+9b. two-stage engine verbs -- phase 4's encoder and 8,192 sessions (8
+               stamped batches) in 'itq' engines with stage1 'matmul' (K1's
+               tile variant at 250 bits) and 'packed' (K4), pool 512:
+               remove_sessions by 512 ids and by the content of 64 sessions,
+               expire of the first batch, save_async then restore into a
+               fresh engine, each timed; each search of 256 sessions at
+               k=100 after a verb holds value recall >= 0.999 (two bf16 ulps)
+               against a fresh engine that ingested the surviving sessions,
+               and the restored engine returns the capture's top-k exactly;
 10. int8 kernel -- K2 against its plain version: ragged cases (q=37,
                n=5003, valid_count 4037, 10% masked; f32 and bf16 scores) on
                the tile variant csrc/scores_bmax_int8.cu at d=200 and the
@@ -175,6 +204,10 @@ variant's (launches on phase 4's engine, times at the bench point and the
 engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile variant's at phase 7's sign-mode shape;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
+and for K1, K2 and K4 also the searches of phases 7b, 8 and 9b, counted
+with the counters set to 0 just before each (``launches`` sums them, and
+``launches_by_path`` holds each path's count, per variant; K4's entry
+holds phase 8's times per tier under ``twostage_tiers``);
 its ``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
 with f32 scores, ``tile`` the tile variant's; K3: phase 13's
 bucketed_topk; K6: phase 14's scores_matmul, likewise with
@@ -220,6 +253,8 @@ PEAK_TF32 = 495e12  # the card's fastest rate for f32 operands
 TF32_PASSES = 3  # the f32 wgmma variants' design: three tf32 passes
 PEAK_F32 = 67e12  # outside the tensor cores: the tile loop's exact f32 FMAs
 SMS = 132
+# the binary maintenance phase: rows and queries
+BIN_ROWS, BIN_Q = 1 << 20, 1024
 
 
 def check(cond: bool, what: str) -> None:
@@ -1802,69 +1837,422 @@ def phase_binary_index(torch, dev):
     return out
 
 
-def phase_twostage_index(torch, dev):
-    from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
-    from sessionsimilaritysearch_tpu_torch.ops import mips, packed
-    from sessionsimilaritysearch_tpu_torch.ops.projection import fit_itq
-    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize, rerank_topk
+# the two-stage tiers at full width (phase 8): rows, width, queries, depth,
+# pools, the ITQ / PCA fit sample, and (prefilter, stage1, code width) of
+# each tier
+TIER_ROWS, TIER_DIM, TIER_Q, TIER_K = 1 << 20, 1600, 1024, 100
+TIER_POOLS = (128, 512)
+TIER_FIT_ROWS = 1 << 15
+TIERS = (("binary", "matmul", 256), ("itq", "matmul", 250), ("int8x8", "matmul", 0),
+         ("pca", "matmul", 64), ("itq", "packed", 250))
 
-    n, d, q_n, k, pool, n_bits = 1 << 20, 1600, 1024, 100, 128, 250
-    g = torch.Generator(device=dev).manual_seed(5)
-    rows = torch.empty(n, d, dtype=torch.bfloat16, device=dev)
-    for s in range(0, n, 1 << 16):
-        r = torch.randn(1 << 16, d, generator=g, device=dev)
-        rows[s: s + (1 << 16)] = (r / r.norm(dim=1, keepdim=True)).bfloat16()
-    t0 = time.perf_counter()
-    proj = fit_itq(rows[: 1 << 15].float().cpu().numpy(), n_bits)
-    fit_s = time.perf_counter() - t0
-    idx = TwoStageIndex(d, n, device=dev, prefilter="itq", projector=proj,
-                        stage1="packed", pool=pool)
-    t0 = time.perf_counter()
-    for s in range(0, n, 1 << 16):
-        idx.add(rows[s: s + (1 << 16)])
+
+def reset_counts():
+    """Set every kernel counter of the two-stage and binary paths to 0."""
+    from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+
+    mips.launch_count = mips.wgmma_launch_count = 0
+    mips_int8.launch_count = mips_int8.wgmma_launch_count = 0
+    packed.launch_count = 0
+
+
+def read_counts() -> dict:
+    """The counters as one dict: K1 (and its wgmma variant), K2 (and its
+    wgmma variant), K4."""
+    from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+
+    return {"k1": mips.launch_count, "k1_wgmma": mips.wgmma_launch_count,
+            "k2": mips_int8.launch_count, "k2_wgmma": mips_int8.wgmma_launch_count,
+            "k4": packed.launch_count}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    return {key: total.get(key, 0) + more[key] for key in more}
+
+
+def counted(torch, fn):
+    """``fn()`` with the counters set to 0 just before and read just after."""
     torch.cuda.synchronize()
-    fill_s = time.perf_counter() - t0
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def stage1_plain(torch, idx, qn):
+    """The stage-1 scores [q, size] f32 of ``idx`` through the kernels'
+    plain versions, on the index's own codes: what its stage 1 ranks (the
+    int8x8 scores times the query scale)."""
+    from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+
+    size, bf = idx.size, torch.bfloat16
+    if idx.stage1 == "packed":
+        ci = idx._codes_index
+        q = torch.nn.functional.pad(idx._encode(qn)[0], (0, ci.bits_pad - ci.n_bits))
+        s, _ = packed.packed_scores_with_bucket_max_ref(q, ci._buf[: ci._t_used_rows()],
+                                                        size, None, bf)
+        return s[:, :size].float()
+    if idx.prefilter in ("binary", "itq"):
+        sd = bf if idx.n_bits <= 256 else torch.float32
+        s, _ = mips.scores_with_bucket_max_ref(idx._encode(qn)[0], idx._codes[:size],
+                                               score_dtype=sd)
+        return s.float()
+    if idx.prefilter == "int8x8":
+        q8, qs = mips_int8.quantize_rows_int8(qn)
+        s, _ = mips_int8.scores_with_bucket_max_int8_ref(q8, idx._codes[:size],
+                                                         idx._scales[:size], score_dtype=bf)
+        return s.float() * qs[:, None]
+    s, _ = mips.scores_with_bucket_max_ref(idx._project(qn), idx._codes[:size], score_dtype=bf)
+    return s.float()
+
+
+def stage1_kernel(torch, idx, qn):
+    """A call that launches the tier's stage-1 kernel once, on the inputs
+    the index's stage 1 gives it (to time the kernel apart from the
+    selection)."""
+    from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+
+    size, bf = idx.size, torch.bfloat16
+    if idx.stage1 == "packed":
+        ci = idx._codes_index
+        q = torch.nn.functional.pad(idx._encode(qn)[0], (0, ci.bits_pad - ci.n_bits))
+        words = ci._buf[: ci._t_used_rows()]
+        return lambda: packed.packed_scores_with_bucket_max(q, words, size, None, bf)
+    if idx.prefilter == "int8x8":
+        q8, _ = mips_int8.quantize_rows_int8(qn)
+        return lambda: mips_int8.scores_with_bucket_max_int8(
+            q8, idx._codes[:size], idx._scales[:size], score_dtype=bf)
+    q = (idx._encode(qn)[0] if idx.prefilter != "pca" else idx._project(qn)).contiguous()
+    return lambda: mips.scores_with_bucket_max(q, idx._codes[:size], score_dtype=bf)
+
+
+def stage1_bound(prefilter, stage1, width, q_n, n) -> dict:
+    """The bound of a tier's stage-1 kernel call: its code bytes, bf16
+    scores and f32 bucket maxes over the memory rate, or its products over
+    the peak of their type."""
+    out_bytes = q_n * n * 2 + q_n * (n // 128) * 4
+    if stage1 == "packed":
+        bits = -(-width // 128) * 128
+        return bound_ms(q_n * bits * 2 + n * bits // 8 + out_bytes, 2 * q_n * n * bits,
+                        PEAK_BF16)
+    if prefilter == "int8x8":
+        return bound_ms(q_n * width + n * width + n * 4 + out_bytes, 2 * q_n * n * width,
+                        PEAK_INT8)
+    return bound_ms((q_n + n) * width * 2 + out_bytes, 2 * q_n * n * width, PEAK_BF16)
+
+
+def expected_variant(prefilter, stage1, n_bits) -> dict:
+    """The launches one search of a tier makes, per kernel and variant."""
+    if stage1 == "packed":
+        return {"k1": 0, "k1_wgmma": 0, "k2": 0, "k2_wgmma": 0, "k4": 1}
+    if prefilter == "int8x8":
+        return {"k1": 0, "k1_wgmma": 0, "k2": 1, "k2_wgmma": 1, "k4": 0}
+    wgmma = int(n_bits % 8 == 0)  # 250-wide bf16 rows are no TMA stride: the tile loop
+    return {"k1": 1, "k1_wgmma": wgmma, "k2": 0, "k2_wgmma": 0, "k4": 0}
+
+
+def phase_twostage_index(torch, dev, card):
+    """Phase 8: every two-stage tier at full width, one index at a time."""
+    from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
+    from sessionsimilaritysearch_tpu_torch.ops import topk
+    from sessionsimilaritysearch_tpu_torch.ops.projection import fit_itq, fit_pca
+
+    n, d, q_n, k = TIER_ROWS, TIER_DIM, TIER_Q, TIER_K
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows = unit_rows(torch, g, n, d, dev)
     planted = torch.arange(q_n, device=dev) * (n // q_n) + 7
     # cosine ~0.9 to the planted row: unit row plus noise of norm 0.484
     noise = torch.randn(q_n, d, generator=g, device=dev)
     queries = rows[planted].float() + 0.4843 * noise / noise.norm(dim=1, keepdim=True)
-
-    D, I = idx.search_device(queries, k)  # warm-up
-    times = []
-    for _ in range(3):
+    qn = topk.l2_normalize(queries)
+    sample = rows[:TIER_FIT_ROWS].float().cpu().numpy()
+    t0 = time.perf_counter()
+    projectors = {"itq": fit_itq(sample, 250)}
+    fit_s = {"itq": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    projectors["pca"] = fit_pca(sample, 64)
+    fit_s["pca"] = time.perf_counter() - t0
+    # the f64 dense oracle's top-k values: the pool recall printed per tier
+    oracle = oracle_topk(torch, qn.double(), lambda lo, hi: rows[lo:hi].double(), n, k)
+    print(f"two-stage tiers: {n} x {d} bf16 rows, {q_n} queries planted at cosine ~0.9, "
+          f"k={k}, pools {TIER_POOLS}; fits on {TIER_FIT_ROWS} rows: itq 250 bits "
+          f"{fit_s['itq']:.1f} s, pca 64 {fit_s['pca']:.1f} s (host) [{card}]")
+    out, errs = {}, []
+    for prefilter, stage1, n_bits in TIERS:
+        name = f"{prefilter}/{stage1}" + (f"/{n_bits}" if n_bits else "")
+        idx = TwoStageIndex(d, n, device=dev, prefilter=prefilter, stage1=stage1,
+                            projector=projectors.get(prefilter), n_bits=n_bits or 256,
+                            pool=TIER_POOLS[0])
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        D, I = idx.search(queries, k)
-        times.append(time.perf_counter() - t0)
-    qn = l2_normalize(queries)
-    t_s1 = cuda_ms(torch, lambda: idx._stage1(qn, pool), 3)
-    cand = idx._stage1(qn, pool)
-    t_rr = cuda_ms(torch, lambda: rerank_topk(qn, idx._buf, cand, k), 3)
-
-    # gate 1: stage-1 distances against the plain version
-    ci = idx._codes_index
-    q_codes = torch.nn.functional.pad(idx._codes(qn), (0, ci.bits_pad - n_bits))
-    d1, _ = ci.search_device(idx._codes(qn), pool)
-    d1_ref, _ = plain_packed_topk(torch, packed, mips, q_codes, ci._buf, pool, n_bits,
-                                  ci.size)
-    check(sorted_equal(torch, d1, d1_ref), "two-stage index: stage-1 distances differ")
-    # gate 2: the top-k is the exact (f64) re-rank of the pool
-    exact = torch.bmm(idx._buf[cand].double(), qn.double()[..., None])[..., 0]
-    want = torch.topk(exact, k, dim=1).values
-    err = float(np.abs(D - want.cpu().numpy()).max())
-    check(err <= 1e-5, f"two-stage index: top-{k} vs exact re-rank of the pool {err}")
-    # gate 3: every planted row is the top-1
-    hits = float((I[:, 0] == planted.cpu().numpy()).mean())
-    check(hits == 1.0, f"two-stage index: planted rows at top-1 {hits}")
-    best = min(times)
-    print(f"two-stage index 2^20 x {d} bf16, itq {n_bits} bits (fit on 32,768 rows "
-          f"{fit_s:.1f} s, fill {fill_s:.2f} s), pool {pool}: search 1024 queries k={k} "
-          f"{best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); stage 1 {t_s1:.3f} ms, "
-          f"re-rank {t_rr:.3f} ms (CUDA events); stage-1 distances equal the plain "
-          f"version's, top-{k} vs exact re-rank of the pool max_abs_err {err:.3g}, "
-          f"planted top-1 {hits}")
-    del idx, rows
+        for lo in range(0, n, 1 << 16):
+            idx.add(rows[lo: lo + (1 << 16)])
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        # the path: one search, its counters set to 0 just before
+        _, launches = counted(torch, lambda: idx.search_device(queries, k))
+        check(launches == expected_variant(prefilter, stage1, n_bits),
+              f"two-stage {name}: launches {launches}")
+        plain = stage1_plain(torch, idx, qn)
+        kernel_ms = cuda_ms(torch, stage1_kernel(torch, idx, qn), 5)
+        kbound = stage1_bound(prefilter, stage1, n_bits or d, q_n, n)
+        tier = {"fill_s": fill_s, "launches": launches, "stage1_kernel_ms": kernel_ms,
+                "stage1_kernel_bound_ms": kbound["bound_ms"],
+                "stage1_kernel_bound_by": kbound["bound_by"]}
+        for pool in TIER_POOLS:
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                D, I = idx.search(queries, k, pool=pool)  # numpy: includes the sync
+                times.append(time.perf_counter() - t0)
+            cand = idx._stage1(qn, pool)
+            s1_ms = cuda_ms(torch, lambda: idx._stage1(qn, pool), 3)
+            rr_ms = cuda_ms(torch, lambda: topk.rerank_topk(qn, idx._buf, cand, k), 3)
+            # gate 1: the pool's stage-1 scores are the plain top-pool's
+            want = torch.topk(plain, pool, dim=1).values
+            got = torch.gather(plain, 1, cand)
+            scale = plain.abs().amax(dim=1)
+            s1_recall = topk.value_recall_from_scores(
+                got.cpu().numpy(), want.cpu().numpy(), (BF16_TOL * scale).cpu().numpy())
+            check(s1_recall == 1.0, f"two-stage {name} pool {pool}: stage-1 value recall "
+                  f"{s1_recall} against the plain stage 1")
+            # gate 2: the top-k is the exact (f64) re-rank of the pool
+            best = torch.cat([  # 128 queries at a time: the gathered rows in f64
+                torch.topk(torch.bmm(idx._buf[cand[lo: lo + 128]].double(),
+                                     qn[lo: lo + 128].double()[..., None])[..., 0],
+                           k, dim=1).values for lo in range(0, q_n, 128)])
+            err = float(np.abs(D - best.cpu().numpy()).max())
+            check(err <= 1e-5, f"two-stage {name} pool {pool}: top-{k} vs the exact "
+                  f"re-rank of the pool {err}")
+            # gate 3: every planted row is the top-1
+            hits = float((I[:, 0] == planted.cpu().numpy()).mean())
+            check(hits == 1.0, f"two-stage {name} pool {pool}: planted rows at top-1 {hits}")
+            recall = topk.value_recall_from_scores(best.cpu().numpy(), oracle.cpu().numpy(),
+                                                   1e-6)
+            errs.append(err)
+            total = min(times)
+            tier[pool] = {"total_ms": total * 1e3, "qps": q_n / total, "stage1_ms": s1_ms,
+                          "rerank_ms": rr_ms, "pool_recall_at_100": recall}
+            print(f"  {name} pool {pool}: search {total * 1e3:.1f} ms best of 3 "
+                  f"({q_n / total:.0f} QPS); stage 1 {s1_ms:.3f} ms, re-rank {rr_ms:.3f} ms "
+                  f"(CUDA events); stage-1 value recall vs plain {s1_recall}, top-{k} vs "
+                  f"exact re-rank max_abs_err {err:.3g}, planted top-1 {hits}, "
+                  f"value-recall@{k} vs the f64 dense oracle {recall:.4f} (not gated)")
+        print(f"  {name}: fill {fill_s:.2f} s; stage-1 kernel alone {kernel_ms:.3f} ms "
+              f"{smi()} (bound {kbound['bound_ms']:.3f} ms, {kbound['bound_by']}); launches "
+              f"on one search {launches} [{card}]")
+        out[name] = tier
+        del idx, plain
+        torch.cuda.empty_cache()
+    del rows
     torch.cuda.empty_cache()
-    return err
+    return max(errs), out
+
+
+def phase_binary_maintenance(torch, dev, card):
+    """BinaryIndex's verbs at 2^20 x 256 bits, packed (K4) and sign (K1's
+    wgmma variant); after each verb the index is held against a fresh one
+    built from the surviving codes."""
+    from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
+    from sessionsimilaritysearch_tpu_torch.index.dense import compaction_plan
+
+    n, bits, q_n, k = BIN_ROWS, 256, BIN_Q, 100
+    g = torch.Generator(device=dev).manual_seed(6)
+    codes = random_signs(torch, g, n, bits, dev)
+    extra = random_signs(torch, g, n // 100, bits, dev)
+    queries = random_signs(torch, g, q_n, bits, dev)
+    path = {}
+
+    def build(mode, rows):
+        idx = BinaryIndex(bits, n, mode, device=dev)
+        for lo in range(0, rows.shape[0], 1 << 16):
+            idx.add(rows[lo: lo + (1 << 16)])
+        return idx
+
+    def held(idx, ref, what):
+        """The live index against a fresh one built from ``ref`` (the codes
+        the live one should hold, slot by slot): equal buffers, and equal
+        sorted distances of a search through the kernels."""
+        nonlocal path
+        (d, i), launches = counted(torch, lambda: idx.search_device(queries, k))
+        path = add_counts(path, launches)
+        check(launches["k4" if idx.mode == "packed" else "k1_wgmma"] == 1,
+              f"binary {idx.mode} {what}: launches {launches}")
+        fresh = build(idx.mode, ref)
+        rows = idx._t_used_rows() if idx.mode == "packed" else idx.size
+        same = (idx.size == fresh.size and torch.equal(idx._buf[:rows], fresh._buf[:rows])
+                and (idx.mode == "sign" or not idx._buf[rows:].any()))
+        check(same, f"binary {idx.mode} {what}: the buffer is not the fresh index's")
+        d_f, _ = fresh.search_device(queries, k)
+        check(sorted_equal(torch, d, d_f), f"binary {idx.mode} {what}: distances differ")
+        true = ((bits - (queries[:, None, :] * ref[i[:, :5]]).sum(-1)) * 0.5).to(torch.int32)
+        check(torch.equal(true, d[:, :5]), f"binary {idx.mode} {what}: ids do not have "
+              "their distances")
+        del fresh
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    print(f"binary maintenance: BinaryIndex {n} x {bits} bits, {q_n} queries k={k} [{card}]")
+    for mode in ("packed", "sign"):
+        idx = build(mode, codes)
+        ref = codes.clone()
+        rm = np.random.default_rng(7).choice(n, n // 100, replace=False)
+        src, dst, new_size = compaction_plan(n, rm)
+        removed, rm_ms = timed(lambda: idx.remove_ids(rm))
+        check(removed == len(rm) and idx.size == new_size, f"binary {mode}: remove_ids")
+        ref[torch.from_numpy(dst.astype(np.int64)).to(dev)] = ref[
+            torch.from_numpy(src.astype(np.int64)).to(dev)]
+        ref = ref[:new_size]
+        held(idx, ref, "after remove_ids")
+        _, add_ms = timed(lambda: idx.add(extra))
+        ref = torch.cat([ref, extra])
+        held(idx, ref, "after the refill")
+        # range search at query 0's 100th distance: ~100 hits a query
+        d0, _ = idx.search_device(queries[:64], 100)
+        radius = int(d0[0, 99])
+        ((lims, D, I), launches), rs_ms = timed(lambda: counted(
+            torch, lambda: idx.range_search(queries[:64], radius)))
+        path = add_counts(path, launches)
+        dist = ((bits - queries[:64] @ ref.T) * 0.5).round().to(torch.int32)
+        hits = (dist <= radius).sum(dim=1).cpu().numpy()
+        check(np.array_equal(np.diff(lims), hits), f"binary {mode} range_search: hit counts "
+              "differ from the plain distances'")
+        rows_of = np.repeat(np.arange(64), np.diff(lims))
+        check(np.array_equal(D, dist[rows_of, I].cpu().numpy()),
+              f"binary {mode} range_search: distances differ")
+        # save / load
+        with tempfile.TemporaryDirectory() as tmp:
+            p = os.path.join(tmp, "binary")
+            _, save_ms = timed(lambda: idx.save(p))
+            mb = os.path.getsize(p + ".npz") / 2**20
+            back, load_ms = timed(lambda: BinaryIndex.load(p, device=dev))
+        held(back, ref, "loaded")
+        print(f"  {mode}: remove_ids of {len(rm)} scattered rows {rm_ms:.1f} ms; refill of "
+              f"{extra.shape[0]} rows {add_ms:.1f} ms; range_search 64 queries at radius "
+              f"{radius} {rs_ms:.1f} ms (hits per query min {hits.min()} median "
+              f"{int(np.median(hits))} max {hits.max()}, launches {launches}); save "
+              f"{mb:.1f} MB {save_ms:.1f} ms, load {load_ms:.1f} ms; each held against a "
+              f"fresh index of the surviving codes: buffers and distances equal")
+        del idx, back, ref, dist
+        torch.cuda.empty_cache()
+    # merge_from across modes: two halves, each into an index of the other mode
+    half = n // 2
+    for dst_mode, src_mode in (("packed", "sign"), ("sign", "packed")):
+        a, b = build(dst_mode, codes[:half]), build(src_mode, codes[half:])
+        merged, merge_ms = timed(lambda: a.merge_from(b))
+        check(merged == n - half, f"binary merge {src_mode} -> {dst_mode}: {merged} rows")
+        held(a, codes, f"merged from {src_mode}")
+        print(f"  merge_from {src_mode} -> {dst_mode} of {merged} rows {merge_ms:.1f} ms; "
+              f"held against a fresh index of all codes")
+        del a, b
+        torch.cuda.empty_cache()
+    print(f"binary maintenance launches on its searches: {path}")
+    del codes, extra
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_twostage_engine_verbs(torch, dev, parts, card):
+    """The two-stage engine's verbs at Config() width (phase 4's encoder and
+    8,192 sessions), 'itq' 250 bits with stage1 'matmul' (K1's tile variant)
+    and 'packed' (K4): each search after a verb held against a fresh engine
+    on the surviving sessions."""
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.engine import _session_key
+    from sessionsimilaritysearch_tpu_torch.ops import topk
+    from sessionsimilaritysearch_tpu_torch.ops.projection import fit_itq
+
+    cfg, tok, enc, data, corpus = parts
+    n = len(data)
+    proj = fit_itq(corpus, cfg.code_len)
+    sample = [data[i] for i in range(0, n, 32)]
+    path = {}
+    for stage1 in ("matmul", "packed"):
+        rng = np.random.default_rng(43)
+
+        def new_engine():
+            return port.SessionSearchEngine(cfg, tok, enc, dim=cfg.session_emb_dim,
+                                            capacity=65536, device=dev, prefilter="itq",
+                                            stage1=stage1, projector=proj, pool=512)
+
+        eng = new_engine()
+        per = n // 8
+        for b in range(8):
+            eng.add_sessions(data[b * per: (b + 1) * per], stamp=float(b))
+
+        def held(what):
+            nonlocal path
+            (D, I), launches = counted(torch, lambda: eng.search(sample, k=100))
+            path = add_counts(path, launches)
+            check(launches == expected_variant("itq", stage1, cfg.code_len),
+                  f"two-stage engine {stage1} {what}: launches {launches}")
+            fresh = new_engine()
+            fresh.add_sessions(list(eng.sessions))
+            Df, If = fresh.search(sample, k=100)
+            scale = np.abs(Df).max(axis=1)
+            agree = topk.value_recall_from_scores(D, Df, BF16_TOL * scale)
+            same = float((I == If).mean())
+            check(agree >= 0.999, f"two-stage engine {stage1} {what}: value recall "
+                  f"{agree} against a fresh engine on the surviving sessions")
+            del fresh
+            return D, I, agree, same
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, (time.perf_counter() - t0) * 1e3
+
+        lines = []
+        rm_ids = rng.choice(n, n // 16, replace=False)
+        removed, ms = timed(lambda: eng.remove_sessions(ids=rm_ids))
+        check(removed == len(rm_ids), f"two-stage engine {stage1}: removed {removed} by id")
+        _, _, agree, same = held("after remove_sessions(ids=)")
+        lines.append(f"remove_sessions(ids=) {removed} {ms:.1f} ms, value recall {agree}, "
+                     f"ids equal {same:.4f}")
+        victims = [eng.sessions[i] for i in rng.choice(eng.index.ntotal, 64, replace=False)]
+        vkeys = {_session_key(s) for s in victims}
+        removed, ms = timed(lambda: eng.remove_sessions(data=victims))
+        D, I, agree, same = held("after remove_sessions(data=)")
+        check(not any(_session_key(eng.sessions[i]) in vkeys for i in I[I >= 0]),
+              f"two-stage engine {stage1}: removed content was returned")
+        lines.append(f"remove_sessions(data=) 64 sessions ({removed} rows) {ms:.1f} ms, value "
+                     f"recall {agree}, ids equal {same:.4f}")
+        removed, ms = timed(lambda: eng.expire(before=1.0))
+        check(removed > 0 and (eng._stamps.view() >= 1.0).all(),
+              f"two-stage engine {stage1}: expire removed {removed}")
+        D_cap, I_cap, agree, same = held("after expire")
+        lines.append(f"expire {removed} rows {ms:.1f} ms, value recall {agree}, ids equal "
+                     f"{same:.4f}")
+        n_cap = eng.index.ntotal
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "engine")
+            handle, cap_ms = timed(lambda: eng.save_async(prefix))
+            _, write_ms = timed(handle.join)
+            del eng
+            torch.cuda.empty_cache()
+            back = new_engine()
+            _, restore_ms = timed(lambda: back.restore(prefix))
+        (D_r, I_r), launches = counted(torch, lambda: back.search(sample, k=100))
+        path = add_counts(path, launches)
+        check(back.index.ntotal == n_cap and np.array_equal(I_r, I_cap)
+              and np.array_equal(D_r, D_cap),
+              f"two-stage engine {stage1}: the restored engine differs from the capture")
+        lines.append(f"save_async capture {cap_ms:.1f} ms + write {write_ms:.1f} ms, restore "
+                     f"{restore_ms:.1f} ms, the capture's top-k back")
+        print(f"two-stage engine verbs itq {cfg.code_len} bits, stage1 {stage1}, pool 512, "
+              f"{len(sample)} queries k=100 [{card}]:")
+        for line in lines:
+            print(f"  {line}")
+        del back
+        torch.cuda.empty_cache()
+    print(f"two-stage engine verbs launches on its searches: {path}")
+    return path
 
 
 def phase_twostage_engine(torch, dev, parts):
@@ -1897,8 +2285,8 @@ def phase_twostage_engine(torch, dev, parts):
     idx = eng.index
     ci = idx._codes_index
     qn = idx._rows(eng.embed(data[:256], out="device"))  # as search() takes them
-    q = torch.nn.functional.pad(idx._codes(qn), (0, ci.bits_pad - ci.n_bits))
-    used = -(-ci.size // ci.block_rows) * (ci.block_rows // 32)
+    q = torch.nn.functional.pad(idx._encode(qn)[0], (0, ci.bits_pad - ci.n_bits))
+    used = ci._t_used_rows()
     words = ci._buf[:used]
     ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max(q, words, ci.size), 10)
     plain_ms = cuda_ms(torch, lambda: packed.packed_scores_with_bucket_max_ref(
@@ -2473,9 +2861,14 @@ def main() -> int:
                    bench, k4["ms"])
     del bench
     sign_tile = run_phase(torch, "binary index", phase_binary_index, torch, dev)
-    run_phase(torch, "two-stage index", phase_twostage_index, torch, dev)
+    bin_path = run_phase(torch, "binary maintenance", phase_binary_maintenance, torch, dev,
+                         card_line)
+    err_tiers, tiers = run_phase(torch, "two-stage index", phase_twostage_index, torch, dev,
+                                 card_line)
     k4_launches = run_phase(torch, "two-stage engine", phase_twostage_engine,
                             torch, dev, parts)
+    ts_verbs = run_phase(torch, "two-stage engine verbs", phase_twostage_engine_verbs, torch,
+                         dev, parts, card_line)
     k2 = run_phase(torch, "int8 kernel", phase_int8_kernel, torch, dev)
     run_phase(torch, "int8 index", phase_int8_index, torch, topk_mod, dev)
     k2_launches, k2_wgmma = run_phase(torch, "int8x8 engine", phase_int8_engine, torch,
@@ -2531,10 +2924,30 @@ def main() -> int:
                     tile=k6["tile"],
                     f32_wgmma=entry("scores_matmul_f32", "247", k6_f32["launches"],
                                     k6_f32["err"], k6_f32, "scores_bmax_f32_sm90.cu"))
+    # the binary and two-stage paths: the two-stage tiers (one search each),
+    # binary maintenance and the two-stage engine verbs, per kernel; each
+    # kernel's `launches` sums every path it was counted on
+    tier_counts = {name: t["launches"] for name, t in tiers.items()}
+    new_paths = {"twostage_tiers": {}, "binary_maintenance": bin_path,
+                 "twostage_engine_verbs": ts_verbs}
+    for counts in tier_counts.values():
+        new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
+    for key, entry_ in (("k1", k1_entry), ("k2", k2_entry)):
+        by_path = {path: c[key] for path, c in new_paths.items()}
+        entry_["launches_by_path"] = {"earlier_paths": entry_["launches"], **by_path,
+                                      "wgmma": {path: c[key + "_wgmma"]
+                                                for path, c in new_paths.items()}}
+        entry_["launches"] += sum(by_path.values())
+    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers)
+    k4_entry = entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4)
+    k4_by_path = {path: c["k4"] for path, c in new_paths.items()}
+    k4_entry["launches_by_path"] = {"twostage_engine": k4_launches, **k4_by_path}
+    k4_entry["launches"] += sum(k4_by_path.values())
+    k4_entry["twostage_tiers"] = tiers
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         k1_entry,
-        entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4),
+        k4_entry,
         entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5),
         k2_entry,
         entry("bucket_max", "56", k3["launches"], k3["err"], k3),

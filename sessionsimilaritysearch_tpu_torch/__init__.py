@@ -15,12 +15,17 @@ package's: the index's ``remove_ids``, ``range_search``, ``merge_from``,
 snapshots (``save`` / ``load``, the JAX package's npz format), centered
 cosine and ``metric='l2'`` (K1 with a per-row penalty of -|c|^2), and the
 engine's async ingest, removal, expiry, hybrid fusion, range search and
-save / restore, all searching through K1; int8 storage (``quantize='int8'`` and
-``'int8x8'``, the latter through ``csrc/scores_bmax_int8.cu``); the packed
-binary tier: two-stage serving (``TwoStageIndex``, ITQ or SimHash sign codes
-packed 1 bit per bit, an exact Hamming top-pool through
-``csrc/packed_scores_bmax.cu``, then an exact re-rank at full width),
-``BinaryIndex`` and ``ops.hamming.hamming_topk``
+save / restore, all searching through K1; the selection modes of
+``ops.topk.chunked_topk`` (``'exact'``, ``'sort'``, and ``'approx'`` /
+``'exact_cert'``, which select exactly on the GPU); int8 storage
+(``quantize='int8'`` and ``'int8x8'``, the latter through
+``csrc/scores_bmax_int8.cu``); the binary and two-stage tiers:
+``TwoStageIndex`` with every prefilter ('binary' / 'itq' sign codes ranked
+by K1's sign matmul or packed through ``csrc/packed_scores_bmax.cu``,
+'int8x8' through K2, 'pca' through K1, then an exact re-rank at full
+width), ``BinaryIndex`` in both modes, both with the JAX indexes'
+maintenance verbs and snapshots, the two-stage engine's removal, expiry
+and save / restore, and ``ops.hamming.hamming_topk``
 (``csrc/hamming_bucket_min.cu``); and ``ops.mips.bucketed_topk``
 (``csrc/bucket_max.cu``) and ``ops.mips.scores_matmul``
 (``csrc/scores_matmul.cu``). The flagship serving forward: bf16 serving

@@ -2,8 +2,7 @@
 ``sessionsimilaritysearch_tpu/engine.py:151``).
 
 Encode sessions with the encoder, keep the embedding corpus on the device
-(a flat ``DenseIndex``, or a ``TwoStageIndex`` with a packed binary
-prefilter), stream-insert new sessions (on the caller's thread or a
+(a flat ``DenseIndex``, or a two-stage ``TwoStageIndex``), stream-insert new sessions (on the caller's thread or a
 background one), answer top-k queries (deduplicated, filtered by a session
 predicate, or re-ranked by fusing the dense score with an item-overlap or
 STAN cosine), answer radius queries, remove sessions by id, content or age,
@@ -15,7 +14,8 @@ metadata compaction, ``_hybrid_rerank``, ``_dedup_topk``, ``_where_mask``)
 are copied from the JAX engine, where they are plain Python/numpy in a
 module that imports JAX. A snapshot is the JAX engine's: the index's npz
 and a ``.sessions.pkl`` with the same keys, so each package restores the
-other's dense-engine snapshot.
+other's dense and two-stage engine snapshots (a JAX ``'binary'`` two-stage
+one given the SimHash projection, see ``index/twostage.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from sessionsimilaritysearch_tpu_torch.evalharness import metrics as metrics_mod
 from sessionsimilaritysearch_tpu_torch.evalharness.harness import EmbeddingPipeline
 from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex, compaction_plan
 from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
+from sessionsimilaritysearch_tpu_torch.ops.topk import check_selection
 from sessionsimilaritysearch_tpu_torch.utils.profiling import PhaseTimer
 
 
@@ -211,24 +212,27 @@ class SessionSearchEngine:
       metric: 'cos', 'ip' or 'l2' (the flat index only).
       mesh: not ported (ROADMAP.md Queue 1 item 8); anything but None raises.
       batch_size: encoder batch (the last batch is wrap-padded).
-      mode: the top-k selection; only 'exact' is ported (ROADMAP.md Queue 1
-        item 2).
+      mode: the top-k selection ('exact', 'approx', 'exact_cert' or
+        'sort'). Accepted as the JAX engine accepts it, whose single-device
+        ``DenseIndex`` is built without it (only its sharded index takes
+        it): the flat index here selects exactly, as in JAX.
       quantize: None, 'int8' or 'int8x8' -- int8-code corpus storage in the
         flat ``DenseIndex`` (a quarter of the f32 corpus memory); 'int8x8'
         also quantizes the queries and scans through the int8 kernel K2.
         Not combined with a prefilter, which stores its own codes.
-      prefilter: None (a flat ``DenseIndex``) or 'binary' / 'itq' -- two-stage
-        serving (``index.twostage.TwoStageIndex``): an exact Hamming top-
-        ``pool`` over packed sign codes, then an exact re-rank of the pool
-        at full width. Needs ``stage1='packed'``; 'matmul', 'int8x8' and
-        'pca' are not ported (ROADMAP.md Queue 1 item 2). A two-stage
-        engine has no removal, range search or snapshots yet (item 6).
+      prefilter: None (a flat ``DenseIndex``) or 'binary', 'itq', 'int8x8'
+        or 'pca' -- two-stage serving (``index.twostage.TwoStageIndex``): a
+        stage-1 top-``pool`` over codes, then an exact re-rank of the pool
+        at full width. A two-stage engine removes, expires, saves and
+        restores like a dense one; it has no range search (a pool has no
+        radius semantics).
       pool: stage-1 candidates per query (two-stage mode).
-      projector: fitted ITQ projector for ``prefilter='itq'``
-        (``ops.projection.fit_itq``, or the JAX package's as it is).
+      projector: fitted projector for ``prefilter='itq'`` or 'pca'
+        (``ops.projection.fit_itq`` / ``fit_pca``, or the JAX package's).
       center: centered-cosine serving (the flat index only): a [dim] mean,
         or 'auto' to fit it from the first ingested batch.
-      stage1: two-stage code scan; only 'packed' is ported.
+      stage1: two-stage code scan of the 'binary' / 'itq' prefilters:
+        'matmul' (+-1 bf16 codes, K1) or 'packed' (packed codes, K4).
       dtype: corpus storage dtype; None keeps each index's default (float32
         dense, bfloat16 for the two-stage full-width rows).
     """
@@ -257,10 +261,7 @@ class SessionSearchEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "SessionSearchEngine mesh= is not ported yet (ROADMAP.md Queue 1 item 8)")
-        if mode != "exact":
-            raise NotImplementedError(
-                f"SessionSearchEngine mode={mode!r} is not ported yet "
-                "(ROADMAP.md Queue 1 item 2)")
+        check_selection(mode, 0.95)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.timer = PhaseTimer(self.device)
@@ -491,8 +492,7 @@ class SessionSearchEngine:
         them). Rows compact positionally as in FAISS ``remove_ids``: ids
         already handed out renumber. Takes the ingest lock (safe against
         ``add_sessions_async``); a query running meanwhile may read
-        renumbered metadata. Returns the number of rows removed. A
-        two-stage engine raises (ROADMAP.md Queue 1 item 6)."""
+        renumbered metadata. Returns the number of rows removed."""
         if (data is None) == (ids is None):
             raise ValueError("pass exactly one of data= or ids=")
         with self._ingest_lock:
@@ -786,10 +786,11 @@ class SessionSearchEngine:
         background thread while searches and ingest go on. Queued background
         inserts are flushed first. Returns a :class:`SaveHandle`: call
         ``join()`` before restoring from ``prefix``; a writer error
-        surfaces there. A two-stage engine raises (ROADMAP.md Queue 1 item
-        6)."""
+        surfaces there. The index's own ``write_snapshot`` writes its
+        npz."""
         self.flush()
         with self._ingest_lock:
+            write_index = type(self.index).write_snapshot
             snap = self.index.snapshot()
             meta = {
                 "sessions": list(self.sessions),
@@ -800,7 +801,7 @@ class SessionSearchEngine:
             }
 
         def work():
-            DenseIndex.write_snapshot(snap, prefix + ".index")
+            write_index(snap, prefix + ".index")
             with open(prefix + ".sessions.pkl", "wb") as f:
                 _SessionPickler(f).dump(meta)
 
@@ -808,21 +809,25 @@ class SessionSearchEngine:
         handle._thread.start()
         return handle
 
-    def restore(self, prefix: str) -> None:
-        """Load a snapshot (either package's dense engine) into this engine.
-        The index's serving configuration comes from the snapshot, its
-        capacity from this engine. The live index is dropped before the
+    def restore(self, prefix: str, projection=None) -> None:
+        """Load a snapshot (either package's engine) into this engine. The
+        index class is this engine's (``DenseIndex`` or ``TwoStageIndex``),
+        its serving configuration comes from the snapshot, its capacity
+        from this engine. ``projection``: the SimHash projection of a JAX
+        ``'binary'`` two-stage snapshot, which stores only its seed
+        (``TwoStageIndex.load``). The live index is dropped before the
         snapshot loads, so the device never holds two corpora; if the load
         fails, the engine is left without an index. The encoder is not part
         of the snapshot."""
         with self._ingest_lock:
-            if not isinstance(self.index, DenseIndex):
-                raise NotImplementedError(
-                    "restoring a two-stage engine is not ported yet "
-                    "(ROADMAP.md Queue 1 item 6)")
-            cap = self.index.capacity
+            kind, cap = type(self.index), self.index.capacity
             self.index = None
-            self.index = DenseIndex.load(prefix + ".index", capacity=cap, device=self.device)
+            if kind is TwoStageIndex:
+                self.index = TwoStageIndex.load(prefix + ".index", capacity=cap,
+                                                device=self.device, projection=projection)
+            else:
+                self.index = DenseIndex.load(prefix + ".index", capacity=cap,
+                                             device=self.device)
             with open(prefix + ".sessions.pkl", "rb") as f:
                 blob = _SessionUnpickler(f).load()
             self.sessions = list(blob["sessions"])

@@ -202,16 +202,13 @@ def evaluate_binary(
     device,
 ) -> SearchResult:
     """Hamming search over hash codes: ``mode='packed'`` through K4,
-    ``'sign'`` through K1. ``selection='approx'`` (and with it
-    ``recall_target``) is not ported (ROADMAP.md Queue 1 item 2)."""
-    if selection == "approx":
-        raise NotImplementedError(
-            "evaluate_binary selection='approx' is not ported yet "
-            "(ROADMAP.md Queue 1 item 2)")
+    ``'sign'`` through K1. ``selection='approx'`` (sign mode, with its
+    ``recall_target``) runs the exact selection, as ``BinaryIndex`` does."""
     dev = resolve_device(device)
     n_bits = db_codes.shape[1]
     t0 = time.perf_counter()
-    index = BinaryIndex(n_bits, db_codes.shape[0], mode, device=dev, selection=selection)
+    index = BinaryIndex(n_bits, db_codes.shape[0], mode, device=dev, selection=selection,
+                        recall_target=recall_target)
     index.add(db_codes)
     _sync(dev)
     t1 = time.perf_counter()

@@ -7,16 +7,22 @@ Two storage modes, both exact:
   ``pack_bits_t`` layout: [slots / 32, bits_pad] int32, slots in whole
   2048-row pack blocks, width padded to a multiple of 128 with zero bits).
   Search runs the packed-scan kernel K4 (``ops/packed.py``) over the used
-  pack blocks, with query pad columns held at zero.
+  pack blocks, with query pad columns held at zero. A removal moves code
+  BITS between words (:func:`_t_move_bits`, JAX :75-119) and zeroes the
+  freed slots, the invariant that packed adds rely on.
 - 'sign': +-1 bf16 rows (2 bytes per code bit), ranked by the fused score
-  scan K1 (``ops/mips.py``) over the filled rows.
+  scan K1 (``ops/mips.py``) over the filled rows. ``selection='approx'``
+  (``lax.approx_max_k`` in JAX) runs the exact selection
+  (``ops/topk.py``).
 
 Any ``k`` runs through the kernels: the buckets are contiguous, so the
 JAX routing around the Pallas grid's ``rows_per_bucket`` floor
 (:285-297) has no counterpart, and the selection ranks every score when
 ``k`` exceeds the bucket count. A CUDA index launches its kernel or raises;
 nothing falls back. Results follow ``faiss.IndexBinaryFlat``: distances
-ascending (int32), ids (int64), missing slots (INT32_MAX, -1).
+ascending (int32), ids (int64), missing slots (INT32_MAX, -1). The
+maintenance verbs and the npz snapshot follow the JAX index, key for key,
+so each package loads the other's file.
 """
 
 from __future__ import annotations
@@ -27,21 +33,52 @@ import numpy as np
 import torch
 
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
+from sessionsimilaritysearch_tpu_torch.index.dense import (
+    _range_from_search,
+    compaction_plan,
+    positional_mask,
+)
 from sessionsimilaritysearch_tpu_torch.ops import hamming
+from sessionsimilaritysearch_tpu_torch.ops.topk import check_selection
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"BinaryIndex {what} is not ported yet (ROADMAP.md Queue 1 item 6)"
-    )
+def _t_move_bits(buf: torch.Tensor, src: np.ndarray, dst: np.ndarray,
+                 new_size: int, old_size: int, block_rows: int) -> None:
+    """Transposed-layout compaction in place: move the code of slot src[i]
+    to slot dst[i] and zero every slot of [new_size, old_size).
+
+    A slot's code is bit j of packed row p across all columns
+    (``hamming.t_slot_coords``), so a row move is a bit move: gather the
+    source bits, clear each destination bit and each freed bit (one int32
+    mask per touched packed row), then OR the gathered bits in. The bits
+    of one mask, and the bits written into one row, are distinct, so an
+    int32 ``index_add_`` is their OR, bit 31 included. Gathering comes
+    first, so a source in the freed range is read before it is cleared."""
+    dev = buf.device
+
+    def coords(slots):
+        p, j = hamming.t_slot_coords(slots.astype(np.int64), block_rows)
+        return torch.from_numpy(p).to(dev), torch.from_numpy(j).to(dev)
+
+    p_src, j_src = coords(src)
+    p_dst, j_dst = coords(dst)
+    bits = (buf[p_src] >> j_src[:, None].to(torch.int32)) & 1       # [M, bits]
+    p_free, j_free = coords(np.arange(new_size, old_size))
+    p_clear = torch.cat([p_dst, p_free])
+    rows, inv = torch.unique(p_clear, return_inverse=True)
+    one = torch.ones((), dtype=torch.int32, device=dev)
+    masks = torch.zeros(rows.shape[0], dtype=torch.int32, device=dev).index_add_(
+        0, inv, one << torch.cat([j_dst, j_free]).to(torch.int32))
+    buf[rows] &= ~masks[:, None]
+    buf.index_add_(0, p_dst, bits << j_dst[:, None].to(torch.int32))
 
 
 class BinaryIndex:
     """Flat exact Hamming index over sign codes [*, n_bits].
 
     ``mode``: 'packed' (1 bit per bit, kernel K4) or 'sign' (+-1 bf16 rows,
-    kernel K1). ``selection='approx'`` is not ported (ROADMAP.md Queue 1
-    item 2)."""
+    kernel K1). ``selection``: 'exact', or 'approx' (sign mode only, as in
+    JAX), which runs the exact selection and keeps ``recall_target``."""
 
     def __init__(
         self,
@@ -51,19 +88,20 @@ class BinaryIndex:
         *,
         device,
         selection: str = "exact",
+        recall_target: float = 0.95,
     ):
         if mode not in ("packed", "sign"):
             raise ValueError(f"unknown mode {mode!r}")
-        if selection == "approx":
-            raise NotImplementedError(
-                "BinaryIndex selection='approx' is not ported yet (ROADMAP.md "
-                "Queue 1 item 2)"
-            )
-        if selection != "exact":
+        if selection not in ("exact", "approx"):
             raise ValueError(f"unknown selection {selection!r}")
+        check_selection(selection, recall_target)
+        if selection == "approx" and mode != "sign":
+            raise ValueError("approx selection is wired for the sign-matmul path")
         self.n_bits = n_bits
         self.capacity = capacity
         self.mode = mode
+        self.selection = selection
+        self.recall_target = recall_target
         self.device = resolve_device(device)
         self.size = 0
         if mode == "packed":
@@ -111,8 +149,10 @@ class BinaryIndex:
                 torch.bfloat16)
         self.size += m
 
-    def reconstruct_batch(self, ids) -> np.ndarray:
-        """Stored codes by position as [m, n_bits] float32 +-1 rows."""
+    def _codes(self, ids: np.ndarray) -> torch.Tensor:
+        """Stored codes by position as [m, n_bits] f32 +-1 rows on the
+        index's device (packed mode extracts bit j of the transposed words
+        at the slots' coordinates)."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         if ids.size and (ids.min() < 0 or ids.max() >= self.size):
             raise IndexError(f"reconstruct ids must lie in [0, {self.size})")
@@ -120,25 +160,16 @@ class BinaryIndex:
             p, j = hamming.t_slot_coords(ids, self.block_rows)
             words = self._buf[torch.from_numpy(p).to(self.device), : self.n_bits]
             jt = torch.from_numpy(j.astype(np.int32)).to(self.device)
-            bits01 = (words >> jt[:, None]) & 1
-            return (2.0 * bits01 - 1.0).float().cpu().numpy()
-        rows = self._buf[torch.from_numpy(ids).to(self.device)]
-        return rows.float().cpu().numpy()
+            return (2.0 * ((words >> jt[:, None]) & 1) - 1.0).float()
+        return self._buf[torch.from_numpy(ids).to(self.device)].float()
+
+    def reconstruct_batch(self, ids) -> np.ndarray:
+        """Stored codes by position as [m, n_bits] float32 +-1 rows."""
+        return self._codes(ids).cpu().numpy()
 
     def reconstruct(self, i: int) -> np.ndarray:
         """Single-row form: [n_bits] float32 +-1."""
         return self.reconstruct_batch([int(i)])[0]
-
-    def _prep_mask(self, row_mask) -> torch.Tensor:
-        """Validate a positional bool mask (length ``size`` or ``capacity``)
-        and return it as a bool tensor over the rows [0, size)."""
-        mask = torch.as_tensor(row_mask, device=self.device)
-        if mask.dim() != 1 or mask.shape[0] not in (self.size, self.capacity):
-            raise ValueError(
-                f"row_mask length {tuple(mask.shape)} matches neither size "
-                f"{self.size} nor capacity {self.capacity}"
-            )
-        return mask[: self.size].to(torch.bool)
 
     def search(self, q_signs, k: int, row_mask=None) -> Tuple[np.ndarray, np.ndarray]:
         """(Hamming distances [q, k] int32 ascending, ids [q, k] int64) as
@@ -157,13 +188,15 @@ class BinaryIndex:
             return (torch.full((nq, k), hamming.INT32_MAX, dtype=torch.int32,
                                device=self.device),
                     torch.full((nq, k), -1, dtype=torch.int64, device=self.device))
-        mask = None if row_mask is None else self._prep_mask(row_mask)
+        mask = (None if row_mask is None
+                else positional_mask(row_mask, self.size, self.capacity, self.device))
         if self.mode == "sign":
             return hamming.sign_topk(q, self._buf[: self.size], k, self.n_bits,
-                                     row_mask=mask)
+                                     mode=self.selection,
+                                     recall_target=self.recall_target, row_mask=mask)
         # scan the used pack blocks only; their rows at or past size are
         # zero words (all -1 codes) and are masked by valid_count
-        used = -(-self.size // self.block_rows) * (self.block_rows // 32)
+        used = self._t_used_rows()
         if mask is not None:
             mask = torch.nn.functional.pad(mask, (0, used * 32 - self.size))
         q = torch.nn.functional.pad(q, (0, self.bits_pad - self.n_bits))
@@ -171,17 +204,105 @@ class BinaryIndex:
                                      valid_count=self.size, row_mask=mask)
 
     def remove_ids(self, ids) -> int:
-        raise _not_ported("remove_ids (the bit moves of binary.py:75-119)")
+        """Remove codes by row id (``faiss.IndexBinaryFlat.remove_ids``):
+        surviving tail rows move into the freed slots as
+        ``index.dense.compaction_plan`` says, so row ids renumber as in
+        FAISS. Packed mode moves code bits and zeroes the freed slots
+        (:func:`_t_move_bits`; also when no row moves), sign mode moves
+        rows. Returns the number of rows removed."""
+        src, dst, new_size = compaction_plan(self.size, ids)
+        removed = self.size - new_size
+        if self.mode == "packed":
+            if removed:
+                _t_move_bits(self._buf, src, dst, new_size, self.size, self.block_rows)
+        elif src.size:
+            s = torch.from_numpy(src.astype(np.int64)).to(self.device)
+            d = torch.from_numpy(dst.astype(np.int64)).to(self.device)
+            self._buf[d] = self._buf[s]  # src >= new_size > dst: no overlap
+        self.size = new_size
+        return removed
 
-    def range_search(self, q_signs, radius: float, k0: int = 128, row_mask=None):
-        raise _not_ported("range_search")
+    def range_search(self, q_signs, radius: float, k0: int = 128, row_mask=None
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All codes within Hamming distance ``radius`` of each query
+        (``faiss.IndexBinaryFlat.range_search``). Returns FAISS's CSR triple
+        ``(lims [q+1] int64, D, I)`` with each query's slice nearest-first.
+        Exact: a top-k whose depth doubles from ``k0`` until each query's
+        deepest hit lies past the radius. Refused under
+        ``selection='approx'``, as in JAX."""
+        if self.selection == "approx":
+            raise ValueError(
+                "range_search needs selection='exact': approx top-k can "
+                "silently drop in-radius rows"
+            )
+        if not isinstance(q_signs, torch.Tensor):
+            q_signs = np.asarray(q_signs)
+        return _range_from_search(
+            lambda k: self.search(q_signs, k, row_mask=row_mask),
+            q_signs.shape[0], radius, descending=False, total=self.size, k0=k0,
+        )
 
     def merge_from(self, other: "BinaryIndex", batch: int = 65536) -> int:
-        raise _not_ported("merge_from")
+        """Append ``other``'s stored codes (``faiss.IndexBinaryFlat.merge_from``):
+        ids shift by ``self.ntotal``, ``other`` is left intact. Works across
+        storage modes: codes stream through the device in ``batch``-row
+        chunks into :meth:`add`. Returns the row count appended."""
+        if not isinstance(other, BinaryIndex):
+            raise TypeError(
+                f"merge_from source must be a BinaryIndex, got {type(other).__name__}")
+        if other.n_bits != self.n_bits:
+            raise ValueError(f"code width mismatch: {self.n_bits} vs {other.n_bits}")
+        if self.size + other.size > self.capacity:
+            raise ValueError(f"index full: {self.size}+{other.size} > {self.capacity}")
+        for start in range(0, other.size, batch):
+            self.add(other._codes(np.arange(start, min(start + batch, other.size))))
+        return other.size
+
+    # --- persistence: the JAX index's npz, key for key
+    def _t_used_rows(self) -> int:
+        """Packed rows that can hold set bits at the current fill (whole pack
+        blocks; later blocks are all zero by the invariant)."""
+        return -(-self.size // self.block_rows) * (self.block_rows // 32)
 
     def save(self, path: str) -> None:
-        raise _not_ported("snapshots")
+        """npz: sign rows as int8; packed words trimmed to the used pack
+        blocks, with ``layout='t'`` and ``block_rows``."""
+        extra = {}
+        if self.mode == "sign":
+            buf = self._buf[: self.size].to(torch.int8).cpu().numpy()
+        else:
+            buf = self._buf[: self._t_used_rows()].cpu().numpy()
+            extra = {"layout": "t", "block_rows": self.block_rows}
+        np.savez(path, buf=buf, n_bits=self.n_bits, capacity=self.capacity,
+                 mode=self.mode, selection=self.selection,
+                 recall_target=self.recall_target, size=self.size, **extra)
 
     @classmethod
-    def load(cls, path: str, capacity: Optional[int] = None, **kw) -> "BinaryIndex":
-        raise _not_ported("snapshots")
+    def load(cls, path: str, capacity: Optional[int] = None, *, device,
+             **kw) -> "BinaryIndex":
+        """Restore a snapshot of either package. A legacy row-major packed
+        file (no ``layout``) is unpacked and re-ingested through :meth:`add`."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+            idx = cls(int(z["n_bits"]), capacity or int(z["capacity"]), str(z["mode"]),
+                      device=device, selection=str(z["selection"]),
+                      recall_target=float(z["recall_target"]), **kw)
+            size = int(z["size"])
+            buf = z["buf"]
+            layout = str(z["layout"]) if "layout" in z else None
+            block_rows = int(z["block_rows"]) if "block_rows" in z else None
+        if size > idx.capacity:
+            raise ValueError(f"snapshot holds {size} rows > capacity {idx.capacity}")
+        if not size:
+            return idx
+        if idx.mode == "sign":
+            idx._buf[:size] = torch.from_numpy(buf).to(idx.device, torch.bfloat16)
+            idx.size = size
+        elif layout is not None:
+            if block_rows != idx.block_rows:
+                raise ValueError(
+                    f"pack block mismatch: snapshot {block_rows} vs {idx.block_rows}")
+            idx._buf[: buf.shape[0]] = torch.from_numpy(buf).to(idx.device)
+            idx.size = size
+        else:  # legacy row-major packed words
+            idx.add(hamming.unpack_bits_np(buf, idx.n_bits))
+        return idx

@@ -5,8 +5,10 @@
 
 The index IS the corpus: a fixed-capacity [capacity, dim] device buffer that
 streaming adds append into. ``search`` scans the filled rows in
-``chunk_size`` slices and merges the per-chunk top-k, so the score buffer
-stays [q, chunk_size] whatever the corpus size. The scan of each chunk:
+``chunk_size`` slices and merges the per-chunk top-k
+(``ops/topk.py`` ``chunked_topk``, with the index's selection ``mode``), so
+the score buffer stays [q, chunk_size] whatever the corpus size. The scan
+of each chunk:
 
 - float rows (f32 or bf16): the fused score + bucket-max kernel K1
   (``ops/mips.py``: ``csrc/scores_bmax_f32_sm90.cu`` for f32,
@@ -35,8 +37,8 @@ import numpy as np
 import torch
 
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
-from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8
-from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize, merge_topk
+from sessionsimilaritysearch_tpu_torch.ops import mips_int8
+from sessionsimilaritysearch_tpu_torch.ops.topk import chunked_topk, check_selection, l2_normalize
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # dtype names as the snapshots store them (the JAX package's ``dtype.name``)
@@ -96,6 +98,18 @@ def compaction_plan(size: int, ids) -> Tuple[np.ndarray, np.ndarray, int]:
     )
 
 
+def positional_mask(row_mask, size: int, capacity: int, device) -> torch.Tensor:
+    """A positional bool row mask (length ``size`` or ``capacity``, numpy or
+    tensor) as a bool tensor over the rows [0, size) on ``device``."""
+    mask = torch.as_tensor(row_mask, device=device)
+    if mask.dim() != 1 or mask.shape[0] not in (size, capacity):
+        raise ValueError(
+            f"row_mask length {tuple(mask.shape)} matches neither size "
+            f"{size} nor capacity {capacity}"
+        )
+    return mask[:size].to(torch.bool)
+
+
 def _range_from_search(
     search_fn, nq: int, radius: float, *, descending: bool,
     total: int, k0: int = 128,
@@ -149,6 +163,11 @@ class DenseIndex:
     direction from every normalized row and query and normalize again. Pass
     an explicit [d] mean, or 'auto' to fit it from the first added batch
     (frozen thereafter: rows are stored in centered form).
+
+    mode: the per-chunk selection of ``ops.topk.chunked_topk`` -- 'exact'
+    (bucketed), 'sort', or 'approx' / 'exact_cert', which run the exact
+    selection on the GPU. Kept in snapshots. ``range_search`` refuses
+    'approx', as the JAX index does.
     """
 
     def __init__(
@@ -160,10 +179,12 @@ class DenseIndex:
         metric: str = "cos",
         dtype: torch.dtype = torch.float32,
         chunk_size: int = 65536,
+        mode: str = "exact",
         score_dtype: torch.dtype = torch.float32,
         quantize: Optional[str] = None,
         center=None,
     ):
+        check_selection(mode, 0.95)
         if metric not in ("cos", "ip", "l2"):
             raise ValueError(f"unknown metric {metric!r}")
         if quantize not in (None, "int8", "int8x8"):
@@ -188,6 +209,7 @@ class DenseIndex:
         self.dtype = torch.int8 if quantize else dtype
         self.score_dtype = score_dtype
         self.chunk_size = chunk_size
+        self.mode = mode
         self.device = resolve_device(device)
         self._buf = torch.zeros((capacity, dim), dtype=self.dtype, device=self.device)
         # per-row dequantization scales (int8 modes): row ~= code * scale
@@ -277,10 +299,8 @@ class DenseIndex:
         self.size = new_size
         return removed
 
-    def reconstruct_batch(self, ids) -> np.ndarray:
-        """Stored rows by position, [m, d] float32, exactly as the index
-        scores them (unit-normalized under 'cos', centered when ``center``
-        is set; code x scale when quantized)."""
+    def _stored_rows(self, ids) -> torch.Tensor:
+        """Stored rows by position as f32 [m, d] on the index's device."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         if ids.size and (ids.min() < 0 or ids.max() >= self.size):
             raise IndexError(f"reconstruct ids must lie in [0, {self.size})")
@@ -288,7 +308,13 @@ class DenseIndex:
         rows = self._buf[pos].float()
         if self.quantize:
             rows *= self._scales[pos][:, None]
-        return rows.cpu().numpy()
+        return rows
+
+    def reconstruct_batch(self, ids) -> np.ndarray:
+        """Stored rows by position, [m, d] float32, exactly as the index
+        scores them (unit-normalized under 'cos', centered when ``center``
+        is set; code x scale when quantized)."""
+        return self._stored_rows(ids).cpu().numpy()
 
     def reconstruct(self, i: int) -> np.ndarray:
         """Single-row form (``faiss.Index.reconstruct``): [d] float32;
@@ -302,13 +328,7 @@ class DenseIndex:
         pen = None if self._sqnorm is None else -self._sqnorm[:size]
         if row_mask is None:
             return pen
-        mask = torch.as_tensor(row_mask, device=self.device)
-        if mask.dim() != 1 or mask.shape[0] not in (size, self.capacity):
-            raise ValueError(
-                f"row_mask length {tuple(mask.shape)} matches neither size "
-                f"{size} nor capacity {self.capacity}"
-            )
-        mask = mask[:size].to(torch.bool)
+        mask = positional_mask(row_mask, size, self.capacity, self.device)
         if pen is None:
             pen = torch.zeros(size, dtype=torch.float32, device=self.device)
         return torch.where(mask, pen, float("-inf")).contiguous()
@@ -337,32 +357,15 @@ class DenseIndex:
             sq_queries = (q32 * q32).sum(dim=1, keepdim=True)
             queries = queries * 2  # exact: K1 scores (2q).c - |c|^2
         queries = queries.contiguous()
+        q_scales = None
         if self.quantize == "int8x8":
             queries, q_scales = mips_int8.quantize_rows_int8(queries)
-        nq = queries.shape[0]
-        penalty = self._penalty(row_mask, size)
-        vals = torch.full((nq, k), float("-inf"), device=self.device)
-        idx = torch.full((nq, k), -1, dtype=torch.int64, device=self.device)
-        for base in range(0, size, self.chunk_size):
-            rows = slice(base, min(base + self.chunk_size, size))
-            pen = None if penalty is None else penalty[rows]
-            if self.quantize == "int8x8":
-                c_vals, c_idx = mips_int8.int8_exact_topk(
-                    queries, self._buf[rows], k, q_scales, self._scales[rows],
-                    penalty=pen, score_dtype=self.score_dtype,
-                )
-            elif self.quantize == "int8":
-                c_vals, c_idx = mips_int8.int8_corpus_topk(
-                    queries, self._buf[rows], k, self._scales[rows],
-                    penalty=pen, score_dtype=self.score_dtype,
-                )
-            else:
-                c_vals, c_idx = mips.exact_topk(
-                    queries, self._buf[rows], k, penalty=pen,
-                    score_dtype=self.score_dtype,
-                )
-            c_idx = torch.where(c_idx >= 0, c_idx + base, c_idx)
-            vals, idx = merge_topk(vals, idx, c_vals, c_idx, k)
+        vals, idx = chunked_topk(
+            queries, self._buf[:size], k, chunk_size=self.chunk_size, mode=self.mode,
+            score_dtype=self.score_dtype,
+            corpus_scales=self._scales[:size] if self.quantize else None,
+            query_scales=q_scales, penalty=self._penalty(row_mask, size),
+        )
         if sq_queries is not None:
             vals = sq_queries - vals  # ascending squared distances; missing +inf
         if out == "device":
@@ -377,7 +380,14 @@ class DenseIndex:
         ``I[lims[i]:lims[i+1]]``, sorted best-first. 'cos'/'ip' keep rows
         with score >= radius, 'l2' squared distance <= radius. Exact: a
         top-k whose depth doubles from ``k0`` until each query's deepest
-        hit falls outside the radius. ``row_mask`` as in :meth:`search`."""
+        hit falls outside the radius. ``row_mask`` as in :meth:`search`.
+        Refused under ``mode='approx'``, as in the JAX index: an approximate
+        top-k may drop rows inside the radius."""
+        if self.mode == "approx":
+            raise ValueError(
+                "range_search needs an exact selection mode: approx top-k can "
+                "silently drop in-radius rows"
+            )
         if not isinstance(queries, torch.Tensor):
             queries = np.asarray(queries)
         return _range_from_search(
@@ -433,7 +443,7 @@ class DenseIndex:
             "metric": self.metric,
             "dim": self.dim,
             "capacity": self.capacity,
-            "mode": "exact",
+            "mode": self.mode,
             "score_dtype": _DTYPE_NAMES[self.score_dtype],
             "chunk_size": self.chunk_size,
         }
@@ -471,9 +481,8 @@ class DenseIndex:
         """Restore a snapshot of either package, with its serving
         configuration (score_dtype, chunk_size, quantize, center). Keyword
         overrides win over the stored values; ``quantize`` cannot be
-        overridden (the stored rows are codes already). A snapshot of
-        another selection mode than 'exact' raises: the port has none yet
-        (ROADMAP.md Queue 1 item 2)."""
+        overridden (the stored rows are codes already). The selection
+        ``mode`` travels with the snapshot."""
         with np.load(path if path.endswith(".npz") else path + ".npz") as z:
             if "buf_u16" in z:  # bf16 rows as raw bit patterns
                 buf = torch.from_numpy(z["buf_u16"].view(np.int16)).view(torch.bfloat16)
@@ -485,11 +494,7 @@ class DenseIndex:
                     f"snapshot was saved with quantize={quantize!r}; stored rows "
                     "are already in that storage form and cannot be re-quantized"
                 )
-            mode = kw.pop("mode", str(z["mode"]) if "mode" in z else "exact")
-            if mode != "exact":
-                raise NotImplementedError(
-                    f"DenseIndex mode={mode!r} is not ported yet (ROADMAP.md Queue 1 item 2)"
-                )
+            kw.setdefault("mode", str(z["mode"]) if "mode" in z else "exact")
             kw.setdefault("score_dtype", _named_dtype(str(z["score_dtype"]))
                           if "score_dtype" in z else torch.float32)
             kw.setdefault("chunk_size", int(z["chunk_size"]) if "chunk_size" in z else 65536)

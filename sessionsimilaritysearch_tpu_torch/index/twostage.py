@@ -1,20 +1,43 @@
-"""Two-stage serving index: an exact Hamming prefilter over packed sign
-codes, then an exact full-width re-rank (counterpart of
-``sessionsimilaritysearch_tpu/index/twostage.py:70`` ``TwoStageIndex``, for
-``prefilter in ('binary', 'itq')`` with ``stage1='packed'``).
+"""Two-stage serving index: a cheap stage-1 scan over the whole corpus
+nominates a pool of candidates per query, and stage 2 re-ranks the pool
+exactly at full width (counterpart of
+``sessionsimilaritysearch_tpu/index/twostage.py:70`` ``TwoStageIndex`` and
+``build_twostage_index`` :1174).
 
-Stage 1 codes every row as sign bits (SimHash ``sign(x @ R)`` or learned
-ITQ ``sign((x - mean) @ components.T)``) and keeps them in a packed
-``BinaryIndex``; a search takes the exact Hamming top-``pool`` through the
-packed-scan kernel K4. Stage 2 (``ops/topk.py`` ``rerank_topk``) gathers
-those rows from the full-width store and ranks them by f32 products, so the
-returned ranking is exact over the pool.
+Stage 1, by prefilter and ``stage1``:
 
-The SimHash projection R [d, n_bits] is state: by default it is drawn from
-a ``torch.Generator`` seeded with ``seed``, a different stream from the
-JAX index's ``jax.random.normal(PRNGKey(seed))``; pass ``projection=`` (for
-the JAX one, ``weights.simhash_projection``) to reproduce another index's
-codes.
+- 'binary' (SimHash ``sign(x @ R)``) or 'itq' (learned
+  ``sign((x - mean) @ components.T)``) sign codes:
+  - ``stage1='matmul'`` (the default): +-1 bf16 codes in a [capacity,
+    n_bits] buffer, ranked by ``ops.hamming.sign_topk`` through K1
+    (``ops/mips.py``; the ``wgmma`` variant at 256 bits, the tile variant
+    at widths that are no TMA stride, such as 250);
+  - ``stage1='packed'``: transposed-packed codes in a packed
+    ``BinaryIndex``, ranked through K4 (``ops/packed.py``);
+- 'int8x8': per-row int8 codes and scales (``ops.mips_int8``), ranked by
+  K2 with bf16 scores and per-query scales;
+- 'pca': a fitted projection, L2-normalized and stored in bf16, ranked by
+  K1.
+
+JAX selects the matmul stage 1 with ``lax.approx_max_k``; the port runs the
+exact selection (``ops/topk.py``), so its pool is the exact top-``pool`` of
+the stage-1 scores. Stage 1 runs in chunks of ``STAGE1_CHUNK`` rows merged
+exactly (JAX scans the capacity as one chunk), which gives the same pool.
+Stage 2 (``ops.topk.rerank_topk``) gathers the pool's rows from the
+full-width store and ranks them by f32 products.
+
+The SimHash projection R [d, n_bits] is state. By default it is drawn from
+a ``torch.Generator`` seeded with ``seed``, a different stream from the JAX
+index's ``jax.random.normal(PRNGKey(seed))``; pass ``projection=`` (for the
+JAX one, ``weights.simhash_projection``) to reproduce another index's codes.
+
+Snapshots are the JAX index's npz, key for key, so each package loads the
+other's, with one exception. A JAX ``'binary'`` file stores only ``seed``,
+so loading one needs ``projection=``. The port's ``'binary'`` snapshot adds
+one key, ``projection``, so that its own files reload with the same codes;
+JAX ignores that key and redraws R from the seed, so a port ``'binary'``
+file does not serve correctly in the JAX package. Every other prefilter
+loads in both directions.
 """
 
 from __future__ import annotations
@@ -26,13 +49,34 @@ import torch
 
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
-from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize, rerank_topk
+from sessionsimilaritysearch_tpu_torch.index.dense import (
+    _DTYPE_NAMES,
+    DenseIndex,
+    _named_dtype,
+    compaction_plan,
+    positional_mask,
+    to_host_chunked,
+)
+from sessionsimilaritysearch_tpu_torch.ops import hamming, mips_int8
+from sessionsimilaritysearch_tpu_torch.ops.projection import PCAProjector, fit_itq, fit_pca
+from sessionsimilaritysearch_tpu_torch.ops.topk import (
+    check_selection,
+    chunked_topk,
+    l2_normalize,
+    rerank_topk,
+)
+
+PREFILTERS = ("binary", "itq", "int8x8", "pca")
+# corpus rows per stage-1 chunk: a [q, chunk] bf16 score buffer (2 GiB at
+# 1024 queries), merged exactly across chunks
+STAGE1_CHUNK = 1 << 20
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"TwoStageIndex {what} is not ported yet (ROADMAP.md Queue 1 item {item})"
-    )
+def _f32(x, device) -> torch.Tensor:
+    """An own f32 copy of an array or tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device, torch.float32).clone()
+    return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
 def _signs(y: torch.Tensor) -> torch.Tensor:
@@ -41,24 +85,25 @@ def _signs(y: torch.Tensor) -> torch.Tensor:
 
 
 class TwoStageIndex:
-    """Packed Hamming prefilter + exact re-rank over one embedding corpus.
+    """Stage-1 prefilter + exact re-rank over one embedding corpus.
 
     Args:
       dim, capacity: row width and the most rows the index holds.
       device: where the buffers live ('cpu' or a CUDA device).
       metric: 'cos' (rows and queries L2-normalized in f32) or 'ip'.
-      prefilter: 'binary' (SimHash) or 'itq' (pass a fitted ``projector``
-        from ``ops.projection.fit_itq``; its rows fix ``n_bits``). 'int8x8'
-        and 'pca' are not ported (ROADMAP.md Queue 1 item 2).
-      n_bits: SimHash code width.
+      prefilter: 'binary', 'itq', 'int8x8' or 'pca' (module docstring).
+        'itq' and 'pca' need a fitted ``projector`` (``ops.projection``
+        ``fit_itq`` / ``fit_pca``, or the JAX package's as it is); its rows
+        fix 'itq''s ``n_bits``.
+      n_bits: SimHash code width ('binary').
       pool: default stage-1 candidates per query.
       store_dtype: dtype of the full-width rows (bf16 default, as in JAX).
-      projector: fitted ITQ projector (anything with ``mean``,
-        ``components`` and ``explained``; the JAX ``PCAProjector`` works as
-        it is).
+      recall_target: JAX's stage-1 approx recall target; kept and stored,
+        and met by the exact selection.
+      projector: fitted projector ('itq' and 'pca'; anything with ``mean``,
+        ``components`` and ``explained``).
       seed: seed of the default SimHash projection.
-      stage1: only 'packed' is ported; 'matmul' selects approximately
-        (ROADMAP.md Queue 1 item 2).
+      stage1: 'matmul' (the default) or 'packed' ('binary' and 'itq' only).
       projection: SimHash projection [dim, n_bits] to use instead of the
         seeded draw.
     """
@@ -74,6 +119,7 @@ class TwoStageIndex:
         n_bits: int = 256,
         pool: int = 512,
         store_dtype: torch.dtype = torch.bfloat16,
+        recall_target: float = 0.95,
         projector=None,
         seed: int = 0,
         stage1: str = "matmul",
@@ -81,54 +127,80 @@ class TwoStageIndex:
     ):
         if metric not in ("cos", "ip"):
             raise ValueError(f"unknown metric {metric!r}")
-        if prefilter in ("int8x8", "pca"):
-            raise _not_ported(f"prefilter={prefilter!r}", 2)
-        if prefilter not in ("binary", "itq"):
+        if prefilter not in PREFILTERS:
             raise ValueError(f"unknown prefilter {prefilter!r}")
-        if stage1 == "matmul":
-            raise _not_ported("stage1='matmul'", 2)
-        if stage1 != "packed":
+        if stage1 not in ("matmul", "packed"):
             raise ValueError(f"unknown stage1 {stage1!r}")
+        if stage1 == "packed" and prefilter not in ("binary", "itq"):
+            raise ValueError(
+                "stage1='packed' scans sign codes; use the 'binary' or 'itq' prefilter")
+        if prefilter in ("pca", "itq") and projector is None:
+            raise ValueError(
+                f"prefilter={prefilter!r} needs a fitted projector (fit_pca / fit_itq)")
+        check_selection("approx", recall_target)
         self.dim = dim
         self.capacity = capacity
         self.metric = metric
         self.prefilter = prefilter
         self.pool = pool
         self.store_dtype = store_dtype
+        self.recall_target = recall_target
+        self.seed = seed
+        self.stage1 = stage1
         self.device = resolve_device(device)
         self.size = 0
-        if prefilter == "itq":
-            if projector is None:
-                raise ValueError("prefilter='itq' needs a fitted projector (fit_itq)")
-            self._proj_mean = torch.as_tensor(
-                np.asarray(projector.mean, np.float32), device=self.device)
-            self._proj_comp = torch.as_tensor(
-                np.asarray(projector.components, np.float32), device=self.device)
-            n_bits = self._proj_comp.shape[0]
-        elif projection is None:
-            g = torch.Generator().manual_seed(seed)
-            self._projection = torch.randn(dim, n_bits, generator=g).to(self.device)
-        else:
-            self._projection = torch.as_tensor(projection, dtype=torch.float32,
-                                               device=self.device)
-            if self._projection.shape != (dim, n_bits):
-                raise ValueError(
-                    f"projection must be [{dim}, {n_bits}], got "
-                    f"{tuple(self._projection.shape)}"
-                )
+        if prefilter in ("pca", "itq"):
+            self._proj_mean = _f32(projector.mean, self.device)
+            self._proj_comp = _f32(projector.components, self.device)
+            self._proj_explained = float(projector.explained)
+            if prefilter == "itq":
+                n_bits = self._proj_comp.shape[0]
+        elif prefilter == "binary":
+            if projection is None:
+                g = torch.Generator().manual_seed(seed)
+                self._projection = torch.randn(dim, n_bits, generator=g).to(self.device)
+            else:
+                self._projection = _f32(projection, self.device)
+                if self._projection.shape != (dim, n_bits):
+                    raise ValueError(
+                        f"projection must be [{dim}, {n_bits}], got "
+                        f"{tuple(self._projection.shape)}"
+                    )
         self.n_bits = n_bits
         self._buf = torch.zeros((capacity, dim), dtype=store_dtype, device=self.device)
-        self._codes_index = BinaryIndex(n_bits, capacity, "packed", device=self.device)
+        self._codes_index = None
+        self._scales = None
+        if stage1 == "packed":
+            self._codes_index = BinaryIndex(n_bits, capacity, "packed", device=self.device)
+        elif prefilter in ("binary", "itq"):
+            self._codes = -torch.ones((capacity, n_bits), dtype=torch.bfloat16,
+                                      device=self.device)
+        elif prefilter == "int8x8":
+            self._codes = torch.zeros((capacity, dim), dtype=torch.int8, device=self.device)
+            self._scales = torch.zeros(capacity, dtype=torch.float32, device=self.device)
+        else:
+            self._codes = torch.zeros((capacity, self._proj_comp.shape[0]),
+                                      dtype=torch.bfloat16, device=self.device)
 
     @property
     def ntotal(self) -> int:
         return self.size
 
-    def _codes(self, x: torch.Tensor) -> torch.Tensor:
-        """Stage-1 sign codes [m, n_bits] of f32 rows (f32 products)."""
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """'pca' codes: the projection, L2-normalized, in bf16."""
+        y = (x - self._proj_mean) @ self._proj_comp.T
+        return l2_normalize(y, eps=1e-24).to(torch.bfloat16)
+
+    def _encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Stage-1 codes of f32 rows (f32 products), with their int8 scales
+        under 'int8x8'."""
         if self.prefilter == "binary":
-            return _signs(x @ self._projection)
-        return _signs((x - self._proj_mean) @ self._proj_comp.T)
+            return _signs(x @ self._projection), None
+        if self.prefilter == "itq":
+            return _signs((x - self._proj_mean) @ self._proj_comp.T), None
+        if self.prefilter == "int8x8":
+            return mips_int8.quantize_rows_int8(x)
+        return self._project(x), None
 
     def _rows(self, x) -> torch.Tensor:
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
@@ -137,38 +209,112 @@ class TwoStageIndex:
         return l2_normalize(x) if self.metric == "cos" else x
 
     def add(self, emb) -> None:
-        """Append [m, d] embeddings: the re-rank rows and their codes."""
+        """Append [m, d] embeddings: the re-rank rows and their stage-1
+        codes."""
         emb = self._rows(emb)
-        m = emb.shape[0]
-        if self.size + m > self.capacity:
-            raise ValueError(f"index full: {self.size}+{m} > capacity {self.capacity}")
-        self._buf[self.size: self.size + m] = emb.to(self.store_dtype)
-        self._codes_index.add(self._codes(emb))
-        self.size += m
+        start, m = self.size, emb.shape[0]
+        if start + m > self.capacity:
+            raise ValueError(f"index full: {start}+{m} > capacity {self.capacity}")
+        self._buf[start: start + m] = emb.to(self.store_dtype)
+        codes, scales = self._encode(emb)
+        if self._codes_index is not None:
+            self._codes_index.add(codes)
+        else:
+            self._codes[start: start + m] = codes
+            if scales is not None:
+                self._scales[start: start + m] = scales
+        self.size = start + m
+
+    def remove_ids(self, ids) -> int:
+        """Remove rows by position (FAISS ``remove_ids``): surviving rows
+        renumber as ``index.dense.compaction_plan`` says. The re-rank rows,
+        the codes and the int8 scales move together; a packed stage 1 runs
+        ``BinaryIndex.remove_ids`` with the same ids, hence the same plan.
+        Returns the number of rows removed."""
+        src, dst, new_size = compaction_plan(self.size, ids)
+        if src.size:
+            s = torch.from_numpy(src.astype(np.int64)).to(self.device)
+            d = torch.from_numpy(dst.astype(np.int64)).to(self.device)
+            bufs = [self._buf, self._scales]
+            if self._codes_index is None:
+                bufs.append(self._codes)
+            for buf in bufs:
+                if buf is not None:
+                    buf[d] = buf[s]  # src >= new_size > dst: no overlap
+        if self._codes_index is not None:
+            self._codes_index.remove_ids(ids)
+        removed = self.size - new_size
+        self.size = new_size
+        return removed
+
+    def _stored_rows(self, ids) -> torch.Tensor:
+        """Stored full-width rows by position as f32 [m, d] on the device."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.size):
+            raise IndexError(f"reconstruct ids must lie in [0, {self.size})")
+        return self._buf[torch.from_numpy(ids).to(self.device)].float()
 
     def reconstruct_batch(self, ids) -> np.ndarray:
         """Stored full-width rows by position, [m, d] float32, as the re-rank
         scores them."""
-        ids = np.asarray(ids, np.int64).reshape(-1)
-        if ids.size and (ids.min() < 0 or ids.max() >= self.size):
-            raise IndexError(f"reconstruct ids must lie in [0, {self.size})")
-        return self._buf[torch.from_numpy(ids).to(self.device)].float().cpu().numpy()
+        return self._stored_rows(ids).cpu().numpy()
 
     def reconstruct(self, i: int) -> np.ndarray:
         return self.reconstruct_batch([int(i)])[0]
 
+    def merge_from(self, other, batch: int = 65536) -> int:
+        """Append ``other``'s stored rows (``faiss.Index.merge_from``):
+        ``other`` is a ``TwoStageIndex`` or a non-centered ``DenseIndex`` of
+        the same dim and metric. The rows stream through :meth:`add` in
+        ``batch`` chunks on the device, so the codes are made under this
+        index's prefilter; ids shift by ``self.ntotal`` and ``other`` is
+        left intact. Returns the row count appended."""
+        if not isinstance(other, (TwoStageIndex, DenseIndex)):
+            raise TypeError(
+                "merge_from source must be a TwoStageIndex or DenseIndex "
+                f"(positional reconstruct ids), got {type(other).__name__}")
+        if (other.dim, other.metric) != (self.dim, self.metric):
+            raise ValueError(
+                "merge_from requires identical dim/metric: "
+                f"({self.dim},{self.metric}) vs ({other.dim},{other.metric})")
+        if isinstance(other, DenseIndex) and other._center is not None:
+            raise ValueError(
+                "cannot merge centered-cosine rows: the stored rows are "
+                "post-center-transform and this index scores raw cosine")
+        if self.size + other.size > self.capacity:
+            raise ValueError(f"index full: {self.size}+{other.size} > {self.capacity}")
+        for start in range(0, other.size, batch):
+            self.add(other._stored_rows(np.arange(start, min(start + batch, other.size))))
+        return other.size
+
     def _stage1(self, qn: torch.Tensor, pool: int, row_mask=None) -> torch.Tensor:
-        """Exact Hamming top-``pool`` ids [q, pool] (int64, -1 missing)."""
-        _, idx = self._codes_index.search_device(self._codes(qn), pool,
-                                                 row_mask=row_mask)
-        return idx
+        """Top-``pool`` ids [q, pool] of stage 1 (int64, -1 missing);
+        ``row_mask`` is a bool tensor over the rows [0, size) or None."""
+        size = self.size
+        if self._codes_index is not None:
+            codes, _ = self._encode(qn)
+            return self._codes_index.search_device(codes, pool, row_mask=row_mask)[1]
+        kw = dict(chunk_size=STAGE1_CHUNK, mode="approx",
+                  recall_target=self.recall_target, row_mask=row_mask)
+        if self.prefilter in ("binary", "itq"):
+            codes, _ = self._encode(qn)
+            return hamming.sign_topk(codes, self._codes[:size], pool, self.n_bits, **kw)[1]
+        if self.prefilter == "int8x8":
+            q8, q_scales = mips_int8.quantize_rows_int8(qn)
+            return chunked_topk(q8, self._codes[:size], pool, score_dtype=torch.bfloat16,
+                                corpus_scales=self._scales[:size], query_scales=q_scales,
+                                **kw)[1]
+        return chunked_topk(self._project(qn), self._codes[:size], pool,
+                            score_dtype=torch.bfloat16, **kw)[1]
 
     def search_device(self, queries, k: int, pool: Optional[int] = None,
                       row_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """:meth:`search` returning tensors on the index's device."""
         pool = min(max(pool or self.pool, k), max(self.capacity, 1))
         qn = self._rows(queries)
-        cand = self._stage1(qn, pool, row_mask=row_mask)
+        mask = (None if row_mask is None
+                else positional_mask(row_mask, self.size, self.capacity, self.device))
+        cand = self._stage1(qn, pool, row_mask=mask)
         return rerank_topk(qn, self._buf, cand, k)
 
     def search(self, queries, k: int, pool: Optional[int] = None, row_mask=None
@@ -180,18 +326,153 @@ class TwoStageIndex:
         vals, idx = self.search_device(queries, k, pool, row_mask)
         return vals.cpu().numpy(), idx.cpu().numpy()
 
-    def remove_ids(self, ids) -> int:
-        raise _not_ported("remove_ids", 6)
-
-    def merge_from(self, other, batch: int = 65536) -> int:
-        raise _not_ported("merge_from", 6)
-
+    # --- persistence: the JAX index's npz, key for key (+ 'projection')
     def snapshot(self) -> dict:
-        raise _not_ported("snapshots", 6)
+        """Phase 1 of a two-phase save: point-in-time copies, on the device,
+        of the serving buffers (``add`` and ``remove_ids`` write them in
+        place), and the host configuration. Pair with
+        :meth:`write_snapshot` on another thread."""
+        size = self.size
+        snap = {
+            "buf": self._buf[:size].clone(),
+            "dim": self.dim,
+            "capacity": self.capacity,
+            "metric": self.metric,
+            "prefilter": self.prefilter,
+            "n_bits": self.n_bits,
+            "pool": self.pool,
+            "store_dtype": _DTYPE_NAMES[self.store_dtype],
+            "recall_target": self.recall_target,
+            "seed": self.seed,
+            "stage1": self.stage1,
+        }
+        if self.prefilter == "int8x8":
+            snap["scales"] = self._scales[:size].clone()
+        if self.prefilter in ("pca", "itq"):
+            snap["proj_mean"] = self._proj_mean.cpu().numpy()
+            snap["proj_comp"] = self._proj_comp.cpu().numpy()
+            snap["proj_explained"] = self._proj_explained
+        if self.prefilter == "binary":
+            snap["projection"] = self._projection.cpu().numpy()
+        if self._codes_index is not None:
+            ci = self._codes_index
+            snap["codes_packed_t"] = ci._buf[: ci._t_used_rows()].clone()
+            snap["codes_block_rows"] = ci.block_rows
+        elif self._codes.dtype == torch.bfloat16:
+            # sign and unit-norm codes round-trip through f16 unchanged in rank
+            snap["codes_f16"] = self._codes[:size].to(torch.float16)
+        else:
+            snap["codes"] = self._codes[:size].clone()
+        return snap
+
+    @staticmethod
+    def write_snapshot(snap: dict, path: str) -> None:
+        """Phase 2: download the captured tensors in ~4 MB row blocks and
+        write the npz. bf16 rows are stored as their raw uint16 bits
+        (``buf_u16``), f32 rows as ``buf``."""
+        snap = dict(snap)
+        buf = snap.pop("buf")
+        if buf.dtype == torch.bfloat16:
+            snap["buf_u16"] = to_host_chunked(buf.view(torch.int16)).view(np.uint16)
+        else:
+            snap["buf"] = to_host_chunked(buf.float())
+        for key in ("scales", "codes_packed_t", "codes_f16", "codes"):
+            if key in snap:
+                snap[key] = to_host_chunked(snap[key])
+        np.savez(path, **snap)
 
     def save(self, path: str) -> None:
-        raise _not_ported("snapshots", 6)
+        self.write_snapshot(self.snapshot(), path)
 
     @classmethod
-    def load(cls, path: str, capacity: Optional[int] = None, **kw) -> "TwoStageIndex":
-        raise _not_ported("snapshots", 6)
+    def load(cls, path: str, capacity: Optional[int] = None, *, device,
+             projection=None, **kw) -> "TwoStageIndex":
+        """Restore a snapshot of either package, with its serving
+        configuration; ``pool`` may be overridden. A 'binary' file must
+        carry its SimHash projection (the port writes it) or be given one
+        (``projection=``, e.g. ``weights.simhash_projection`` of the JAX
+        index's); an explicit ``projection`` wins."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+            prefilter = str(z["prefilter"])
+            projector = None
+            if prefilter in ("pca", "itq"):
+                projector = PCAProjector(np.asarray(z["proj_mean"], np.float32),
+                                         np.asarray(z["proj_comp"], np.float32),
+                                         float(z["proj_explained"]))
+            if prefilter == "binary" and projection is None:
+                if "projection" not in z:
+                    raise ValueError(
+                        f"{path}: a 'binary' snapshot without its SimHash projection "
+                        "(the JAX package stores only the seed); pass projection= "
+                        "(weights.simhash_projection of the JAX index's)")
+                projection = z["projection"]
+            idx = cls(
+                int(z["dim"]), capacity or int(z["capacity"]), device=device,
+                metric=str(z["metric"]), prefilter=prefilter, n_bits=int(z["n_bits"]),
+                pool=int(kw.pop("pool", int(z["pool"]))),
+                store_dtype=_named_dtype(str(z["store_dtype"])),
+                recall_target=float(z["recall_target"]), projector=projector,
+                seed=int(z["seed"]),
+                stage1=str(z["stage1"]) if "stage1" in z else "matmul",
+                projection=projection if prefilter == "binary" else None, **kw,
+            )
+            if "buf_u16" in z:  # bf16 rows as raw bit patterns
+                buf = torch.from_numpy(z["buf_u16"].view(np.int16)).view(torch.bfloat16)
+            else:
+                buf = torch.from_numpy(z["buf"])
+            n = buf.shape[0]
+            if n > idx.capacity:
+                raise ValueError(f"snapshot holds {n} rows > capacity {idx.capacity}")
+            if not n:
+                return idx
+            idx._buf[:n] = buf.to(idx.device, idx.store_dtype)
+            ci = idx._codes_index
+            if ci is None:
+                codes = (torch.from_numpy(z["codes_f16"]).to(torch.bfloat16)
+                         if "codes_f16" in z else torch.from_numpy(z["codes"]))
+                idx._codes[:n] = codes.to(idx.device)
+            elif "codes_packed_t" in z:
+                block_rows = (int(z["codes_block_rows"]) if "codes_block_rows" in z
+                              else ci.block_rows)
+                if block_rows != ci.block_rows:
+                    raise ValueError(
+                        f"pack block mismatch: snapshot {block_rows} vs {ci.block_rows}")
+                words = torch.from_numpy(z["codes_packed_t"])
+                ci._buf[: words.shape[0]] = words.to(idx.device)
+                ci.size = n
+            else:  # legacy row-major packed codes
+                ci.add(hamming.unpack_bits_np(z["codes_packed"], ci.n_bits))
+            if prefilter == "int8x8":
+                idx._scales[:n] = torch.from_numpy(
+                    np.asarray(z["scales"], np.float32)).to(idx.device)
+        idx.size = n
+        return idx
+
+
+def build_twostage_index(
+    emb,
+    prefilter: str = "binary",
+    pca_dim: int = 64,
+    metric: str = "cos",
+    *,
+    device,
+    **kw,
+) -> TwoStageIndex:
+    """One-shot construction from a full corpus [n, d] (numpy or tensor).
+    For 'pca' / 'itq' the projector is fitted on the corpus itself
+    (``fit_pca`` / ``fit_itq`` on the L2-normalized rows under 'cos', as
+    indexed); 'itq' fits ``n_bits`` directions (kw ``n_bits``, default
+    256)."""
+    dev = resolve_device(device)
+    emb = torch.as_tensor(np.asarray(emb, np.float32) if not isinstance(emb, torch.Tensor)
+                          else emb).to(dev, torch.float32)
+    projector = None
+    if prefilter in ("pca", "itq"):
+        rows = l2_normalize(emb) if metric == "cos" else emb
+        d = emb.shape[1]
+        projector = (fit_pca(rows, min(pca_dim, d)) if prefilter == "pca"
+                     else fit_itq(rows, min(int(kw.get("n_bits", 256)), d)))
+    idx = TwoStageIndex(emb.shape[1], emb.shape[0], device=dev, metric=metric,
+                        prefilter=prefilter, projector=projector, **kw)
+    idx.add(emb)
+    return idx

@@ -8,10 +8,13 @@ Three scans of sign codes, each exact:
 - :func:`packed_t_topk`: transposed-packed codes, unpacked to +-1 bf16
   inside the kernel and ranked by sign products (K4, ``ops/packed.py``);
 - :func:`sign_topk`: +-1 bf16 rows through the fused score scan (K1,
-  ``ops/mips.py``). For +-1 vectors ``dot = n_bits - 2 * hamming``, so the
-  inner-product ranking is the Hamming ranking.
+  ``ops/mips.py``, chunked by ``ops/topk.py`` ``chunked_topk``). For +-1
+  vectors ``dot = n_bits - 2 * hamming``, so the inner-product ranking is
+  the Hamming ranking.
 
-The numpy helpers (``pack_bits_np``, ``unpack_bits_np``, ``pack_bits_t_np``,
+``unpack_bits_t`` (JAX :116, the device inverse of ``pack_bits_t``) lives
+in ``ops/packed.py`` beside K4 and is re-exported here. The numpy helpers
+(``pack_bits_np``, ``unpack_bits_np``, ``pack_bits_t_np``,
 ``unpack_bits_t_np``, ``t_slot_coords``, ``oracle_hamming_np``) are copied
 as they are: the JAX module imports ``jax`` at its top. Distances are int32,
 ids int64, missing slots (INT32_MAX, -1).
@@ -24,7 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sessionsimilaritysearch_tpu_torch.ops import mips, packed, popcount
+from sessionsimilaritysearch_tpu_torch.ops import packed, popcount, topk
 from sessionsimilaritysearch_tpu_torch.ops.packed import (  # noqa: F401
     INT32_MAX,
     TBLOCK,
@@ -217,26 +220,23 @@ def sign_topk(
     c_signs: torch.Tensor,
     k: int,
     n_bits: int,
+    chunk_size: int = 1 << 20,
     mode: str = "exact",
+    recall_target: float = 0.95,
     valid_count: Optional[int] = None,
     row_mask=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Hamming top-k via the +-1 product scan (K1). ``q_signs`` / ``c_signs``
-    are +-1, [*, n_bits]. Scores are bf16 for codes up to 256 bits (exact:
-    every integer of magnitude <= 256 is a bf16) and f32 above. Same
-    conventions as :func:`hamming_topk`.
-
-    ``mode='approx'`` (``lax.approx_max_k`` in JAX) is not ported: ROADMAP.md
-    Queue 1 item 2 has the open choice of an approximate selection on a GPU."""
-    if mode != "exact":
-        raise NotImplementedError(
-            f"sign_topk mode={mode!r} is not ported yet (ROADMAP.md Queue 1 item 2)"
-        )
-    live = _live(c_signs.shape[0], c_signs.device, None, row_mask)
-    vals, idx = mips.exact_topk(
-        q_signs.to(torch.bfloat16).contiguous(),
-        c_signs.to(torch.bfloat16).contiguous(), k,
-        valid_count=valid_count, penalty=_penalty(live),
+    """Hamming top-k via the +-1 product scan (K1, through
+    ``ops.topk.chunked_topk`` in chunks of ``chunk_size`` rows). ``q_signs``
+    / ``c_signs`` are +-1, [*, n_bits]. Scores are bf16 for codes up to 256
+    bits (exact: every integer of magnitude <= 256 is a bf16) and f32
+    above. Same conventions as :func:`hamming_topk`. ``mode`` and
+    ``recall_target`` as in ``chunked_topk``: 'approx' (``lax.approx_max_k``
+    in JAX) runs the exact selection."""
+    vals, idx = topk.chunked_topk(
+        q_signs.to(torch.bfloat16), c_signs.to(torch.bfloat16), k,
+        chunk_size=chunk_size, mode=mode, recall_target=recall_target,
         score_dtype=torch.bfloat16 if n_bits <= 256 else torch.float32,
+        valid_count=valid_count, row_mask=row_mask,
     )
     return packed.dots_to_hamming(vals, idx, n_bits)

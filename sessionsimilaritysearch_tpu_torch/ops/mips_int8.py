@@ -1,6 +1,7 @@
-"""The int8 dense scans: per-row int8 quantization, the fused int8 x int8
-score scan with bucket max (K2) and the exact top-k on it, and the
-bf16 x int8 scan of ``DenseIndex(quantize='int8')``.
+"""The int8 dense scans: per-row int8 quantization, and the fused int8 x
+int8 score scan with bucket max (K2) and the exact top-k on it. (The
+bf16 x int8 scan of ``DenseIndex(quantize='int8')`` is torch ops in
+``ops/topk.py``.)
 
 K2 ports the TPU kernel ``sessionsimilaritysearch_tpu/ops/pallas_mips.py``
 :428 ``_scores_bmax_int8_kernel`` -> :465 ``scores_with_bucket_max_int8`` ->
@@ -166,27 +167,3 @@ def int8_exact_topk(
     )
     vals, idx = mips.select_topk(scores, bmax, k)
     return vals * query_scales.float()[:, None], idx
-
-
-def int8_corpus_topk(
-    queries: torch.Tensor,
-    corpus: torch.Tensor,
-    k: int,
-    corpus_scales: torch.Tensor,
-    penalty: Optional[torch.Tensor] = None,
-    score_dtype: torch.dtype = torch.float32,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k of bf16 queries over int8 codes with per-row scales,
-    the scan of ``DenseIndex(quantize='int8')`` (XLA on the TPU,
-    ``ops/topk.py:309-317``), in torch ops: an f32 product (bf16 x int8
-    products are exact in f32), the row scales, the penalty, the bucket
-    maxes, then :func:`mips.select_topk`."""
-    if queries.dtype != torch.bfloat16 or corpus.dtype != torch.int8:
-        raise TypeError(
-            f"expected bfloat16 queries and int8 codes, got {queries.dtype} "
-            f"and {corpus.dtype}"
-        )
-    s = (queries.float() @ corpus.float().T) * corpus_scales
-    if penalty is not None:
-        s += penalty
-    return mips.select_topk(s.to(score_dtype), mips.bucket_max(s), k)

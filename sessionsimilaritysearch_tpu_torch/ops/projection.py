@@ -1,8 +1,8 @@
 """PCA and ITQ projectors for binary codes (counterpart of
 ``sessionsimilaritysearch_tpu/ops/projection.py``).
 
-``PCAProjector`` :25, ``fit_itq`` :70, ``itq_codes`` :118 and ``fit_pca``
-:126 are numpy; they are copied here because the JAX module imports
+``PCAProjector`` :25 (with ``save`` / ``load`` :60-68), ``fit_itq`` :70,
+``itq_codes`` :118 and ``fit_pca`` :126 are numpy; they are copied here because the JAX module imports
 ``jax.numpy`` for its device branch. A torch tensor is accepted wherever the
 JAX code accepts a jax array: ``PCAProjector`` projects it on its device,
 and the fits sample it before the copy to the host. A ``PCAProjector``
@@ -52,6 +52,17 @@ class PCAProjector(NamedTuple):
             n = np.linalg.norm(y, axis=-1, keepdims=True)
             y = y / np.clip(n, 1e-12, None)
         return y.astype(np.float32)
+
+    def save(self, path: str) -> None:
+        """npz with ``mean``, ``components`` and ``explained``: the JAX
+        ``PCAProjector.save`` file, which either package loads."""
+        np.savez(path, mean=self.mean, components=self.components,
+                 explained=self.explained)
+
+    @classmethod
+    def load(cls, path: str) -> "PCAProjector":
+        with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+            return cls(z["mean"], z["components"], float(z["explained"]))
 
 
 def fit_itq(

@@ -89,8 +89,13 @@ def simhash_projection(jax_projection) -> torch.Tensor:
     (``index/twostage.py:53``), as the float32 [d, n_bits] tensor the port's
     ``TwoStageIndex(projection=...)`` takes. torch cannot draw JAX's random
     stream, so an index that must reproduce the JAX codes is given this
-    array. A JAX snapshot stores only the seed (``twostage.py:408``): to load
-    one, the projection has to be carried across too."""
+    array. A JAX ``'binary'`` snapshot stores only the seed
+    (``twostage.py:408``): the port's ``TwoStageIndex.load`` (and
+    ``SessionSearchEngine.restore``) takes this array as ``projection=`` and
+    raises a ``ValueError`` without it. The port's own ``'binary'`` snapshot
+    adds the projection under the key ``projection``; the JAX package
+    ignores that key and redraws R from the seed, so a port ``'binary'``
+    file does not serve correctly there."""
     arr = np.asarray(jax_projection, np.float32)
     if arr.ndim != 2:
         raise ValueError(f"projection must be [d, n_bits], got {arr.shape}")

@@ -317,9 +317,21 @@ class TestSignTopk:
         assert mask[i.numpy()].all() and i.max() < 2500
 
     def test_approx_mode_raises(self):
-        q = torch.ones(2, 64)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            hamming.sign_topk(q, q, 1, 64, mode="approx")
+        # 'approx' runs the exact selection (the JAX CPU approx_max_k is
+        # exact too); a mode JAX does not have raises
+        rng = np.random.default_rng(6)
+        c = _signs(rng, 2000, 64)
+        q = c[:5]
+        dj, _ = jham.sign_topk(jnp.asarray(q), jnp.asarray(c), 9, n_bits=64,
+                               mode="approx", recall_target=0.9)
+        d, _ = hamming.sign_topk(_t(q), _t(c), 9, 64, mode="approx", recall_target=0.9)
+        np.testing.assert_array_equal(_sorted(d), _sorted(dj))
+        de, _ = hamming.sign_topk(_t(q), _t(c), 9, 64, chunk_size=700)
+        np.testing.assert_array_equal(_sorted(de), _sorted(dj))
+        with pytest.raises(ValueError, match="selection mode"):
+            hamming.sign_topk(_t(q), _t(c), 1, 64, mode="fast")
+        with pytest.raises(ValueError, match="recall_target"):
+            hamming.sign_topk(_t(q), _t(c), 1, 64, mode="approx", recall_target=1.5)
 
 
 class TestBinaryIndex:
@@ -419,16 +431,34 @@ class TestBinaryIndex:
 
     @pytest.mark.parametrize("call", ["remove_ids", "range_search", "merge_from",
                                       "save", "load"])
-    def test_unported_methods_raise(self, call):
+    def test_unported_methods_raise(self, call, tmp_path):
+        # every verb is ported; each still refuses what the JAX index refuses
         t = BinaryIndex(64, 100, "packed", device="cpu")
-        args = {"remove_ids": ([0],), "range_search": (np.ones((1, 64)), 3.0),
-                "merge_from": (t,), "save": ("x",), "load": ("x",)}[call]
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            getattr(t if call != "load" else BinaryIndex, call)(*args)
+        t.add(np.ones((10, 64)))
+        if call == "remove_ids":
+            with pytest.raises(ValueError, match="remove ids"):
+                t.remove_ids([10])
+        elif call == "range_search":
+            a = BinaryIndex(64, 100, "sign", device="cpu", selection="approx")
+            with pytest.raises(ValueError, match="selection='exact'"):
+                a.range_search(np.ones((1, 64)), 3.0)
+        elif call == "merge_from":
+            with pytest.raises(TypeError, match="BinaryIndex"):
+                t.merge_from(object())
+            with pytest.raises(ValueError, match="width"):
+                t.merge_from(BinaryIndex(32, 10, device="cpu"))
+        else:
+            t.save(str(tmp_path / "b"))
+            with pytest.raises(ValueError, match="capacity"):
+                BinaryIndex.load(str(tmp_path / "b"), capacity=5, device="cpu")
 
     def test_approx_selection_raises(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            BinaryIndex(64, 100, "sign", device="cpu", selection="approx")
+        with pytest.raises(ValueError, match="sign-matmul"):
+            BinaryIndex(64, 100, "packed", device="cpu", selection="approx")
+        with pytest.raises(ValueError, match="selection"):
+            BinaryIndex(64, 100, "sign", device="cpu", selection="fast")
+        a = BinaryIndex(64, 100, "sign", device="cpu", selection="approx", recall_target=0.9)
+        assert (a.selection, a.recall_target) == ("approx", 0.9)
 
 
 class TestCodes:

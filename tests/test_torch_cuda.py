@@ -603,3 +603,98 @@ def test_flagship_serving_on_the_card_matches_the_cpu(dev, pooling):
     got, want = out["cuda"].astype(np.float64), out["cpu"].astype(np.float64)
     cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(want, axis=1))
     assert cos.min() >= 0.999 and np.abs(got - want).max() <= 2.0**-6 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("mode", ["exact", "approx", "sort"])
+@pytest.mark.parametrize("kind", ["bf16", "f32_l2", "int8x8"])
+def test_chunked_topk_on_card_matches_cpu(dev, mode, kind):
+    # the selection layer: K1 (bf16, f32 with l2's penalty) or K2 per chunk,
+    # ragged chunks, valid_count and a row mask, against the CPU's plain run
+    from sessionsimilaritysearch_tpu_torch.ops import topk
+
+    g = torch.Generator().manual_seed(12)
+    q = torch.randn(37, 208, generator=g)
+    c = torch.randn(5003, 208, generator=g)
+    mask = torch.rand(5003, generator=g) < 0.8
+    kw = dict(chunk_size=2048, mode=mode, valid_count=4500, row_mask=mask)
+    if kind == "bf16":
+        args, kw["score_dtype"] = (q.bfloat16(), c.bfloat16()), torch.bfloat16
+    elif kind == "f32_l2":
+        args, kw["metric"] = (q, c), "l2"
+    else:
+        q8, qs = mips_int8.quantize_rows_int8(q)
+        c8, cs = mips_int8.quantize_rows_int8(c)
+        args = (q8, c8)
+        kw.update(corpus_scales=cs, query_scales=qs)
+    before = (mips.launch_count, mips_int8.launch_count)
+    on_card = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    v, i = topk.chunked_topk(*(a.to(dev) for a in args), 10, **on_card)
+    v_ref, i_ref = topk.chunked_topk(*args, 10, **kw)
+    launched = (mips.launch_count - before[0], mips_int8.launch_count - before[1])
+    assert launched == ((0, 3) if kind == "int8x8" else (3, 0))
+    scale = v_ref.abs().amax(dim=1, keepdim=True)
+    tol = 2 * 2.0**-8 if kind == "bf16" else 1e-5
+    assert ((v.cpu() - v_ref).abs() <= tol * scale).all()
+    assert mask[i.cpu()].all() and (i.cpu() < 4500).all()
+
+
+@pytest.mark.parametrize("mode", ["packed", "sign"])
+def test_binary_verbs_on_card_match_cpu(dev, mode, tmp_path):
+    # remove_ids (packed: the bit moves), refill, merge and a snapshot on the
+    # card leave the same buffer as on the CPU, word for word
+    g = torch.Generator().manual_seed(13)
+    codes = torch.where(torch.rand(6000, 256, generator=g) < 0.5, 1.0, -1.0)
+    ids = torch.randperm(5000, generator=g)[:400].numpy()
+    pair = [BinaryIndex(256, 8192, mode, device=d) for d in (dev, "cpu")]
+    for idx in pair:
+        idx.add(codes[:5000])
+        idx.remove_ids(ids)
+        idx.add(codes[5000:])
+    assert torch.equal(pair[0]._buf.cpu(), pair[1]._buf)
+    (d, _), (d_ref, _) = pair[0].search(codes[:16], 20), pair[1].search(codes[:16], 20)
+    np.testing.assert_array_equal(np.sort(d, 1), np.sort(d_ref, 1))
+    pair[0].save(str(tmp_path / "b"))
+    back = BinaryIndex.load(str(tmp_path / "b"), device=dev)
+    assert torch.equal(back._buf[: pair[0]._buf.shape[0]], pair[0]._buf)
+    merged = BinaryIndex(256, 16384, "sign" if mode == "packed" else "packed", device=dev)
+    merged.merge_from(pair[0])
+    np.testing.assert_array_equal(merged.reconstruct_batch(np.arange(5600)),
+                                  pair[1].reconstruct_batch(np.arange(5600)))
+
+
+@pytest.mark.parametrize("prefilter,stage1,n_bits", [
+    ("binary", "matmul", 256), ("itq", "matmul", 250), ("int8x8", "matmul", 0),
+    ("pca", "matmul", 64), ("itq", "packed", 250)])
+def test_twostage_tiers_on_card_match_cpu(dev, prefilter, stage1, n_bits, tmp_path):
+    # every stage 1 on the card (K1 wgmma at 256 bits and pca 64, K1 tile at
+    # 250, K2, K4) after a removal, against the CPU's plain run of the same
+    # index with a pool of every row (f32 products in another order may
+    # flip a near-zero code bit, so a partial pool may differ at its edge),
+    # and a snapshot round trip on the card with a pool of 64
+    from sessionsimilaritysearch_tpu_torch.ops.projection import fit_itq, fit_pca
+
+    g = torch.Generator().manual_seed(14)
+    rows = torch.nn.functional.normalize(torch.randn(4096, 320, generator=g), dim=1)
+    proj = (fit_itq(rows[:2048], n_bits) if prefilter == "itq"
+            else fit_pca(rows[:2048], n_bits) if prefilter == "pca" else None)
+    kw = dict(prefilter=prefilter, stage1=stage1, projector=proj, n_bits=n_bits or 256,
+              pool=64)
+    pair = [TwoStageIndex(320, 4096, device=d, **kw) for d in (dev, "cpu")]
+    for idx in pair:
+        idx.add(rows)
+        idx.remove_ids(np.arange(0, 4096, 5))
+    counts = (mips.launch_count, mips_int8.launch_count, packed.launch_count)
+    q = rows[1:33] + 0.1 * torch.randn(32, 320, generator=g)
+    D, I = pair[0].search(q, 10, pool=4096)
+    D_ref, _ = pair[1].search(q, 10, pool=4096)
+    launched = [a - b for a, b in zip((mips.launch_count, mips_int8.launch_count,
+                                       packed.launch_count), counts)]
+    want = {"int8x8": [0, 1, 0], "packed": [0, 0, 1]}.get(
+        prefilter if prefilter == "int8x8" else stage1, [1, 0, 0])
+    assert launched == want
+    np.testing.assert_allclose(D, D_ref, atol=1e-5, rtol=0)
+    pool64 = pair[0].search(q, 10)
+    pair[0].save(str(tmp_path / "s"))
+    back = TwoStageIndex.load(str(tmp_path / "s"), device=dev)
+    for a, b in zip(back.search(q, 10), pool64):
+        np.testing.assert_array_equal(a, b)

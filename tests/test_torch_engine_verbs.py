@@ -362,11 +362,13 @@ def test_centered_engine_matches_jax(parts):
     _same_search(j.search(data[:6], k=4), t.search(data[:6], k=4), t)
 
 
-def test_unported_and_refused(parts):
+def test_unported_and_refused(parts, tmp_path):
     cfg, tok, data, _, tenc = parts
     kw = dict(dim=cfg.session_emb_dim, capacity=64, batch_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        SessionSearchEngine(*_port_side(cfg), tenc, mode="approx", **kw)
+    # mode= and the two-stage verbs are ported (test_torch_twostage_verbs.py);
+    # what JAX refuses is still refused
+    with pytest.raises(ValueError, match="selection mode"):
+        SessionSearchEngine(*_port_side(cfg), tenc, mode="fast", **kw)
     emb = _port(parts).embed(data)
     proj = fit_itq(emb / np.linalg.norm(emb, axis=1, keepdims=True), 32)
     two = SessionSearchEngine(*_port_side(cfg), tenc, prefilter="itq", stage1="packed",
@@ -374,12 +376,14 @@ def test_unported_and_refused(parts):
     two.add_sessions(data[:8])
     with pytest.raises(ValueError, match="two-stage"):
         two.range_search(data[:2], 0.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        two.remove_sessions(ids=[0])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        two.save("unused")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        two.restore("unused")
+    with pytest.raises(ValueError, match="remove ids"):
+        two.remove_sessions(ids=[8])
+    with pytest.raises(FileNotFoundError):
+        two.restore(str(tmp_path / "missing"))
+    assert two.index is None  # the live index is dropped before the load
+    two = SessionSearchEngine(*_port_side(cfg), tenc, prefilter="itq", stage1="packed",
+                              projector=proj, pool=64, **kw)
+    two.add_sessions(data[:8])
     assert two.index.ntotal == 8 and len(two.sessions) == 8
     with pytest.raises(ValueError, match="center"):
         SessionSearchEngine(*_port_side(cfg), tenc, prefilter="itq", stage1="packed",

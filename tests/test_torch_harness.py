@@ -165,8 +165,16 @@ def test_evaluate_binary(split, mode):
         assert set(a[inside]) == set(b[inside])
     if np.array_equal(got.I, np.asarray(want.I)):
         _reports_equal(got.report, want.report)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        th.evaluate_binary(db, q, sessions, test, selection="approx", device=CPU)
+    # selection='approx' (sign mode) selects exactly: the exact run's result
+    if mode == "sign":
+        ap = th.evaluate_binary(db, q, sessions, test, k=8, mode=mode, selection="approx",
+                                recall_target=0.9, device=CPU)
+        np.testing.assert_array_equal(ap.D, got.D)
+        np.testing.assert_array_equal(ap.I, got.I)
+    else:
+        with pytest.raises(ValueError, match="sign-matmul"):
+            th.evaluate_binary(db, q, sessions, test, selection="approx", mode=mode,
+                               device=CPU)
 
 
 def test_evaluate_knn_runners(cfg, tok, split, encoders):

@@ -512,9 +512,13 @@ def test_load_refuses_what_the_port_lacks(tmp_path):
     j.add(rows)
     path = str(tmp_path / "approx")
     j.save(path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        DenseIndex.load(path, device="cpu")
+    # the selection mode travels with the snapshot; one the JAX package does
+    # not have is refused
+    assert DenseIndex.load(path, device="cpu").mode == "approx"
+    with pytest.raises(ValueError, match="selection mode"):
+        DenseIndex.load(path, device="cpu", mode="fast")
     t = DenseIndex.load(path, device="cpu", mode="exact")  # an explicit override wins
+    assert t.mode == "exact"
     assert t.score_dtype == torch.bfloat16 and t.chunk_size == 16 and t.ntotal == 32
     q8 = build_index(rows, quantize="int8", device="cpu")
     q8.save(str(tmp_path / "q8"))

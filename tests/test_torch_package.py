@@ -4,6 +4,7 @@ fails loudly, and chip_smoke.py refuses to run without a card."""
 
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -141,6 +142,18 @@ def test_no_source_imports_the_jax_package():
             bad += [f"{f.relative_to(REPO)}:{node.lineno} {n}" for n in names
                     if _jax_package_or_jax(n)]
     assert not bad, bad
+
+
+def test_no_message_names_the_ported_roadmap_items():
+    # Queue 1 items 2 (the selection modes) and 6 (the binary and two-stage
+    # tiers) are ported: no source of the port may still refuse something
+    # naming them, and no NotImplementedError may be left behind for them
+    files = sorted(Path(port.__path__[0]).rglob("*.py"))
+    bad = [f"{f.relative_to(REPO)}:{n}" for f in files
+           for n, line in enumerate(f.read_text().splitlines(), 1)
+           if re.search(r"Queue 1 items? [26]\b", line)]
+    assert not bad, bad
+    assert port.TwoStageIndex(8, 4, device="cpu").stage1 == "matmul"  # the JAX default
 
 
 def test_cuda_without_a_card_raises():

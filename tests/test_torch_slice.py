@@ -141,9 +141,9 @@ def test_where_filter(parts):
                                 {"prefilter": "binary"}, {"center": "auto"}])
 def test_unported_engine_options_raise(parts, kw):
     # the port's engine has no mesh yet: a call that sets one raises naming
-    # its ROADMAP item, never served by the plain dense path; so does a
-    # prefilter with the default stage1='matmul' (approximate selection).
-    # quantize and center are ported since: each builds and searches.
+    # its ROADMAP item, never served by the plain dense path. quantize,
+    # center and a prefilter with the default stage1='matmul' are ported
+    # since: each builds and searches.
     cfg, tok, data, encode_fn, tenc = parts
     if "quantize" in kw:
         t = SessionSearchEngine(*_port_side(cfg), tenc, dim=cfg.session_emb_dim,
@@ -165,8 +165,15 @@ def test_unported_engine_options_raise(parts, kw):
         np.testing.assert_allclose(Dt, Dj, atol=TOL, rtol=0)
         np.testing.assert_array_equal(It[:, 0], np.arange(5))
         return
-    match = "Queue 1 item 2" if "prefilter" in kw else "Queue 1 item 8"
-    with pytest.raises(NotImplementedError, match=match):
+    if "prefilter" in kw:
+        t = SessionSearchEngine(*_port_side(cfg), tenc, dim=cfg.session_emb_dim,
+                                capacity=64, batch_size=8, device="cpu", pool=64, **kw)
+        t.add_sessions(data[:20])
+        D, It = t.search(data[:5], k=3)
+        assert t.index.stage1 == "matmul" and t.index.ntotal == 20
+        np.testing.assert_array_equal(It[:, 0], np.arange(5))
+        return
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         SessionSearchEngine(cfg, tok, tenc, dim=cfg.session_emb_dim,
                             capacity=8, device="cpu", **kw)
 

@@ -106,9 +106,16 @@ class TestRerankTopk:
 
     @pytest.mark.parametrize("kw", [{"metric": "l2"}, {"corpus_scales": np.ones(5)}])
     def test_unported_options_raise(self, kw):
-        x = torch.zeros(2, 4)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            rerank_topk(x, x, torch.zeros(2, 2, dtype=torch.int64), 1, **kw)
+        # both options are ported (held to JAX in test_torch_selection.py);
+        # together, or with an unknown metric, they are refused as in JAX
+        x = torch.zeros(5, 4)
+        cand = torch.zeros(2, 2, dtype=torch.int64)
+        kw = {"corpus_scales": torch.ones(5), **kw} if "metric" in kw else {
+            "metric": "l2", "corpus_scales": torch.ones(5)}
+        with pytest.raises(ValueError, match="'ip'/'cos' only"):
+            rerank_topk(x[:2], x, cand, 1, **kw)
+        with pytest.raises(ValueError, match="metric"):
+            rerank_topk(x[:2], x, cand, 1, metric="hamming")
 
 
 class TestTwoStageIndex:
@@ -131,7 +138,7 @@ class TestTwoStageIndex:
         j, t = _pair(prefilter, c, pool=pool)
         qn = _unit(q)
         # stage 1: the same codes, so the same Hamming distances
-        q_codes = t._codes(_t(qn))
+        q_codes = t._encode(_t(qn))[0]
         jq_codes = np.asarray(_jax_q_codes(j, jnp.asarray(qn))).astype(np.float32)
         np.testing.assert_array_equal(q_codes.float().numpy(), jq_codes)
         dj, _ = j._codes_index.search(jq_codes, pool)
@@ -192,17 +199,47 @@ class TestTwoStageIndex:
                                     {"stage1": "packed", "prefilter": "int8x8"},
                                     {"stage1": "packed", "prefilter": "pca"}])
     def test_approximate_stage1_options_raise(self, kw):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            TwoStageIndex(DIM, 8, device="cpu", **kw)
+        # the matmul stage 1 is ported (it selects exactly); a packed stage 1
+        # of codes that are no sign codes is refused, as in JAX
+        if kw["stage1"] == "matmul":
+            t = TwoStageIndex(DIM, 8, device="cpu", **kw)
+            assert t.prefilter == "binary" and t._codes.shape == (8, 256)
+            with pytest.raises(ValueError, match="stage1"):
+                TwoStageIndex(DIM, 8, device="cpu", stage1="sorted")
+            return
+        with pytest.raises(ValueError, match="scans sign codes"):
+            TwoStageIndex(DIM, 8, device="cpu", projector=fit_itq(np.eye(DIM), 8), **kw)
 
     @pytest.mark.parametrize("call", ["remove_ids", "merge_from", "snapshot",
                                       "save", "load"])
-    def test_maintenance_and_snapshots_raise(self, call):
-        t = TwoStageIndex(DIM, 8, device="cpu", stage1="packed")
-        args = {"remove_ids": ([0],), "merge_from": (t,), "snapshot": (),
-                "save": ("x",), "load": ("x",)}[call]
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            getattr(t if call != "load" else TwoStageIndex, call)(*args)
+    def test_maintenance_and_snapshots_raise(self, call, tmp_path):
+        # the verbs are ported (test_torch_twostage_verbs.py); each still
+        # refuses what the JAX index refuses
+        t = TwoStageIndex(DIM, 8, device="cpu", stage1="packed", n_bits=64)
+        t.add(np.ones((4, DIM), np.float32))
+        if call == "remove_ids":
+            with pytest.raises(ValueError, match="remove ids"):
+                t.remove_ids([4])
+        elif call == "merge_from":
+            with pytest.raises(TypeError, match="TwoStageIndex or DenseIndex"):
+                t.merge_from(object())
+        elif call == "snapshot":
+            snap = t.snapshot()
+            t.remove_ids([0, 1])  # the live buffers change in place ...
+            assert snap["buf"].shape[0] == 4  # ... the snapshot does not
+            with pytest.raises(ValueError, match="full"):
+                t.merge_from(_pair("binary", np.ones((9, DIM), np.float32),
+                                   capacity=16)[1])
+        elif call == "save":
+            t.save(str(tmp_path / "s"))
+            with pytest.raises(ValueError, match="capacity"):
+                TwoStageIndex.load(str(tmp_path / "s"), capacity=2, device="cpu")
+        else:
+            j = jts.TwoStageIndex(DIM, 8, n_bits=64, stage1="packed")
+            j.add(np.ones((4, DIM), np.float32))
+            j.save(str(tmp_path / "j"))
+            with pytest.raises(ValueError, match="projection="):
+                TwoStageIndex.load(str(tmp_path / "j"), device="cpu")
 
     def test_bad_arguments_raise(self):
         with pytest.raises(ValueError, match="projector"):
