@@ -93,6 +93,35 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                and torch.profiler device time); a product_pooling='recency'
                engine of 1,024 sessions on the same tables; no batch may take
                the out-of-vocabulary path;
+4g. pretrain -- the port's pretrainer (training/pretrain.py) at Config()
+               width, batch 50, 391,572 asins, seeded random weights:
+               the uncached step (the CLI's path: upload, step, the loss
+               read on the host) 3 warm-up and 20 timed steps on fresh
+               batches (median and p90 ms, sessions/s, the loss curve, every
+               loss finite), then one batch repeated 10 steps with the same
+               draws (the loss must fall); run_training over 10 batches as
+               shipped, with its drop buffer (nan_recovery) and with a host
+               read of the loss between forward and backward, in
+               alternating rounds; a torch.profiler breakdown of
+               make_train_step itself by its record_function spans (text
+               backbone, gnn, pooling, head + loss, backward, clip, adam:
+               the device time of the kernels launched inside each), with
+               the device's busy share of the median step; the
+               cached-tables step (title table over all titles, keyword
+               table) whose loss must equal the uncached one's (rel 1e-5),
+               timed the same way; one step of 8 sessions on the card and on
+               the CPU from the same state and draws: the loss within rel
+               1e-5, and over every parameter leaf whose rms gradient is at
+               least 1e-4 of the rms of all gradients (below, the gradient
+               is rounding noise) the clipped gradient within |card - CPU|
+               / |CPU| <= 1e-3 and the update's cosine >= 0.9999; a
+               checkpoint (size, write and read time) restored into a fresh
+               state, whose next step's loss and metrics equal the
+               uninterrupted run's (rel 1e-6) with the same generator
+               draws; then make_encode_fn over 8,192 sessions into an f32
+               DenseIndex, 256 searched at k=100, every top-1 the session
+               itself (or an identical embedding), every K1 launch the f32
+               wgmma variant;
 4c. f32 kernel -- K1's f32 wgmma variant at q=1024, n=2^20, d=1600 f32 ->
                f32 on seeded f32 unit rows against its plain version, timed
                in the same rounds as the tile loop (through its own C entry
@@ -204,7 +233,7 @@ variant's (launches on phase 4's engine, times at the bench point and the
 engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile variant's at phase 7's sign-mode shape;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
-and for K1, K2 and K4 also the searches of phases 7b, 8 and 9b, counted
+and for K1, K2 and K4 also the searches of phases 4g, 7b, 8 and 9b, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
 holds phase 8's times per tier under ``twostage_tiers``);
@@ -1558,6 +1587,339 @@ def phase_flagship_serving(torch, mips, topk_mod, dev, parts, card, f32_rate):
     return launches, bm_err
 
 
+# pretraining phase: the port's pretrainer at Config() width
+PRE_WARM, PRE_TIMED, PRE_REPEAT = 3, 20, 10  # warm-up, timed and repeated-batch steps
+PRE_PROFILED = 3  # steps in the torch.profiler breakdown
+PRE_LOOP_ROUNDS, PRE_LOOP_STEPS = 4, 10  # run_training rounds (each variant), steps a round
+# the cached-tables step against the uncached one (the JAX package's bound)
+PRE_CACHED_RTOL = 1e-5
+# the card against the CPU on one full-width step of 8 sessions: the loss's
+# relative difference, each parameter leaf's clipped gradient (|card - CPU|
+# / |CPU|; largest 6.21e-05 in two runs on an H100, PERF.md) and update
+# cosine
+PRE_CPU_LOSS_RTOL, PRE_CPU_GRAD_REL, PRE_CPU_UPDATE_COS = 1e-5, 1e-3, 0.9999
+PRE_NOISE_RMS = 1e-4  # a leaf's rms gradient over all gradients' rms: below, rounding noise
+PRE_SPANS = ("text backbone", "gnn", "pooling", "head + loss", "backward", "clip", "adam")
+
+
+def percentile(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def pretrain_steps(torch, step, state, graphs, **kw):
+    """Run one step per graph (a (device graph, extra kwargs) pair); returns
+    the losses and each step's host-clock ms around a synchronized step."""
+    losses, ms = [], []
+    for g, extra in graphs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, g, **extra, **kw)
+        loss = float(m["loss"])  # the loop's host read of the loss
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    return losses, ms
+
+
+def span_device_ms(torch, prof, names, calls) -> dict:
+    """Device ms a call of each ``record_function`` span in ``names``: the
+    kernels and copies launched, from any thread (the backward's run on
+    autograd's), while the span was open on the host, each given to the
+    innermost span around its launch and summed (no gaps); ``other`` the
+    rest; ``host`` each span's host ms a call (under the profiler)."""
+    from torch.autograd import DeviceType
+
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end, e.name) for e in cpu if e.name in names]
+    out = {n: 0.0 for n in (*names, "other")}
+    host = {n: 0.0 for n in names}
+    for t0, t1, name in spans:
+        host[name] += (t1 - t0) / 1e3 / calls
+    for e in cpu:
+        t = sum(k.duration for k in e.kernels)
+        if not t:
+            continue
+        s = e.time_range.start
+        inside = [(t1 - t0, name) for t0, t1, name in spans if t0 <= s <= t1]
+        out[min(inside)[1] if inside else "other"] += t / 1e3 / calls
+    return {"device": out, "host": host}
+
+
+def phase_pretrain(torch, mips, dev, card):
+    """The port's pretrainer at Config() width (batch 50, 391,572 asins),
+    seeded random weights: the uncached step (the CLI's path), a profiled
+    breakdown, the cached-tables step, the card against the CPU,
+    checkpoints, and the trained encoder into an f32 DenseIndex searched
+    through K1. Returns K1's counts on the serving part."""
+    import copy
+
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.data import build_graph_batch
+    from sessionsimilaritysearch_tpu_torch.evalharness import harness as H
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device
+    from sessionsimilaritysearch_tpu_torch.training import pretrain as tp
+    from sessionsimilaritysearch_tpu_torch.training.loop import run_training
+    from sessionsimilaritysearch_tpu_torch.utils.checkpoint import (
+        CheckpointManager,
+        state_to_tree,
+        tree_to_state,
+    )
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.empty_cache()
+    cfg = port.Config()
+    B = cfg.batch_size
+    tok = port.get_tokenizer(cfg.vocab_size)
+    gen = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=1)
+    n_steps = PRE_WARM + PRE_TIMED
+    # sessions with a product: the title table gathers asin 0's real title
+    # for the no-product placeholder node (the JAX package's caveat)
+    sessions = [d for d in gen.dataset(int(1.3 * B * n_steps) + 64) if has_product(d)]
+    check(len(sessions) >= B * n_steps, "pretrain: too few sessions with a product")
+    hosts = [build_graph_batch(sessions[i * B:(i + 1) * B], tok, cfg.dims,
+                               ignore_query=cfg.ignore_query) for i in range(n_steps)]
+    t0 = time.perf_counter()
+    model, state = tp.create_pretrain_state(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    n_frozen = sum(p.numel() for p in model.encoder.query_node_embedder.parameters())
+    step = tp.make_train_step(model)
+    print(f"pretrain Config() [{card}]: {n_params / 1e6:.1f} M parameters ({n_frozen / 1e6:.1f} M "
+          f"in the frozen text backbone, {cfg.asin_num * cfg.emb_len / 1e6:.1f} M in the "
+          f"target asin table), batch {B}, built in {time.perf_counter() - t0:.1f} s")
+
+    # 1. the uncached step (the CLI's path: run_training uploads each batch)
+    graphs = [(to_device(h, dev), {}) for h in hosts]
+    warm, _ = pretrain_steps(torch, step, state, graphs[:PRE_WARM])
+    losses, ms = pretrain_steps(torch, step, state, graphs[PRE_WARM:])
+    check(all(np.isfinite(warm + losses)), f"pretrain: non-finite losses {warm + losses}")
+    med, p90 = percentile(ms, 50), percentile(ms, 90)
+    print(f"  uncached step [{card}]: median {med:.2f} ms, p90 {p90:.2f} ms over {PRE_TIMED} "
+          f"steps after {PRE_WARM} warm-up ({B / med * 1e3:.0f} sessions/s) {smi()}; "
+          f"loss curve {' '.join(f'{x:.4f}' for x in warm + losses)}")
+    # one batch repeated with the same draws: the objective is fixed
+    g0 = graphs[0][0]
+    draws = model.draw(g0, state.generator)
+    rep, _ = pretrain_steps(torch, step, state, [(g0, {"draws": draws})] * (PRE_REPEAT + 1))
+    check(rep[-1] < rep[0], f"pretrain: loss after {PRE_REPEAT} steps on one batch "
+          f"{rep[-1]} is not below the first {rep[0]}")
+    print(f"  one batch repeated: loss {rep[0]:.5f} -> {rep[-1]:.5f} after {PRE_REPEAT} steps")
+
+    # the loop (run_training: upload, step, the host read of the loss) as
+    # shipped, with its drop buffer (nan_recovery, no checkpoint of its own:
+    # a copy of the state before each step), and with a host read of the
+    # loss between the forward and the backward (a forward hook: what a step
+    # that decided on non-finite losses itself would wait for), in
+    # alternating rounds
+    def sync_after_forward(module, args, out):
+        bool(torch.isfinite(out[0]))
+
+    loop_ms = {"loop": [], "loop + drop buffer": [], "loop + sync after forward": []}
+    order = list(loop_ms)
+    for name in (order + order[::-1]) * (PRE_LOOP_ROUNDS // 2):
+        hook = model.register_forward_hook(sync_after_forward) if "sync" in name else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_training(state=state, step_fn=step, train_loader=hosts[:PRE_LOOP_STEPS], epochs=1,
+                     nan_recovery="drop" in name)
+        torch.cuda.synchronize()
+        loop_ms[name].append((time.perf_counter() - t0) * 1e3 / PRE_LOOP_STEPS)
+        if hook is not None:
+            hook.remove()
+    loop_med = {k: percentile(v, 50) for k, v in loop_ms.items()}
+    print(f"  run_training [{card}] ({PRE_LOOP_ROUNDS} rounds of {PRE_LOOP_STEPS} steps, ms a "
+          f"step, median of rounds): " + "; ".join(
+              f"{k} {v:.2f} (rounds {' '.join(f'{x:.2f}' for x in loop_ms[k])})"
+              for k, v in loop_med.items()))
+
+    # 2. the breakdown: torch.profiler over the shipped step, with the
+    # loop's host read of the loss; its stages are record_function spans on
+    # the real path (the encoder's text backbone, gnn and pooling, the
+    # model's head + loss, the step's backward, the optimizer's clip and
+    # adam), each given the device time of the kernels launched inside it
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pretrain_steps(torch, step, state, graphs[:PRE_PROFILED])
+    spans = span_device_ms(torch, prof, PRE_SPANS, PRE_PROFILED)
+    busy = sum(spans["device"].values())
+    notes = set(PRE_SPANS) | {e.name for e in prof.events()
+                              if getattr(e, "is_user_annotation", False)}
+    kernels = [r for r in device_rows(torch, prof, PRE_PROFILED) if r[0] not in notes]
+    print(f"  uncached step breakdown [{card}] ({PRE_PROFILED} steps of make_train_step under "
+          f"torch.profiler): device busy {busy:.2f} ms a step ({sum(t for _, t, _ in kernels):.2f} "
+          f"by the card's own events), {busy / med:.1%} of the median step {med:.2f} ms")
+    for name in (*PRE_SPANS, "other"):
+        print(f"    {name:14s} device {spans['device'][name]:8.3f} ms"
+              + (f", host {spans['host'][name]:8.3f} ms in the span" if name in PRE_SPANS
+                 else " (outside the spans: zero_grad, the draws, the loss read)"))
+    for key, t, count in kernels[:10]:
+        print(f"    {t:9.3f} ms  x{count:<4d} {key[:90]}")
+    breakdown = {"busy_ms": busy, "busy_share": busy / med, "spans_device_ms": spans["device"],
+                 "spans_host_ms": spans["host"], "loop_ms": loop_med}
+
+    # 3. the cached-tables step (the campaign's --cached-text recipe)
+    t0 = time.perf_counter()
+    title = H.build_title_table(cfg, tok, gen.titles, model.encoder)
+    kws = [a[2] or "" for s, _ in sessions for a in s if a[1] == "s"]
+    qtab, lookup = H.build_keyword_table(cfg, tok, kws, model.encoder)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    cached = []
+    for h, (g, _) in zip(hosts, graphs):
+        kw = H.keyword_ids(lookup, h.query_input_ids)
+        check(kw is not None, "pretrain: the keyword table does not cover a batch")
+        cached.append((g, {"tables": {"title_table": title, "query_table": qtab,
+                                      "query_kw": torch.from_numpy(kw).to(dev)}}))
+    saved = [b.clone() for b in model.buffers()]
+    with torch.no_grad():
+        d1 = model.draw(g0, state.generator)
+        l_unc, _ = model(g0, draws=d1)
+        l_cac, _ = model(g0, draws=d1, **cached[0][1])
+        for b, s in zip(model.buffers(), saved):
+            b.copy_(s)
+    cache_rel = abs(float(l_cac) - float(l_unc)) / abs(float(l_unc))
+    check(cache_rel <= PRE_CACHED_RTOL, f"pretrain: cached loss {float(l_cac)} vs uncached "
+          f"{float(l_unc)} (rel {cache_rel:.3g} > {PRE_CACHED_RTOL})")
+    c_warm, _ = pretrain_steps(torch, step, state, cached[:PRE_WARM])
+    c_losses, c_ms = pretrain_steps(torch, step, state, cached[PRE_WARM:])
+    check(all(np.isfinite(c_warm + c_losses)), "pretrain: non-finite cached losses")
+    c_med, c_p90 = percentile(c_ms, 50), percentile(c_ms, 90)
+    print(f"  cached-tables step [{card}]: tables {table_s:.2f} s ({title.shape[0]} titles, "
+          f"{qtab.shape[0]} keywords); loss vs uncached rel {cache_rel:.3g} "
+          f"(<= {PRE_CACHED_RTOL}); median {c_med:.2f} ms, p90 {c_p90:.2f} ms "
+          f"({B / c_med * 1e3:.0f} sessions/s) {smi()}; loss curve "
+          f"{' '.join(f'{x:.4f}' for x in c_warm + c_losses)}")
+    del cached, title, qtab
+
+    # 4. the card against the CPU: one full-width step on 8 sessions
+    h8 = build_graph_batch(sessions[:8], tok, cfg.dims, ignore_query=cfg.ignore_query)
+    t0 = time.perf_counter()
+    cpu_model, cpu_state = tp.create_pretrain_state(cfg, "cpu", torch.Generator().manual_seed(0))
+    cpu_model.load_state_dict(model.state_dict())
+    # a copy: load_state_dict keeps tensors already on the parameters' device
+    cpu_state.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    g8 = to_device(h8, dev)
+    d8 = model.draw(g8, state.generator)
+    before = {k: v.detach().to("cpu", copy=True) for k, v in model.named_parameters()}
+    _, m_card = step(state, g8, draws=d8)
+    _, m_cpu = tp.make_train_step(cpu_model)(cpu_state, to_device(h8, torch.device("cpu")),
+                                             draws={k: v.cpu() for k, v in d8.items()})
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    # each leaf's clipped gradient (left in .grad by the step) and update;
+    # a leaf whose gradient is 0 up to rounding (the biases before a
+    # BatchNorm; the GAT attention of the query -> product convs, where a
+    # product's only source is the root query node) gets an update of
+    # rounding noise, which Adam scales up to ~lr: its rms gradient, over the
+    # rms of all gradients, is below PRE_NOISE_RMS and its gradient and
+    # cosine are shown but not held to the bounds
+    grads = {k: q.grad.double() for k, q in cpu_model.named_parameters()}
+    rms_all = float(torch.sqrt(sum((g * g).sum() for g in grads.values())
+                               / sum(g.numel() for g in grads.values())))
+    rows, zero_leaves = [], 0
+    for (name, p), (_, q) in zip(model.named_parameters(), cpu_model.named_parameters()):
+        a = (p.detach().cpu() - before[name]).double().reshape(-1)
+        b = (q.detach() - before[name]).double().reshape(-1)
+        if a.norm() == 0 and b.norm() == 0:
+            zero_leaves += 1
+            continue
+        c = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+        g_cpu = grads[name]
+        g_rel = float((p.grad.detach().cpu().double() - g_cpu).norm() / g_cpu.norm())
+        rms = float(g_cpu.pow(2).mean().sqrt()) / rms_all
+        rows.append((c, g_rel, rms, name))
+    held = [r for r in rows if r[2] >= PRE_NOISE_RMS]
+    cos_min, _, _, cos_leaf = min(held)
+    _, grad_rel, _, grad_leaf = max(held, key=lambda r: r[1])
+    cpu_s = time.perf_counter() - t0
+    del cpu_model, cpu_state, before, grads
+    print(f"  card vs CPU, one step on 8 sessions [{card}]: loss {float(m_card['loss']):.9g} vs "
+          f"{float(m_cpu['loss']):.9g} (rel {loss_rel:.3g}, bound {PRE_CPU_LOSS_RTOL}); over "
+          f"{len(held)} leaves: largest clipped-gradient |card - CPU| / |CPU| {grad_rel:.3g} "
+          f"({grad_leaf}; bound {PRE_CPU_GRAD_REL}), smallest update cosine {cos_min:.6f} "
+          f"({cos_leaf}; bound {PRE_CPU_UPDATE_COS}); {zero_leaves} leaves with no update on "
+          f"both; {cpu_s:.1f} s")
+    for c, g_rel, rms, name in sorted(rows, key=lambda r: -r[1])[:8]:
+        print(f"    gradient rel {g_rel:9.3g}  update cosine {c:9.6f}  rms gradient / rms of all "
+              f"{rms:.3g}  {name}"
+              + ("  (rounding-level gradient: not held)" if rms < PRE_NOISE_RMS else ""))
+    check(loss_rel <= PRE_CPU_LOSS_RTOL and grad_rel <= PRE_CPU_GRAD_REL
+          and cos_min >= PRE_CPU_UPDATE_COS,
+          "pretrain: the card's step does not agree with the CPU's")
+
+    # 5. checkpoints: save latest, restore into a fresh state, the next step
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CheckpointManager(d)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save("latest", state_to_tree(state))
+        write_s = time.perf_counter() - t0
+        size_mb = os.path.getsize(os.path.join(d, "latest.pt")) / 1e6
+        g1 = graphs[1][0]
+        _, want = step(state, g1)
+        want_draws = model.draw(g1, state.generator)  # the stream after the step
+        model2, state2 = tp.create_pretrain_state(cfg, dev,
+                                                  torch.Generator(device=dev).manual_seed(7))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree_to_state(state2, ckpt.restore("latest", map_location=dev))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+    _, got = tp.make_train_step(model2)(state2, g1)
+    got_draws = model2.draw(g1, state2.generator)
+    resume_rel = max(abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-30)
+                     for k in want)
+    same_draws = all(torch.equal(got_draws[k], want_draws[k]) for k in want_draws)
+    diff = max((p - q).abs().max().item() for p, q in zip(model.parameters(),
+                                                           model2.parameters()))
+    print(f"  checkpoint [{card}]: latest {size_mb:.1f} MB, write {write_s:.2f} s, read into a "
+          f"fresh state {read_s:.2f} s; the next step's loss and metrics vs the uninterrupted "
+          f"run rel {resume_rel:.3g} (bound 1e-6), the generator's next draws "
+          f"{'equal' if same_draws else 'DIFFER'}, parameters after it max |diff| {diff:.3g} "
+          f"(non-deterministic on the card: the backward of torch.gather in the pooling's "
+          f"occurrence expansion and of nn.Embedding for positional_emb add with atomics)")
+    check(resume_rel <= 1e-6 and same_draws, "pretrain: the resumed step differs")
+    del model2, state2
+
+    # 6. from training to serving: make_encode_fn -> f32 DenseIndex -> K1
+    serve = [d for d in port.SyntheticSessionGenerator(asin_num=cfg.asin_num,
+                                                       seed=2).dataset(8192)]
+    enc_fn = tp.make_encode_fn(model)
+    t0 = time.perf_counter()
+    emb = H.EmbeddingPipeline(cfg, tok, lambda g: enc_fn(state, g), device=dev)(
+        serve, out="device")
+    idx = port.DenseIndex(cfg.session_emb_dim, 8192, device=dev)
+    idx.add(emb)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    idx.search(emb[:1], 1)  # warm-up, uncounted
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    D, I = idx.search(emb[:256], 100)
+    torch.cuda.synchronize()
+    search_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(counts["k1"] >= 1 and counts["k1"] == counts["k1_wgmma"],
+          f"pretrain: K1 launches {counts} (all must be the f32 wgmma variant)")
+    I = np.asarray(I)
+    rows = np.arange(256)
+    # a session whose embedding equals another's ties with it
+    tie = np.array([bool(torch.equal(emb[i], emb[j])) for i, j in zip(rows, I[:, 0])])
+    check(((I[:, 0] == rows) | tie).all(), "pretrain: a top-1 is not the session itself")
+    print(f"  trained encoder -> f32 DenseIndex [{card}]: 8192 sessions encoded and added in "
+          f"{ingest_s:.2f} s ({8192 / ingest_s:.0f} /s), 256 searches at k=100 "
+          f"{search_ms:.1f} ms; top-1 the session itself {int((I[:, 0] == rows).sum())}/256 "
+          f"({int(tie.sum() - (I[:, 0] == rows).sum())} exact ties); K1 launches "
+          f"{counts['k1']} (wgmma {counts['k1_wgmma']})")
+    summary = {"uncached_ms": {"median": med, "p90": p90}, "cached_ms": {"median": c_med,
+               "p90": c_p90}, "breakdown": breakdown, "checkpoint_mb": size_mb,
+               "checkpoint_write_s": write_s, "checkpoint_read_s": read_s}
+    print(f"pretrain summary: {json.dumps(summary)}")
+    del model, state, emb, idx
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_f32_kernel(torch, mips, dev):
     """K1's f32 wgmma variant (the 3xTF32 split) at the bench point, timed in
     the same rounds as the tile loop and cuBLAS SGEMM (TF32 off), and the
@@ -2854,6 +3216,7 @@ def main() -> int:
     serving_launches, err_serving = run_phase(torch, "flagship serving", phase_flagship_serving,
                                               torch, mips, topk_mod, dev, parts, card_line,
                                               f32_rate)
+    pretrain_counts = run_phase(torch, "pretrain", phase_pretrain, torch, mips, dev, card_line)
     err_f32, f32_bench, tile_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch,
                                                mips, dev)
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
@@ -2929,7 +3292,7 @@ def main() -> int:
     # kernel's `launches` sums every path it was counted on
     tier_counts = {name: t["launches"] for name, t in tiers.items()}
     new_paths = {"twostage_tiers": {}, "binary_maintenance": bin_path,
-                 "twostage_engine_verbs": ts_verbs}
+                 "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     for key, entry_ in (("k1", k1_entry), ("k2", k2_entry)):

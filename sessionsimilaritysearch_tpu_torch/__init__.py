@@ -34,7 +34,10 @@ tables and the cached forward that gathers from them
 (``evalharness.harness.build_title_table``, ``build_keyword_table``,
 ``make_cached_encode_fn``), the recency SR-GNN pooling, and the evaluation
 harness's runners (``evaluate_encoder``, ``evaluate_binary``, the kNN,
-sparse and hybrid runners, saved results).
+sparse and hybrid runners, saved results). The pretrainer: ``PretrainModel``
+(the Unify-pooling encoder, the target asin embedding, the heads and the
+loss menu), ``adam_with_clip``, ``run_training`` with ``torch.save``
+checkpoints, and a reader of the JAX trainers' flax msgpack checkpoints.
 
 Layer map:
 
@@ -42,14 +45,18 @@ Layer map:
   ``evalharness.knn``, ``index.sparse``, ``utils.logging`` -- copies of the
   JAX package's jax-free modules
 - ``device``      -- device resolution; TF32 off
-- ``weights``     -- Flax params tree -> port ``state_dict``; SimHash projection
+- ``weights``     -- Flax params tree -> port ``state_dict``; a JAX train
+  state -> a port ``TrainState``; SimHash projection
 - ``native_build`` -- builds the native graph builder from ``native/``
-- ``models``      -- transformer, embedders, HeteroGGNN, poolings, encoder
+- ``models``      -- transformer, embedders, HeteroGGNN, poolings, heads,
+  the flagship and the pretrainer's encoders
 - ``ops``         -- the kernels' build and wrappers (``mips``, ``mips_int8``,
   ``packed``, ``popcount``), Hamming search (``hamming``), projections,
   top-k helpers
 - ``index``       -- ``DenseIndex``, ``BinaryIndex``, ``TwoStageIndex``
-- ``utils``       -- precision policies (``serving_params``), profiling
+- ``training``    -- the pretrainer, its losses, the train state and the loop
+- ``utils``       -- precision policies (``serving_params``), profiling,
+  checkpoints (and the JAX checkpoint reader)
 - ``evalharness`` -- ``EmbeddingPipeline``, catalog tables and the cached
   encode fn, the evaluation runners, metrics
 - ``engine``      -- ``SessionSearchEngine``

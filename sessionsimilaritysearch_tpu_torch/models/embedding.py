@@ -30,18 +30,28 @@ class TextEncoder(nn.Module):
         self.emb_ln = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.encoder = TransformerEncoder(d_model, nhead, nhid, nlayers, device=device)
 
-    def forward(self, input_ids, token_type_ids, attention_mask):
-        """[B', T] int grids -> [B', d_model]."""
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = self.emb_ln(
-            self.tok_emb(input_ids)
-            + self.pos_emb(pos)[None]
-            + self.type_emb(torch.clamp(token_type_ids, 0, 1))
-        )
-        token_emb = self.encoder(x, key_padding_mask=attention_mask == 0)
-        mask = attention_mask.to(token_emb.dtype)
-        denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
-        return ((token_emb * mask[..., None]).sum(dim=1) / denom).detach()
+    def forward(self, input_ids, token_type_ids, attention_mask, get_token: bool = False):
+        """[B', T] int grids -> [B', d_model] (and, with ``get_token``, the
+        per-token embeddings [B', T, d_model]).
+
+        Only the pooled vector is detached, as the JAX module's
+        ``stop_gradient`` (``embedding.py:111-112``) stops only it: the
+        per-token embeddings carry gradients into the backbone. So the
+        backbone runs without autograd unless ``get_token`` asks for them."""
+        with torch.set_grad_enabled(get_token and torch.is_grad_enabled()):
+            pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
+            x = self.emb_ln(
+                self.tok_emb(input_ids)
+                + self.pos_emb(pos)[None]
+                + self.type_emb(torch.clamp(token_type_ids, 0, 1))
+            )
+            token_emb = self.encoder(x, key_padding_mask=attention_mask == 0)
+            mask = attention_mask.to(token_emb.dtype)
+            denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1.0)
+            out = ((token_emb * mask[..., None]).sum(dim=1) / denom).detach()
+        if get_token:
+            return out, token_emb
+        return out
 
 
 class NodeAsinEmbedding(nn.Module):

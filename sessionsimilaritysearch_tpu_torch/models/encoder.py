@@ -1,7 +1,8 @@
-"""The flagship two-pool session encoder (counterpart of
-``sessionsimilaritysearch_tpu/models/encoder.py:35`` ``_embed_nodes``,
-``:77-200`` ``GraphLevelEncoder``, ``:361`` ``build_text_backbone`` and
-``:373`` ``build_graph_encoder``).
+"""The flagship two-pool session encoder and the pretrainer's encoder
+(counterparts of ``sessionsimilaritysearch_tpu/models/encoder.py:35``
+``_embed_nodes``, ``:77-200`` ``GraphLevelEncoder``, ``:203-330``
+``UnifyPoolingGraphLevelEncoder``, ``:361`` ``build_text_backbone``, ``:373``
+``build_graph_encoder`` and ``:390`` ``build_pretrain_encoder``).
 
 Three forwards, as in the JAX module (``encoder.py:130-174``):
 
@@ -25,6 +26,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from sessionsimilaritysearch_tpu_torch.config import Config
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
@@ -33,18 +35,23 @@ from sessionsimilaritysearch_tpu_torch.models.embedding import (
     TextEncoder,
 )
 from sessionsimilaritysearch_tpu_torch.models.gnn import DenseGATConv, HeteroGGNN
+from sessionsimilaritysearch_tpu_torch.models.heads import BatchNorm, CrossAttentionTransformer
 from sessionsimilaritysearch_tpu_torch.models.pooling import (
     AttentionPooling,
+    PositionalAttentionPooling,
     RecencySRGNNPooling,
     SRGNNPooling,
 )
 
 
-def _embed_nodes(embedder: TextEncoder, ids, typ, att):
-    """Run a text embedder over a [B, N, T] token grid -> [B, N, d]."""
+def _embed_nodes(embedder: TextEncoder, ids, typ, att, get_token: bool = False):
+    """Run a text embedder over a [B, N, T] token grid -> [B, N, d] (and,
+    with ``get_token``, the token embeddings [B, N, T, d])."""
     B, N, T = ids.shape
     out = embedder(ids.reshape(B * N, T), typ.reshape(B * N, T),
-                   att.reshape(B * N, T))
+                   att.reshape(B * N, T), get_token=get_token)
+    if get_token:
+        return out[0].reshape(B, N, -1), out[1].reshape(B, N, T, -1)
     return out.reshape(B, N, -1)
 
 
@@ -53,25 +60,20 @@ def _gather_rows(table, ids):
     return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, -1)
 
 
-class GraphLevelEncoder(nn.Module):
-    """query nodes <- text embedder (or a keyword table); product nodes <-
-    concat(asin-id embedding, title text embedding or a catalog table row)
-    (``use_id_embedding`` toggle; with it off ``product_node_embedder`` is
-    None and the product width is the text width); hetero GNN; separate
-    query/product poolings; output = concat(query_emb, product_emb)."""
+class _NodeInputs(nn.Module):
+    """What both encoders share: the text backbone (``embed_texts``), the
+    optional asin-id embedder, the GNN, and the GNN's input
+    (:meth:`node_embeddings`)."""
 
     def __init__(self, query_node_embedder: TextEncoder,
                  product_node_embedder: Optional[NodeAsinEmbedding], gnn: HeteroGGNN,
-                 product_pooling: nn.Module, query_pooling: nn.Module,
-                 use_id_embedding: bool = True):
+                 use_id_embedding: bool):
         super().__init__()
         if use_id_embedding and product_node_embedder is None:
             raise ValueError("use_id_embedding needs a product_node_embedder")
         self.query_node_embedder = query_node_embedder
         self.product_node_embedder = product_node_embedder if use_id_embedding else None
         self.gnn = gnn
-        self.product_pooling = product_pooling
-        self.query_pooling = query_pooling
         self.use_id_embedding = use_id_embedding
 
     def embed_texts(self, ids, typ, att):
@@ -80,10 +82,18 @@ class GraphLevelEncoder(nn.Module):
         return self.query_node_embedder(ids, typ, att)
 
     def node_embeddings(self, graph, query_node_mask=None, product_node_mask=None,
-                        title_table=None, query_table=None, query_kw=None):
+                        title_table=None, query_table=None, query_kw=None,
+                        get_token: bool = False):
         """The GNN's input: {'query': [B, Q, d_q], 'product': [B, P, d_p]},
-        padded nodes zeroed (see :meth:`forward` for the arguments)."""
+        padded nodes zeroed (see ``GraphLevelEncoder.forward`` for the
+        arguments); with ``get_token`` also the text pass's token embeddings
+        {'query': [B, Q, T, d], 'product': [B, P, T, d]}, which only the
+        uncached forward has."""
         Q = graph.query_input_ids.shape[1]
+        tok = None
+        if get_token and title_table is not None:
+            raise ValueError("cached text tables cannot serve the token branch "
+                             "(token_w > 0 needs real token embeddings)")
         if query_table is not None:
             if title_table is None or query_kw is None:
                 raise ValueError("query_table requires title_table and query_kw "
@@ -96,14 +106,18 @@ class GraphLevelEncoder(nn.Module):
             b = _gather_rows(title_table, graph.product_asin)
         else:
             # one text pass over both node stores (the same embedder)
-            both = _embed_nodes(
+            out = _embed_nodes(
                 self.query_node_embedder,
                 torch.cat([graph.query_input_ids, graph.product_input_ids], dim=1),
                 torch.cat([graph.query_type_ids, graph.product_type_ids], dim=1),
                 torch.cat([graph.query_attention_mask,
                            graph.product_attention_mask], dim=1),
+                get_token=get_token,
             )
+            both = out[0] if get_token else out
             query, b = both[:, :Q], both[:, Q:]
+            if get_token:
+                tok = {"query": out[1][:, :Q], "product": out[1][:, Q:]}
         if self.use_id_embedding:
             product = torch.cat([self.product_node_embedder(graph.product_asin), b], dim=-1)
         else:
@@ -115,8 +129,25 @@ class GraphLevelEncoder(nn.Module):
             product = product * product_node_mask[..., None]
         # zero padded rows (nonexistent nodes in the reference's ragged form);
         # the f32 masks also promote bf16 node embeddings to f32, as in JAX
-        return {"query": query * graph.query_node_mask[..., None],
-                "product": product * graph.product_node_mask[..., None]}
+        emb = {"query": query * graph.query_node_mask[..., None],
+               "product": product * graph.product_node_mask[..., None]}
+        return (emb, tok) if get_token else emb
+
+
+class GraphLevelEncoder(_NodeInputs):
+    """query nodes <- text embedder (or a keyword table); product nodes <-
+    concat(asin-id embedding, title text embedding or a catalog table row)
+    (``use_id_embedding`` toggle; with it off ``product_node_embedder`` is
+    None and the product width is the text width); hetero GNN; separate
+    query/product poolings; output = concat(query_emb, product_emb)."""
+
+    def __init__(self, query_node_embedder: TextEncoder,
+                 product_node_embedder: Optional[NodeAsinEmbedding], gnn: HeteroGGNN,
+                 product_pooling: nn.Module, query_pooling: nn.Module,
+                 use_id_embedding: bool = True):
+        super().__init__(query_node_embedder, product_node_embedder, gnn, use_id_embedding)
+        self.product_pooling = product_pooling
+        self.query_pooling = query_pooling
 
     def readout(self, node_emb, graph):
         """Query and product poolings, concatenated -> [B, 2 * gnn_nout]."""
@@ -148,6 +179,65 @@ class GraphLevelEncoder(nn.Module):
         return out
 
 
+class UnifyPoolingGraphLevelEncoder(_NodeInputs):
+    """The pretrainer's encoder: the GNN's input as ``GraphLevelEncoder``
+    builds it (text backbone or catalog tables, optional asin-id
+    embeddings, node keep-masks, padded nodes zeroed), HeteroGGNN, then one
+    ``PositionalAttentionPooling`` over the union of node types -> [B,
+    session_emb_dim]; with ``cross_attention_transformer`` an optional token
+    branch for the token-level losses (``get_token``). Flax creates the
+    token branch's parameters only when its init traces it, so the
+    pretrainer builds it only when ``token_w > 0``; without it ``get_token``
+    returns no token embeddings, as in JAX. The stages run in
+    ``torch.profiler`` spans (``text backbone``: the node embeddings, table
+    gathers on the cached path; ``gnn``; ``pooling``)."""
+
+    def __init__(self, query_node_embedder: TextEncoder,
+                 product_node_embedder: Optional[NodeAsinEmbedding], gnn: HeteroGGNN,
+                 pooling: PositionalAttentionPooling,
+                 cross_attention_transformer: Optional[CrossAttentionTransformer] = None,
+                 use_id_embedding: bool = True):
+        super().__init__(query_node_embedder, product_node_embedder, gnn, use_id_embedding)
+        self.pooling = pooling
+        self.cross_attention_transformer = cross_attention_transformer
+
+    def forward(self, graph, query_node_mask=None, product_node_mask=None,
+                get_node: bool = False, get_token: bool = False,
+                deterministic: bool = True, generator=None, title_table=None,
+                query_table=None, query_kw=None):
+        """As JAX ``encoder.py:227``: returns the embedding, then
+        ``node_emb`` with ``get_node`` and ``token_emb`` with ``get_token``.
+        ``title_table`` [asin_num, d_text] (and ``query_table`` + ``query_kw``)
+        replace the text passes by gathers; they cannot serve ``get_token``,
+        which needs the per-token embeddings."""
+        with record_function("text backbone"):
+            out = self.node_embeddings(graph, query_node_mask, product_node_mask, title_table,
+                                       query_table, query_kw, get_token=get_token)
+        emb, tok = out if get_token else (out, None)
+        with record_function("gnn"):
+            node_emb = self.gnn(emb, graph)
+
+        token_emb = {}
+        if get_token and self.cross_attention_transformer is not None:
+            cat = self.cross_attention_transformer
+            for t, mask in (("product", graph.product_attention_mask),
+                            ("query", graph.query_attention_mask)):
+                B, N, T, D = tok[t].shape
+                token_emb[t] = cat(node_emb[t].reshape(B * N, -1),
+                                   tok[t].reshape(B * N, T, D),
+                                   (mask == 0).reshape(B * N, T),
+                                   deterministic, generator).reshape(B, N, T, D)
+
+        with record_function("pooling"):
+            embedding = self.pooling(node_emb["query"], node_emb["product"], graph)
+        if get_node and get_token:
+            return embedding, node_emb, token_emb
+        if get_node:
+            return embedding, node_emb
+        if get_token:
+            return embedding, token_emb
+        return embedding
+
 def build_text_backbone(cfg: Config, device=None) -> TextEncoder:
     return TextEncoder(
         vocab_size=cfg.vocab_size,
@@ -164,7 +254,8 @@ def build_text_backbone(cfg: Config, device=None) -> TextEncoder:
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random init, drawn from ``generator`` only (never the global
     RNG), after Flax's defaults: Linear weights lecun-normal, biases zero,
-    embeddings normal(0, 1), LayerNorm ones/zeros, GAT attention vectors
+    embeddings normal(0, 1), LayerNorm and BatchNorm ones/zeros (the
+    BatchNorm running statistics keep their zeros/ones), GAT attention vectors
     glorot-uniform, the recency pooling's decay length its constant.
     ``generator`` must live on the parameters' device."""
     for m in module.modules():
@@ -174,7 +265,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, nn.LayerNorm):
+        elif isinstance(m, (nn.LayerNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, DenseGATConv):
@@ -207,6 +298,40 @@ def build_graph_encoder(cfg: Config, device,
         gnn=HeteroGGNN(d_query, d_product, hid, layers, device=dev),
         product_pooling=product_pooling(d_product + layers * hid, cfg.gnn_nout, device=dev),
         query_pooling=AttentionPooling(d_query + layers * hid, cfg.gnn_nout, device=dev),
+    )
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+    init_parameters(enc, generator)
+    return enc.eval()
+
+
+def build_pretrain_encoder(cfg: Config, device, generator: Optional[torch.Generator] = None
+                           ) -> UnifyPoolingGraphLevelEncoder:
+    """The pretrainer's encoder: frozen text backbone, no asin-id embedding
+    (JAX ``use_id_embedding=False``: no ``product_node_embedder`` at all),
+    HeteroGGNN(gnn_nout, gnn_nlayers), PositionalAttentionPooling(out =
+    session_emb_dim) and, when ``cfg.token_w > 0`` (the only case in which
+    Flax's init traces it), the CrossAttentionTransformer (3 layers, K=2,
+    dropout 0). Weights are drawn from ``generator`` (default: one seeded
+    with ``cfg.seed`` on ``device``); the module is returned in eval mode."""
+    dev = resolve_device(device)
+    d_text = cfg.text_encoder_dim
+    hid, layers = cfg.gnn_nout, cfg.gnn_nlayers
+    d_node = d_text + layers * hid
+    cat = None
+    if cfg.token_w > 0:
+        cat = CrossAttentionTransformer(d_node, nlayers=3, node_emb_K=2, token_dim=d_text,
+                                        nhead=cfg.query_embedder_nhead,
+                                        nhid=cfg.query_embedder_nhid, dropout=0.0,
+                                        device=dev)
+    enc = UnifyPoolingGraphLevelEncoder(
+        query_node_embedder=build_text_backbone(cfg, device=dev),
+        product_node_embedder=None,
+        gnn=HeteroGGNN(d_text, d_text, hid, layers, device=dev),
+        pooling=PositionalAttentionPooling(d_node, d_node, cfg.session_emb_dim,
+                                           cfg.max_seq_len, device=dev),
+        cross_attention_transformer=cat,
+        use_id_embedding=False,
     )
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)

@@ -1,5 +1,5 @@
 """Graph-level readouts over padded node sets (counterparts of
-``sessionsimilaritysearch_tpu/models/pooling.py:19-150``)."""
+``sessionsimilaritysearch_tpu/models/pooling.py:19-197``)."""
 
 from __future__ import annotations
 
@@ -99,3 +99,39 @@ class RecencySRGNNPooling(nn.Module):
             self.lin1(local)[:, None, :] + self.lin_rec(rec)[:, None, :] + self.lin2(x)))
         global_rep = masked_sum(x * att, mask)
         return self.lin4(torch.cat([local, rec, global_rep], dim=-1))
+
+
+class PositionalAttentionPooling(nn.Module):
+    """Unified query + product pooling (counterpart of ``pooling.py:153``):
+    both node types projected to ``num_out - max_seq_len`` (``query_lin``,
+    ``product_lin``) and concatenated with a learned positional embedding of
+    their reverse position (``positional_emb``, ``max_seq_len + 1`` rows);
+    products expanded to one row per occurrence through the ``occ_*``
+    stream; then soft attention against the masked mean over the union of
+    occurrence and query rows (``node_emb_lin``, and ``coarse_rep_lin`` and
+    ``att_lin`` without bias), masked-mean pooled -> [B, num_out]."""
+
+    def __init__(self, query_features: int, product_features: int, num_out: int,
+                 max_seq_len: int, device=None):
+        super().__init__()
+        feat = num_out - max_seq_len
+        self.query_lin = nn.Linear(query_features, feat, device=device)
+        self.product_lin = nn.Linear(product_features, feat, device=device)
+        self.positional_emb = nn.Embedding(max_seq_len + 1, max_seq_len, device=device)
+        self.node_emb_lin = nn.Linear(num_out, num_out, device=device)
+        self.coarse_rep_lin = nn.Linear(num_out, num_out, bias=False, device=device)
+        self.att_lin = nn.Linear(num_out, 1, bias=False, device=device)
+
+    def forward(self, q_emb, p_emb, graph):
+        """q_emb [B, Q, dq]; p_emb [B, P, dp]; graph: a batched SessionGraph."""
+        q = self.query_lin(q_emb)
+        p = self.product_lin(p_emb)
+        q_nodes = torch.tanh(torch.cat([q, self.positional_emb(graph.query_pos)], dim=-1))
+        occ_idx = graph.occ_product.long()[..., None].expand(-1, -1, p.shape[-1])
+        occ = torch.gather(p, 1, occ_idx)                       # [B, O, feat]
+        p_nodes = torch.tanh(torch.cat([occ, self.positional_emb(graph.occ_pos)], dim=-1))
+        nodes = torch.cat([p_nodes, q_nodes], dim=1)             # [B, O + Q, num_out]
+        mask = torch.cat([graph.occ_mask, graph.query_node_mask], dim=1)
+        coarse = masked_mean(nodes, mask)[:, None, :]
+        att = self.att_lin(torch.sigmoid(self.node_emb_lin(nodes) + self.coarse_rep_lin(coarse)))
+        return masked_mean(nodes * att, mask)

@@ -241,3 +241,98 @@ def test_build_graph_encoder_seeded_init():
     assert lam.item() == pytest.approx(1.04, rel=1e-6)
     with pytest.raises(KeyError):
         build_graph_encoder(cfg.replace(product_pooling="mean"), "cpu")
+
+
+def test_dropout_at_half_rate():
+    """Flax ``nn.Dropout`` at rate 0.5: about half the entries kept, the kept
+    ones scaled by 1 / (1 - rate), the keep mask the given generator's next
+    uniform draw (>= rate); off when deterministic or at rate 0."""
+    x = torch.ones(200_000)
+    y = t_tr.dropout(x, 0.5, False, torch.Generator().manual_seed(3))
+    kept = y != 0
+    # binomial share: sigma = 0.5 / sqrt(2e5) ~ 0.0011, the bound ~9 sigma
+    assert abs(kept.double().mean().item() - 0.5) < 0.01
+    assert torch.equal(y[kept], torch.full((int(kept.sum()),), 2.0))
+    assert torch.equal(kept, torch.rand(x.shape, generator=torch.Generator().manual_seed(3)) >= 0.5)
+    g = torch.Generator().manual_seed(3)
+    assert torch.equal(t_tr.dropout(x, 0.5, False, g), y)
+    assert not torch.equal(t_tr.dropout(x, 0.5, False, g), y)  # the generator moved on
+    assert t_tr.dropout(x, 0.5, True, g) is x and t_tr.dropout(x, 0.0, False) is x
+    with pytest.raises(ValueError):
+        t_tr.dropout(x, 0.5, False)
+
+
+def _stand_in_mask(shape, k):
+    """A fixed stand-in for the k-th dropout call of a forward: every third
+    entry zeroed, the others scaled by 1 + k / 10."""
+    n = int(np.prod(shape))
+    return ((np.arange(n) % 3 != 0) * (1.0 + k / 10)).reshape(shape).astype(np.float32)
+
+
+def _flax_with_stand_in(fn):
+    """Run ``fn`` with every Flax ``nn.Dropout`` call replaced by the stand-in."""
+    import flax.linen as fnn
+
+    calls = []
+
+    def intercept(next_fun, args, kwargs, context):
+        if isinstance(context.module, fnn.Dropout) and context.method_name == "__call__":
+            x = args[0]
+            calls.append(x.shape)
+            return x * _stand_in_mask(x.shape, len(calls) - 1)
+        return next_fun(*args, **kwargs)
+
+    with fnn.intercept_methods(intercept):
+        return fn(), calls
+
+
+def _port_with_stand_in(monkeypatch, module, fn):
+    calls = []
+
+    def drop(x, rate, deterministic, generator=None):
+        assert rate == 0.5 and not deterministic and generator is not None
+        calls.append(tuple(x.shape))
+        return x * _t(_stand_in_mask(tuple(x.shape), len(calls) - 1))
+
+    monkeypatch.setattr(module, "dropout", drop)
+    return fn(), calls
+
+
+def test_encoder_layer_dropout_positions_match_flax(monkeypatch):
+    """With each dropout replaced by the same fixed mask on both sides, the
+    port's TransformerEncoder at rate 0.5 gives Flax's output: the dropouts
+    sit where Flax's EncoderLayer has them, in the same order."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((3, 5, 16)).astype(np.float32)
+    pad = rng.random((3, 5)) < 0.3
+    fmod = f_tr.TransformerEncoder(16, 2, 24, 2, dropout=0.5)
+    params = _init(fmod, x, None, pad)
+    want, fcalls = _flax_with_stand_in(
+        lambda: fmod.apply(params, x, None, pad, deterministic=False))
+    tmod = _load(t_tr.TransformerEncoder(16, 2, 24, 2, dropout=0.5), params)
+    got, tcalls = _port_with_stand_in(
+        monkeypatch, t_tr,
+        lambda: tmod(_t(x), _t(pad), deterministic=False, generator=torch.Generator()))
+    assert tcalls == fcalls and len(tcalls) == 6
+    _close(got, want)
+
+
+def test_mlp_dropout_positions_match_flax(monkeypatch):
+    """The same for the pretrainer's MLP head in training mode (batch
+    statistics): one dropout after each hidden layer's ReLU."""
+    from sessionsimilaritysearch_tpu.models import heads as f_heads
+    from sessionsimilaritysearch_tpu_torch.models import heads as t_heads
+
+    x = np.random.default_rng(5).standard_normal((6, 12)).astype(np.float32)
+    fmod = f_heads.MLP(7, 10, n_hidden_layers=1, dropout=0.5)
+    variables = _init(fmod, x)
+    (want, _), fcalls = _flax_with_stand_in(lambda: fmod.apply(
+        variables, x, deterministic=False, mutable=["batch_stats"]))
+    tmod = t_heads.MLP(12, 7, 10, n_hidden_layers=1, dropout=0.5)
+    tmod.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"]),
+                         strict=True)
+    got, tcalls = _port_with_stand_in(
+        monkeypatch, t_heads,
+        lambda: tmod(_t(x), deterministic=False, generator=torch.Generator()))
+    assert tcalls == fcalls and len(tcalls) == 2
+    _close(got, want)

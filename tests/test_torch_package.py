@@ -41,7 +41,9 @@ def test_port_never_imports_jax():
                  "ops.projection", "ops.mips_int8", "config", "tokenizer",
                  "data.graph", "data.loader", "native", "evalharness.metrics",
                  "evalharness.harness", "evalharness.knn", "index.sparse", "data.etl",
-                 "data.augment", "utils.logging", "utils.precision"):
+                 "data.augment", "utils.logging", "utils.precision", "models.heads",
+                 "training.losses", "training.train_state", "training.pretrain",
+                 "training.loop", "utils.checkpoint"):
         assert f"sessionsimilaritysearch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
@@ -59,7 +61,8 @@ def test_port_never_imports_jax():
 
 def _jax_package_or_jax(name: str) -> bool:
     root = name.split(".")[0]
-    return root in ("jax", "jaxlib", "flax", "optax", "sessionsimilaritysearch_tpu")
+    return root in ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax",
+                    "sessionsimilaritysearch_tpu")
 
 
 def test_serving_on_the_cpu_loads_no_jax_package():
@@ -116,6 +119,47 @@ def test_flagship_serving_on_the_cpu_loads_no_jax_package():
         "H.evaluate_sparse(cfg, [s for s, _ in data[:12]], data[12:], k=3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'sessionsimilaritysearch_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_pretraining_on_the_cpu_loads_no_jax_package(tmp_path):
+    # a fresh interpreter pretrains a tiny model through run_training with
+    # checkpoints, resumes it, encodes and searches; neither the JAX package,
+    # JAX nor a msgpack package may be loaded afterwards
+    code = (
+        "import sys\n"
+        "import sessionsimilaritysearch_tpu_torch as port\n"
+        "from sessionsimilaritysearch_tpu_torch.data.graph import build_graph_batch\n"
+        "from sessionsimilaritysearch_tpu_torch.training import pretrain as tp\n"
+        "from sessionsimilaritysearch_tpu_torch.training.loop import run_training\n"
+        "from sessionsimilaritysearch_tpu_torch.utils.checkpoint import CheckpointManager\n"
+        "cfg = port.tiny_test_config()\n"
+        "tok = port.get_tokenizer(cfg.vocab_size)\n"
+        "data = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0).dataset(16)\n"
+        "batches = [build_graph_batch(data[i:i + 4], tok, cfg.dims) for i in range(0, 16, 4)]\n"
+        f"ckpt = CheckpointManager({str(tmp_path)!r})\n"
+        "for epochs in (1, 1):\n"
+        "    model, state = tp.create_pretrain_state(cfg, 'cpu')\n"
+        "    state, best = run_training(state=state, step_fn=tp.make_train_step(model),\n"
+        "                               eval_fn=tp.make_eval_step(model), train_loader=batches,\n"
+        "                               valid_loader=batches[:1], epochs=epochs, ckpt=ckpt)\n"
+        "assert state.step == 8, state.step\n"
+        "enc = tp.make_encode_fn(model)\n"
+        "eng = port.SessionSearchEngine(cfg, tok, lambda g: enc(state, g),\n"
+        "                               dim=cfg.session_emb_dim, capacity=32, batch_size=8,\n"
+        "                               device='cpu')\n"
+        "eng.add_sessions(data)\n"
+        "D, I = eng.search(data[:4], k=3)\n"
+        "assert (I[:, 0] == range(4)).all(), I\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'orbax',\n"
+        "              'sessionsimilaritysearch_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
