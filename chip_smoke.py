@@ -12,7 +12,10 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                PyTorch version: ragged cases (q=37, n=5003; f32 at d=200 on
                the f32 wgmma variant csrc/scores_bmax_f32_sm90.cu and at
                d=202 on the tile variant csrc/scores_bmax.cu, bf16 at d=200
-               on the wgmma variant csrc/scores_bmax_sm90.cu; valid_count
+               on the wgmma variant csrc/scores_bmax_sm90.cu, bf16 at d=250
+               and at d=1600 with the corpus 4 bytes off 16-byte alignment
+               on the cp_async variant, the same kernel fed by cp.async
+               (csrc/sm90_cp_async.cuh); valid_count
                mid-bucket; 10% of rows masked by the penalty) and the bench
                point (q=1024, n=2^20, d=1600, bf16, k=100, wgmma variant)
                beside one cuBLAS bf16 GEMM, timed with CUDA events;
@@ -140,11 +143,17 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                K4's at the same shape, and ops.hamming.hamming_topk (K5's
                path) giving the same top-100 distances as K4;
 7. binary index -- BinaryIndex(250 bits, 2^20 rows), packed (K4) and sign
-               (K1's tile variant: 250-wide rows are no TMA stride) modes,
-               1024 queries at k=100: sorted distances equal a plain f32
-               product over the same codes; K1's tile variant alone at sign
-               mode's shape (bf16 scores) equal to its plain version, beside
-               a cuBLAS bf16 GEMM;
+               (K1's cp_async variant: 250-wide rows are no TMA stride; its
+               one K1 launch a search counted) modes, 1024 queries at k=100:
+               sorted distances equal a plain f32 product over the same
+               codes; at sign mode's shape (bf16 scores) K1's cp_async
+               variant and its tile loop (through its C entry point), each
+               equal to the plain version, timed in three rounds in turns
+               with a cuBLAS bf16 GEMM and the plain version; the producer
+               ablation: the cp_async variant (through its C entry point)
+               beside the TMA-fed wgmma variant at d=256, the same products
+               and epilogue, in the same rounds, both equal to the plain
+               version;
 7b. binary maintenance -- BinaryIndex(256 bits, 2^20 rows), packed (K4)
                and sign (K1's wgmma variant), 1024 queries at k=100:
                remove_ids of 1% of the rows (scattered), a refill of as many,
@@ -159,7 +168,7 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
 8. two-stage index -- every tier of TwoStageIndex at 2^20 x 1600 bf16 rows,
                one index at a time, 1024 queries planted at cosine ~0.9 to
                stored rows, k=100, pools 128 and 512: 'binary' + 'matmul' at
-               256 bits (K1 wgmma), 'itq' + 'matmul' at 250 bits (K1 tile;
+               256 bits (K1 wgmma), 'itq' + 'matmul' at 250 bits (K1 cp_async;
                ITQ and PCA fitted on a 32,768-row sample), 'int8x8' (K2
                wgmma, bf16 scores), 'pca' at 64 (K1 wgmma) and 'itq' +
                'packed' (K4). Per tier and pool: the pool's stage-1 scores
@@ -178,7 +187,7 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                plain version on the engine's own codes;
 9b. two-stage engine verbs -- phase 4's encoder and 8,192 sessions (8
                stamped batches) in 'itq' engines with stage1 'matmul' (K1's
-               tile variant at 250 bits) and 'packed' (K4), pool 512:
+               cp_async variant at 250 bits) and 'packed' (K4), pool 512:
                remove_sessions by 512 ids and by the content of 64 sessions,
                expire of the first batch, save_async then restore into a
                fresh engine, each timed; each search of 256 sessions at
@@ -212,7 +221,8 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                beside exact_topk's;
 14. scores matmul kernel -- K6 against its plain version on ragged cases
                (q=37, n=5003: f32 at d=200 and bf16 at d=200 on the wgmma
-               variants, K1's Hopper kernels with a store-only epilogue; f32
+               variants, K1's Hopper kernels with a store-only epilogue;
+               bf16 at d=250 on the cp_async variant; f32
                at d=202 on the tile loop csrc/scores_matmul.cu) and at
                q=1024, n=2^20, d=1600 bf16 -> f32 and f32 -> f32 (wgmma
                variants, max_abs_err <= 1e-5 on unit rows), beside one
@@ -225,13 +235,14 @@ right after it. Before phase 4 the shared native graph builder must load
 (built without OpenMP where the compiler has no OpenMP runtime; the build
 used is printed).
 The second-to-last line is a JSON object describing each of the six
-kernels: the launches counted on its path (K1: phase 4's f32 engine, and
-``wgmma_launches`` phase 4b's bf16 engine, ``flagship_serving_launches``
-phase 4f's fully cached engine; K1's times and bound are the bf16
+kernels and K1's cp_async variant: the launches counted on its path (K1:
+phase 4's f32 engine, and ``wgmma_launches`` phase 4b's bf16 engine,
+``flagship_serving_launches`` phase 4f's fully cached engine; K1's times and bound are the bf16
 wgmma variant's at the bench point, ``f32_wgmma`` holds the f32 wgmma
 variant's (launches on phase 4's engine, times at the bench point and the
 engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
-``tile_bf16`` the tile variant's at phase 7's sign-mode shape;
+``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
+its C entry point;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
 and for K1, K2 and K4 also the searches of phases 4g, 7b, 8 and 9b, counted
 with the counters set to 0 just before each (``launches`` sums them, and
@@ -240,7 +251,13 @@ holds phase 8's times per tier under ``twostage_tiers``);
 its ``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
 with f32 scores, ``tile`` the tile variant's; K3: phase 13's
 bucketed_topk; K6: phase 14's scores_matmul, likewise with
-``wgmma_launches``, ``tile`` and ``f32_wgmma``), its largest error
+``wgmma_launches``, ``tile``, ``f32_wgmma`` and ``cp_async``, its ragged
+case on the cp_async variant; and ``scores_bmax_cp``, K1's and K6's bf16
+kernel fed by cp.async for rows TMA cannot describe: its launches those of
+phase 7's sign-mode search, phase 8's 'itq' + 'matmul' tier and phase 9b's
+'itq' + 'matmul' engine, each path's under ``launches_by_path``, its times
+at sign mode's shape, ``producer_ablation_d256`` beside the TMA variant),
+its largest error
 against its plain version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the published peak of
 their type: an f32 product's 2*q*n*d at 495 TFLOP/s, the card's fastest
@@ -354,22 +371,38 @@ def unit_rows_f32(torch, g, n, d, dev):
     return rows
 
 
-def tile_loop(torch, lib, mips, q, c, dev, bmax=True):
+def tile_loop(torch, lib, mips, q, c, dev, bmax=True, out_bf16=False):
     """One launch of the f32 or bf16 tile loop straight through its C entry
     point -- K1's csrc/scores_bmax.cu (bmax=True; no penalty, every row
-    valid, f32 scores) or K6's csrc/scores_matmul.cu -- to time it on rows
-    where the wrappers run a wgmma variant. Returns the scores."""
+    valid, f32 or, with out_bf16, bf16 scores) or K6's csrc/scores_matmul.cu
+    -- to time it on rows where the wrappers run a Hopper variant. Returns
+    the scores (K1: and the bucket maxes)."""
     m, n, d = q.shape[0], c.shape[0], q.shape[1]
     in_bf16 = int(q.dtype == torch.bfloat16)
-    s = torch.empty(m, n, device=dev)
+    s = torch.empty(m, n, device=dev,
+                    dtype=torch.bfloat16 if bmax and out_bf16 else torch.float32)
     if bmax:
         bm = torch.empty(m, -(-n // 128), device=dev)
         mips._cuda_call(lib.sss_scores_bmax, "scores_bmax", dev, q.data_ptr(), c.data_ptr(),
-                        None, s.data_ptr(), bm.data_ptr(), m, n, d, n, in_bf16, 0)
+                        None, s.data_ptr(), bm.data_ptr(), m, n, d, n, in_bf16, int(out_bf16))
+        if out_bf16:
+            return s, bm
     else:
         mips._cuda_call(lib.sss_scores_matmul, "scores_matmul", dev, q.data_ptr(),
                         c.data_ptr(), s.data_ptr(), m, n, d, in_bf16)
     return s
+
+
+def cp_loop(torch, lib, mips, q, c, dev):
+    """One launch of K1's cp_async variant straight through its C entry point
+    (bf16 rows; no penalty, every row valid, bf16 scores), to time it on rows
+    where the wrapper runs the TMA-fed variant. Returns (scores, bmax)."""
+    m, n, d = q.shape[0], c.shape[0], q.shape[1]
+    s = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+    bm = torch.empty(m, -(-n // 128), device=dev)
+    mips._cuda_call(lib.sss_scores_bmax_cp_sm90, "scores_bmax_cp_sm90", dev, q.data_ptr(),
+                    c.data_ptr(), None, s.data_ptr(), bm.data_ptr(), m, n, d, n, 1)
+    return s, bm
 
 
 def f32_bound(q_n, n, d, tf32=True, bmax=True):
@@ -424,22 +457,28 @@ def value_recall(torch, topk_mod, exact, ids, k, rel_tol):
 
 
 def phase_kernel_ragged(torch, mips, topk_mod, dev):
-    errs = []
+    errs, cp_errs = [], []
     # f32 at d=200 (the f32 wgmma variant) and d=202 (no TMA stride: the
-    # tile loop), bf16 at d=200 (the bf16 wgmma variant)
-    for dt, d, want in ((torch.float32, 200, "wgmma"), (torch.float32, 202, "tile"),
-                        (torch.bfloat16, 200, "wgmma")):
+    # tile loop), bf16 at d=200 (the bf16 wgmma variant), bf16 at d=250 and
+    # at d=1600 with the corpus 2 elements (4 bytes) into its allocation (no
+    # TMA stride or base: the cp_async variant)
+    for dt, d, off, want in ((torch.float32, 200, 0, "wgmma"),
+                             (torch.float32, 202, 0, "tile"),
+                             (torch.bfloat16, 200, 0, "wgmma"),
+                             (torch.bfloat16, 250, 0, "cp_async"),
+                             (torch.bfloat16, 1600, 2, "cp_async")):
         g = torch.Generator(device=dev).manual_seed(0)
         q = torch.randn(37, d, generator=g, device=dev).to(dt)
-        c = torch.randn(5003, d, generator=g, device=dev).to(dt)
+        c = torch.randn(5003 * d + off, generator=g, device=dev).to(dt)[off:].view(5003, d)
         pen = torch.where(torch.rand(5003, generator=g, device=dev) < 0.1,
                           float("-inf"), 0.0)
         vc = 4037  # mid-bucket: 4037 = 31 * 128 + 69
         variant = mips.k1_variant(dev.type, dt, d, (q.data_ptr(), c.data_ptr()))
         check(variant == want, f"ragged {dt} d={d}: the {variant} variant, not {want}")
-        w0 = mips.wgmma_launch_count
+        w0, cp0 = mips.wgmma_launch_count, mips.cp_async_launch_count
         mips.scores_with_bucket_max(q, c, vc, pen, dt)
-        check(mips.wgmma_launch_count - w0 == (variant == "wgmma"),
+        check((mips.wgmma_launch_count - w0, mips.cp_async_launch_count - cp0)
+              == (variant == "wgmma", variant == "cp_async"),
               f"ragged {dt} d={d}: the {variant} variant was not the one launched")
         ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(q, c, vc, pen, dt), 20)
         plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(
@@ -483,12 +522,15 @@ def phase_kernel_ragged(torch, mips, topk_mod, dev):
                            1e-5 if dt == torch.float32 else BF16_TOL)
         check(rec == 1.0, f"ragged {dt} d={d}: value-recall@10 {rec}")
         errs.append(bm_err)
-        print(f"kernel ragged q=37 n=5003 d={d} {str(dt)[6:]} ({variant} variant): "
+        if variant == "cp_async":
+            cp_errs.append(bm_err)
+        print(f"kernel ragged q=37 n=5003 d={d} {str(dt)[6:]} ({variant} variant"
+              f"{f', corpus {2 * off} bytes off' if off else ''}): "
               f"kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms; bmax max_abs_err {bm_err:.3g}, scores max "
               f"rel err {s_rel:.3g}{f64_note}, top-10 max_abs_err {v_err:.3g}, "
               f"value-recall@10 {rec}")
-    return max(errs)
+    return max(errs), max(cp_errs)
 
 
 def phase_kernel_bench(torch, mips, topk_mod, dev):
@@ -2134,7 +2176,7 @@ def phase_hamming_kernel(torch, dev, bench, k4_ms):
 
 def phase_binary_index(torch, dev):
     from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
-    from sessionsimilaritysearch_tpu_torch.ops import mips
+    from sessionsimilaritysearch_tpu_torch.ops import _build, mips
 
     n, n_bits, q_n, k = 1 << 20, 250, 1024, 100
     g = torch.Generator(device=dev).manual_seed(4)
@@ -2144,18 +2186,20 @@ def phase_binary_index(torch, dev):
     dots = queries @ codes.T
     want = ((n_bits - torch.topk(dots, k, dim=1).values) * 0.5).to(torch.int32)
     del dots
+    sign_path = None
     for mode in ("packed", "sign"):
         idx = BinaryIndex(n_bits, n, mode, device=dev)
         for s in range(0, n, 1 << 16):
             idx.add(codes[s: s + (1 << 16)])
-        k1, k1w = mips.launch_count, mips.wgmma_launch_count
-        d, i = idx.search_device(queries, k)  # warm-up
-        variant = ("" if mode == "packed" else
-                   f" (K1 tile variant: {mips.launch_count - k1} launch, "
-                   f"{mips.wgmma_launch_count - k1w} wgmma)")
+        # the path: one search, its counters set to 0 just before
+        (d, i), launches = counted(torch, lambda: idx.search_device(queries, k))
+        variant = ""
         if mode == "sign":
-            check(mips.launch_count > k1 and mips.wgmma_launch_count == k1w,
-                  "binary index sign: not K1's tile variant")
+            # 250-wide bf16 rows are no TMA stride: K1's cp_async variant
+            check(launches == {**NO_LAUNCHES, "k1": 1, "k1_cp": 1},
+                  f"binary index sign: launches {launches}, not one of K1's cp_async variant")
+            sign_path = launches
+            variant = f" (K1's cp_async variant, launches {launches})"
         times = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -2173,30 +2217,76 @@ def phase_binary_index(torch, dev):
               f"k={k} {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); sorted "
               f"distances equal the plain product's")
         del idx
-    # K1's tile variant alone at sign mode's shape: +-1 bf16 rows of 250
-    # bits (no TMA stride), bf16 scores, beside a cuBLAS bf16 GEMM
+    # K1 alone at sign mode's shape: +-1 bf16 rows of 250 bits (no TMA
+    # stride), bf16 scores; the cp_async variant through the wrapper, the
+    # tile loop through its C entry point, a cuBLAS bf16 GEMM and the plain
+    # version in the same rounds
+    lib = _build.load_library()
     qb, cb, bf = queries.bfloat16(), codes.bfloat16(), torch.bfloat16
     del codes
-    check(mips.k1_variant(dev.type, bf, n_bits, (qb.data_ptr(), cb.data_ptr())) == "tile",
-          "binary index sign: its rows do not take K1's tile variant")
-    ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max(qb, cb, score_dtype=bf), 5)
-    lib_ms = cuda_ms(torch, lambda: torch.matmul(qb, cb.T), 5)
-    plain_ms = cuda_ms(torch, lambda: mips.scores_with_bucket_max_ref(qb, cb, score_dtype=bf), 3)
-    s, bm = mips.scores_with_bucket_max(qb, cb, score_dtype=bf)
+    check(mips.k1_variant(dev.type, bf, n_bits, (qb.data_ptr(), cb.data_ptr())) == "cp_async",
+          "binary index sign: its rows do not take K1's cp_async variant")
     s_ref, bm_ref = mips.scores_with_bucket_max_ref(qb, cb, score_dtype=bf)
-    # +-1 products are integers of magnitude <= 250: exact on both sides
-    check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
-          "binary index sign: K1's tile variant differs from its plain version")
-    del s, s_ref, bm, bm_ref, qb, cb
+    # +-1 products are integers of magnitude <= 250: exact on every side
+    for name, run in (("cp_async", lambda: mips.scores_with_bucket_max(qb, cb, score_dtype=bf)),
+                      ("tile", lambda: tile_loop(torch, lib, mips, qb, cb, dev, out_bf16=True))):
+        s, bm = run()
+        check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+              f"binary index sign: K1's {name} variant differs from its plain version")
+        del s, bm
+    del s_ref, bm_ref
+    med, rounds, state = rounds_in_turns(torch, {
+        "cp_async": (lambda: mips.scores_with_bucket_max(qb, cb, score_dtype=bf), 5),
+        "tile": (lambda: tile_loop(torch, lib, mips, qb, cb, dev, out_bf16=True), 2),
+        "cublas": (lambda: torch.matmul(qb, cb.T), 5),
+        "plain": (lambda: mips.scores_with_bucket_max_ref(qb, cb, score_dtype=bf), 1)})
+    del qb, cb
     torch.cuda.empty_cache()
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           **bound_ms(q_n * n_bits * 2 + n * n_bits * 2 + q_n * n * 2 + q_n * (n // 128) * 4,
-                      2 * q_n * n * n_bits, PEAK_BF16)}
-    print(f"K1 tile variant at sign mode's shape q={q_n} n={n} d={n_bits} bf16 -> bf16: "
-          f"kernel {ms:.3f} ms {smi()}, cuBLAS bf16 GEMM {lib_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {out['bound_ms']:.3f} ms ({out['bound_by']}); scores "
-          f"and bmax equal")
-    return out
+    bound = bound_ms(q_n * n_bits * 2 + n * n_bits * 2 + q_n * n * 2 + q_n * (n // 128) * 4,
+                     2 * q_n * n * n_bits, PEAK_BF16)
+    common = {"plain_ms": med["plain"], "library_ms": med["cublas"], **bound}
+    cp = {"ms": med["cp_async"], **common}
+    tile = {"ms": med["tile"], **common}
+    print(f"K1 at sign mode's shape q={q_n} n={n} d={n_bits} bf16 -> bf16, three rounds in "
+          f"turns {state}: cp_async variant {rounds['cp_async']} ms, tile loop "
+          f"{rounds['tile']} ms, cuBLAS bf16 GEMM {rounds['cublas']} ms, plain "
+          f"{rounds['plain']} ms; bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}); "
+          f"scores and bmax of both kernels equal the plain version's")
+    cp["producer_ablation_d256"] = producer_ablation(torch, mips, lib, g, q_n, n, dev)
+    return tile, cp, sign_path
+
+
+def producer_ablation(torch, mips, lib, g, q_n, n, dev, bits=256):
+    """The cp_async variant (through its C entry point) beside the TMA-fed
+    wgmma variant on the same +-1 rows of 256 bits, which TMA can describe:
+    the same products and epilogue, only the producer differs. Both must
+    equal the plain version; three rounds in turns."""
+    bf = torch.bfloat16
+    codes = random_signs(torch, g, n, bits, dev).to(bf)
+    queries = random_signs(torch, g, q_n, bits, dev).to(bf)
+    check(mips.k1_variant(dev.type, bf, bits, (queries.data_ptr(), codes.data_ptr()))
+          == "wgmma", "producer ablation: 256-bit rows do not take the TMA variant")
+
+    def cp():
+        return cp_loop(torch, lib, mips, queries, codes, dev)
+
+    def tma():
+        return mips.scores_with_bucket_max(queries, codes, score_dtype=bf)
+
+    s_ref, bm_ref = mips.scores_with_bucket_max_ref(queries, codes, score_dtype=bf)
+    for name, run in (("cp_async", cp), ("wgmma", tma)):
+        s, bm = run()
+        check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+              f"producer ablation: the {name} variant differs from the plain version")
+        del s, bm
+    del s_ref, bm_ref
+    med, rounds, state = rounds_in_turns(torch, {"cp_async": (cp, 5), "wgmma": (tma, 5)})
+    del codes, queries
+    torch.cuda.empty_cache()
+    print(f"producer ablation q={q_n} n={n} d={bits} bf16 -> bf16, three rounds in turns "
+          f"{state}: cp_async variant {rounds['cp_async']} ms, TMA-fed wgmma variant "
+          f"{rounds['wgmma']} ms; both equal the plain version")
+    return {"cp_async_ms": med["cp_async"], "wgmma_ms": med["wgmma"]}
 
 
 # the two-stage tiers at full width (phase 8): rows, width, queries, depth,
@@ -2207,23 +2297,26 @@ TIER_POOLS = (128, 512)
 TIER_FIT_ROWS = 1 << 15
 TIERS = (("binary", "matmul", 256), ("itq", "matmul", 250), ("int8x8", "matmul", 0),
          ("pca", "matmul", 64), ("itq", "packed", 250))
+# read_counts() of a run that launched nothing
+NO_LAUNCHES = {"k1": 0, "k1_wgmma": 0, "k1_cp": 0, "k2": 0, "k2_wgmma": 0, "k4": 0}
 
 
 def reset_counts():
     """Set every kernel counter of the two-stage and binary paths to 0."""
     from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
 
-    mips.launch_count = mips.wgmma_launch_count = 0
+    mips.launch_count = mips.wgmma_launch_count = mips.cp_async_launch_count = 0
     mips_int8.launch_count = mips_int8.wgmma_launch_count = 0
     packed.launch_count = 0
 
 
 def read_counts() -> dict:
-    """The counters as one dict: K1 (and its wgmma variant), K2 (and its
-    wgmma variant), K4."""
+    """The counters as one dict: K1 (and its wgmma and cp_async variants),
+    K2 (and its wgmma variant), K4."""
     from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
 
     return {"k1": mips.launch_count, "k1_wgmma": mips.wgmma_launch_count,
+            "k1_cp": mips.cp_async_launch_count,
             "k2": mips_int8.launch_count, "k2_wgmma": mips_int8.wgmma_launch_count,
             "k4": packed.launch_count}
 
@@ -2306,11 +2399,12 @@ def stage1_bound(prefilter, stage1, width, q_n, n) -> dict:
 def expected_variant(prefilter, stage1, n_bits) -> dict:
     """The launches one search of a tier makes, per kernel and variant."""
     if stage1 == "packed":
-        return {"k1": 0, "k1_wgmma": 0, "k2": 0, "k2_wgmma": 0, "k4": 1}
+        return {**NO_LAUNCHES, "k4": 1}
     if prefilter == "int8x8":
-        return {"k1": 0, "k1_wgmma": 0, "k2": 1, "k2_wgmma": 1, "k4": 0}
-    wgmma = int(n_bits % 8 == 0)  # 250-wide bf16 rows are no TMA stride: the tile loop
-    return {"k1": 1, "k1_wgmma": wgmma, "k2": 0, "k2_wgmma": 0, "k4": 0}
+        return {**NO_LAUNCHES, "k2": 1, "k2_wgmma": 1}
+    # 250-wide bf16 rows are no TMA stride: the cp_async variant
+    wgmma = int(n_bits % 8 == 0)
+    return {**NO_LAUNCHES, "k1": 1, "k1_wgmma": wgmma, "k1_cp": 1 - wgmma}
 
 
 def phase_twostage_index(torch, dev, card):
@@ -2521,7 +2615,7 @@ def phase_binary_maintenance(torch, dev, card):
 
 def phase_twostage_engine_verbs(torch, dev, parts, card):
     """The two-stage engine's verbs at Config() width (phase 4's encoder and
-    8,192 sessions), 'itq' 250 bits with stage1 'matmul' (K1's tile variant)
+    8,192 sessions), 'itq' 250 bits with stage1 'matmul' (K1's cp_async variant)
     and 'packed' (K4): each search after a verb held against a fresh engine
     on the surviving sessions."""
     import sessionsimilaritysearch_tpu_torch as port
@@ -3027,17 +3121,20 @@ def phase_scores_matmul(torch, dev):
 
     lib = _build.load_library()
     g = torch.Generator(device=dev).manual_seed(9)
-    errs, tiles = [], {}
+    errs, tiles, cp = [], {}, {}
     for dt, dd, variant in ((torch.float32, 200, "wgmma"), (torch.float32, 202, "tile"),
-                            (torch.bfloat16, 200, "wgmma")):
+                            (torch.bfloat16, 200, "wgmma"), (torch.bfloat16, 250, "cp_async")):
         q = torch.randn(37, dd, generator=g, device=dev).to(dt)
         c = torch.randn(5003, dd, generator=g, device=dev).to(dt)
         check(mips.k6_variant(dev.type, dt, dd, (q.data_ptr(), c.data_ptr())) == variant,
               f"scores matmul ragged {dt} d={dd}: not the {variant} variant")
-        l0, w0 = mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count
+        counts = (mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count,
+                  mips.scores_matmul_cp_async_launch_count)
         s = mips.scores_matmul(q, c)
-        check((mips.scores_matmul_launch_count - l0,
-               mips.scores_matmul_wgmma_launch_count - w0) == (1, int(variant == "wgmma")),
+        check((mips.scores_matmul_launch_count - counts[0],
+               mips.scores_matmul_wgmma_launch_count - counts[1],
+               mips.scores_matmul_cp_async_launch_count - counts[2])
+              == (1, int(variant == "wgmma"), int(variant == "cp_async")),
               f"scores matmul ragged {dt} d={dd}: the {variant} variant was not the one "
               "launched")
         err = (s - mips.scores_matmul_ref(q, c)).abs().max().item()
@@ -3048,6 +3145,9 @@ def phase_scores_matmul(torch, dev):
         plain_ms = cuda_ms(torch, lambda: mips.scores_matmul_ref(q, c), 20)
         if variant == "tile":
             tiles[f"q37_n5003_d{dd}_float32"] = {"ms": ms, "plain_ms": plain_ms}
+        if variant == "cp_async":
+            cp[f"q37_n5003_d{dd}_bfloat16"] = {"ms": ms, "plain_ms": plain_ms,
+                                               "max_abs_err": err}
         print(f"scores matmul kernel ragged q=37 n=5003 d={dd} {str(dt)[6:]} ({variant} "
               f"variant): kernel {ms:.4f} ms {smi()}, plain {plain_ms:.4f} ms; "
               f"max_abs_err {err:.3g}")
@@ -3103,6 +3203,7 @@ def phase_scores_matmul(torch, dev):
     tiles["q1024_n1048576_d1600_float32"] = {"ms": f32.pop("tile_ms")}
     return {"err": max(errs), "launches": launches, "wgmma_launches": wgmma, "ms": ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "tile": tiles, "f32_wgmma": f32,
+            "cp_async": cp,
             **bound_ms(q_n * d * 2 + n * d * 2 + q_n * n * 4, 2 * q_n * n * d, PEAK_BF16)}
 
 
@@ -3197,8 +3298,8 @@ def main() -> int:
           f"the native graph builder did not load ({native_kind} build)")
     print(f"native graph builder: loaded ({native_kind} build)")
 
-    err_ragged = run_phase(torch, "kernel ragged", phase_kernel_ragged,
-                           torch, mips, topk_mod, dev)
+    err_ragged, err_ragged_cp = run_phase(torch, "kernel ragged", phase_kernel_ragged,
+                                          torch, mips, topk_mod, dev)
     err_bench, k1 = run_phase(torch, "kernel bench point", phase_kernel_bench,
                               torch, mips, topk_mod, dev)
     err_f32_index, f32_search_ms = run_phase(torch, "f32 index", phase_f32_index, torch,
@@ -3223,7 +3324,8 @@ def main() -> int:
     k5 = run_phase(torch, "hamming kernel", phase_hamming_kernel, torch, dev,
                    bench, k4["ms"])
     del bench
-    sign_tile = run_phase(torch, "binary index", phase_binary_index, torch, dev)
+    sign_tile, sign_cp, sign_path = run_phase(torch, "binary index", phase_binary_index,
+                                              torch, dev)
     bin_path = run_phase(torch, "binary maintenance", phase_binary_maintenance, torch, dev,
                          card_line)
     err_tiers, tiers = run_phase(torch, "two-stage index", phase_twostage_index, torch, dev,
@@ -3284,7 +3386,7 @@ def main() -> int:
                      "scores_bmax_sm90.cu")
     k6_f32 = k6["f32_wgmma"]
     k6_entry.update(wgmma_launches=k6["wgmma_launches"], tile_source=f"{src}scores_matmul.cu",
-                    tile=k6["tile"],
+                    tile=k6["tile"], cp_async=k6["cp_async"],
                     f32_wgmma=entry("scores_matmul_f32", "247", k6_f32["launches"],
                                     k6_f32["err"], k6_f32, "scores_bmax_f32_sm90.cu"))
     # the binary and two-stage paths: the two-stage tiers (one search each),
@@ -3295,13 +3397,34 @@ def main() -> int:
                  "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
+    new_paths["binary_sign"] = sign_path
     for key, entry_ in (("k1", k1_entry), ("k2", k2_entry)):
-        by_path = {path: c[key] for path, c in new_paths.items()}
+        by_path = {path: c.get(key, 0) for path, c in new_paths.items()}
         entry_["launches_by_path"] = {"earlier_paths": entry_["launches"], **by_path,
-                                      "wgmma": {path: c[key + "_wgmma"]
+                                      "wgmma": {path: c.get(key + "_wgmma", 0)
                                                 for path, c in new_paths.items()}}
+        if key == "k1":
+            entry_["launches_by_path"]["cp_async"] = {path: c["k1_cp"]
+                                                      for path, c in new_paths.items()}
         entry_["launches"] += sum(by_path.values())
     k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers)
+    # K1's and K6's bf16 kernel fed by cp.async: its launches on the paths
+    # whose rows TMA cannot describe (each counted from 0), its times at
+    # sign mode's shape, the producer ablation and K6's ragged case beside
+    cp_by_path = {path: new_paths[path]["k1_cp"]
+                  for path in ("binary_sign", "twostage_tiers", "twostage_engine_verbs")}
+    check(all(cp_by_path.values()),
+          f"the cp_async variant was not launched on every path of 250-bit rows: {cp_by_path}")
+    check(sum(c["k1_cp"] for c in new_paths.values()) == sum(cp_by_path.values()),
+          "the cp_async variant was launched on a path of TMA rows")
+    cp_entry = entry("scores_bmax_cp", "144", sum(cp_by_path.values()),
+                     max(err_ragged_cp, err_tiers, max(c["max_abs_err"]
+                                                       for c in k6["cp_async"].values())),
+                     sign_cp, "scores_bmax_sm90.cu")
+    cp_entry.update(producer_source=f"{src}sm90_cp_async.cuh", launches_by_path=cp_by_path,
+                    shape="q1024_n1048576_d250", also_replaces=tpu + "247",
+                    producer_ablation_d256=sign_cp["producer_ablation_d256"],
+                    scores_matmul=k6["cp_async"])
     k4_entry = entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4)
     k4_by_path = {path: c["k4"] for path, c in new_paths.items()}
     k4_entry["launches_by_path"] = {"twostage_engine": k4_launches, **k4_by_path}
@@ -3310,6 +3433,7 @@ def main() -> int:
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         k1_entry,
+        cp_entry,
         k4_entry,
         entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5),
         k2_entry,

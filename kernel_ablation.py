@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of the Hopper kernels goes: K1's bf16 wgmma variant
-(``csrc/scores_bmax_sm90.cu``), K1's f32 wgmma variant
+(``csrc/scores_bmax_sm90.cu``), the same kernel fed by cp.async for rows
+TMA cannot describe (``csrc/sm90_cp_async.cuh``), K1's f32 wgmma variant
 (``csrc/scores_bmax_f32_sm90.cu``, the 3xTF32 split), K4
 (``csrc/packed_scores_bmax.cu``) and K2's wgmma variant
 (``csrc/scores_bmax_int8_sm90.cu``), each timed beside copies of itself with
 one part changed, at the bench points of ``chip_smoke.py`` (q=1024, n=2^20;
-K1 d=1600 bf16 -> bf16, K1 f32 d=1600 f32 -> f32 on f32 unit rows, K4 256
-bits -> bf16, K2 d=1600 int8 -> f32, the int8x8 index's score dtype).
+K1 d=1600 bf16 -> bf16, K1's cp_async variant d=250 +-1 codes -> bf16 (the
+sign-mode shape), K1 f32 d=1600 f32 -> f32 on f32 unit rows, K4 256 bits ->
+bf16, K2 d=1600 int8 -> f32, the int8x8 index's score dtype).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -25,6 +27,22 @@ copies:
   reach ``valid_count`` or carry a penalty;
 - K1 ``wait_group_1``: each slot is released one K slice later, with one
   wgmma group kept in flight;
+- K1 cp_async ``no_copy``: the producer starts no cp.async (the ring holds
+  stale bytes; groups, fences and arrivals stay): the consumers' and the
+  epilogue's share;
+- K1 cp_async ``zero_fill``: every copy has src-size 0 (zeros written, no
+  device memory read): the instructions' share without the reads;
+- K1 cp_async ``no_l2_prefetch``: the copies without the ``.L2::128B``
+  prefetch hint;
+- K1 cp_async ``no_consumer_fence``: the consumers skip the async-proxy
+  fence after their full-barrier wait (CUTLASS's cp.async + GMMA mainloop
+  fences nowhere);
+- K1 cp_async ``wait_group_lag2`` / ``wait_group_lag1``: the first design of
+  the completion, one cp.async group per slot, each thread waiting for the
+  group two or one slots back, fencing its writes and arriving itself,
+  instead of the noinc arrivals;
+- K1 cp_async ``tile``: not a copy, the tile loop (``csrc/scores_bmax.cu``)
+  through its C entry point, timed in the same rounds;
 - K4 ``no_epilogue``: the consumers skip the epilogue;
 - K4 ``no_unpack``: the producer skips the unpack (the ring holds stale
   bytes);
@@ -48,7 +66,9 @@ copies:
   FMA) through its C entry point, timed in the same rounds.
 
 Copies that keep the output (``mask_always``, ``wait_group_1``, ``parent``,
-``scales_in_epilogue``) must equal the kernel's output; the others are
+``scales_in_epilogue``, ``no_l2_prefetch``, ``no_consumer_fence``,
+``wait_group_lag2``, ``wait_group_lag1``; K1 cp_async's ``tile``) must equal
+the kernel's output; the others are
 diagnostics only. For K1 f32 each copy's largest |score - f64| on the two
 cases of the accuracy gate is printed beside cuBLAS SGEMM's. Every kernel
 runs three rounds in turns, each the mean of 10 launches between CUDA
@@ -114,7 +134,41 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }"""
 
-# kernel -> copy -> ({old: new} in the kernel's source, {old: new} in sm90_common.cuh)
+CP_LOOP = "for (int i = 0; i < ROWS / 4; i += 2) {"
+CP_LIVE = "if (col < d) live = max(0, min(ROWS / 4, (rows - row0 - warp + 3) / 4));"
+CP_ASM = "cp.async.ca.shared.global.L2::128B [%0], [%1], 4, %2;"
+CP_ARRIVE = "      cp_async_arrive_noinc(&full[ring.slot]);\n      ring.advance(ST);"
+CP_RING = "  const uint32_t ring0 = smem_u32(smem);\n  Ring ring;"
+CP_FENCE = "        if constexpr (!Ops::TMA) fence_proxy_async();"
+
+
+def cp_wait_group(lag):
+    """The producer's first design: one cp.async group per slot; a thread
+    waits for the group `lag` slots back, fences its own writes for the
+    async proxy and arrives on that slot's full barrier; the last groups
+    drain at the end."""
+    return {
+        CP_RING: CP_RING.replace("Ring ring;", "Ring ring, done;\n  int pending = 0;"),
+        CP_ARRIVE: f"""      asm volatile("cp.async.commit_group;\\n" ::: "memory");
+      ring.advance(ST);
+      if (++pending > {lag}) {{
+        asm volatile("cp.async.wait_group {lag};\\n" ::: "memory");
+        fence_proxy_async();
+        mbar_arrive(&full[done.slot]);
+        done.advance(ST);
+        --pending;
+      }}""",
+        "  cp_async_wait_all();  // no copy outlives its thread": """  cp_async_wait_all();
+  fence_proxy_async();
+  for (; pending > 0; --pending) {
+    mbar_arrive(&full[done.slot]);
+    done.advance(ST);
+  }""",
+    }
+
+
+# kernel -> copy -> ({old: new} in the kernel's source, {old: new} in the one
+# header of csrc/ that holds `old`)
 VARIANTS = {
     "k1": {
         "base": ({}, {}),
@@ -139,6 +193,15 @@ VARIANTS = {
                 "      int prev = -1;\n      for (int ks = 0; ks < k_steps; ++ks) {\n"
                 "        mbar_wait(&full",
         }, {}),
+    },
+    "k1cp": {
+        "base": ({}, {}),
+        "no_copy": ({}, {CP_LOOP: "for (int i = 0; i < 0; i += 2) {"}),
+        "zero_fill": ({}, {CP_LIVE: CP_LIVE.replace("col < d", "col < 0")}),
+        "no_l2_prefetch": ({}, {CP_ASM: CP_ASM.replace(".L2::128B", "")}),
+        "no_consumer_fence": ({CP_FENCE: ""}, {}),
+        "wait_group_lag2": ({}, cp_wait_group(2)),
+        "wait_group_lag1": ({}, cp_wait_group(1)),
     },
     "k4": {
         "base": ({}, {}),
@@ -176,12 +239,14 @@ VARIANTS = {
                       {}),
     },
 }
-SOURCES = {"k1": "scores_bmax_sm90.cu", "k4": "packed_scores_bmax.cu",
+SOURCES = {"k1": "scores_bmax_sm90.cu", "k1cp": "scores_bmax_sm90.cu",
+           "k4": "packed_scores_bmax.cu",
            "k2": "scores_bmax_int8_sm90.cu", "k1f32": "scores_bmax_f32_sm90.cu"}
 # each kernel's C entry point: queries, corpus or words, (K2: scales,)
 # penalty, scores, bmax (pointers); q, n, d or bits, valid_count, out_bf16;
 # stream
-ENTRY = {"k1": "sss_scores_bmax_sm90", "k4": "sss_packed_scores_bmax",
+ENTRY = {"k1": "sss_scores_bmax_sm90", "k1cp": "sss_scores_bmax_cp_sm90",
+         "k4": "sss_packed_scores_bmax",
          "k2": "sss_scores_bmax_int8_sm90", "k1f32": "sss_scores_bmax_f32_sm90"}
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 ARGTYPES_K2 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -189,7 +254,8 @@ ARGTYPES_K2 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 def build(_build, parent=None):
     """Write and compile every copy side by side, each beside copies of the
-    headers of csrc/ (the substitutions applied to sm90_common.cuh);
+    headers of csrc/ (each header substitution applied to the header that
+    holds its target);
     {(kernel, name): the copy's entry point}. ``parent``: the csrc/ of
     another checkout, whose K1 and K4 become the copy ``parent``."""
     out_dir = _build.BUILD_DIR / "ablation"
@@ -205,13 +271,14 @@ def build(_build, parent=None):
                 raise SystemExit(f"{kernel} {name}: substitution target not found")
             src = src.replace(old, new)
         (d / "kernel.cu").write_text(src)
-        for h in csrc.glob("*.cuh"):
-            text = h.read_text()
-            for old, new in (hsubs.items() if h.name == "sm90_common.cuh" else ()):
-                if old not in text:
-                    raise SystemExit(f"{kernel} {name}: header target not found")
-                text = text.replace(old, new)
-            (d / h.name).write_text(text)
+        headers = {h.name: h.read_text() for h in csrc.glob("*.cuh")}
+        for old, new in hsubs.items():
+            holders = [h for h, text in headers.items() if old in text]
+            if len(holders) != 1:
+                raise SystemExit(f"{kernel} {name}: header target found in {holders}")
+            headers[holders[0]] = headers[holders[0]].replace(old, new)
+        for h, text in headers.items():
+            (d / h).write_text(text)
         libs[kernel, name] = d / "lib.so"
         cmds.append([_build._find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o",
                      str(libs[kernel, name]), str(d / "kernel.cu")])
@@ -294,7 +361,9 @@ def main() -> int:
             res.setdefault("library", []).append(ms(library))
             state.append(smi())
         base = outs["base"]
-        for name in ("mask_always", "wait_group_1", "parent", "scales_in_epilogue"):
+        same = ("mask_always", "wait_group_1", "parent", "scales_in_epilogue",
+                "no_l2_prefetch", "no_consumer_fence", "wait_group_lag2", "wait_group_lag1")
+        for name in same + (("tile",) if kernel == "k1cp" else ()):
             if name in outs and not (torch.equal(outs[name][0], base[0])
                                      and torch.equal(outs[name][1], base[1])):
                 raise SystemExit(f"{kernel} {name}: output differs from the kernel's")
@@ -314,6 +383,24 @@ def main() -> int:
     del corpus, queries
     torch.cuda.empty_cache()
 
+    lib = _build.load_library()
+
+    def tile_bf16(qp, cp, pen, sp, bp, q_, n_, d_, vc, out_bf16, st):
+        return lib.sss_scores_bmax(qp, cp, pen, sp, bp, q_, n_, d_, vc, 1, out_bf16, st)
+
+    # K1's cp_async variant at the sign-mode shape: +-1 codes of 250 bits
+    # (rows 500 bytes apart), bf16 scores; the tile loop in the same rounds
+    entries["k1cp", "tile"] = tile_bf16
+    codes = torch.where(torch.rand(n, 250, generator=g, device=dev) < 0.5, 1.0, -1.0).bfloat16()
+    signs = torch.where(torch.rand(q_n, 250, generator=g, device=dev) < 0.5,
+                        1.0, -1.0).bfloat16()
+    run("k1cp", lambda fn, s, bm: lambda: fn(
+        signs.data_ptr(), codes.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+        q_n, n, 250, n, 1, stream),
+        lambda: torch.matmul(signs, codes.T))
+    del codes, signs
+    torch.cuda.empty_cache()
+
     # K1 f32: f32 unit rows (every mantissa bit in use); the tile loop in the
     # same rounds through its own entry point
     corpus32 = torch.empty(n, d, device=dev)
@@ -322,7 +409,6 @@ def main() -> int:
         corpus32[s0: s0 + (1 << 16)] = r / r.norm(dim=1, keepdim=True)
     queries32 = torch.randn(q_n, d, generator=g, device=dev)
     queries32 = queries32 / queries32.norm(dim=1, keepdim=True)
-    lib = _build.load_library()
 
     def tile(qp, cp, pen, sp, bp, q_, n_, d_, vc, out_bf16, st):
         return lib.sss_scores_bmax(qp, cp, pen, sp, bp, q_, n_, d_, vc, 0, out_bf16, st)

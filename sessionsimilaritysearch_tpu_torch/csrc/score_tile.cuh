@@ -12,10 +12,13 @@
 // score_tile<T> is the float path: bf16 on the tensor cores through WMMA
 // (mma.sync, f32 accumulation), f32 as an exact FMA loop (no TF32). The
 // int8 path (K2) shares the staging and runs its own s8 mma.sync loop.
-// K1 and K6 run it only on rows that TMA cannot describe (f32 with
-// d % 4 != 0, bf16 with d % 8 != 0, or unaligned bases); other rows run the
-// Hopper kernels on sm90_tma.cuh (scores_bmax_sm90.cu for bf16,
-// scores_bmax_f32_sm90.cu for f32). K3 runs it on every row.
+// K1 and K6 run it only on rows that neither Hopper producer takes: f32
+// rows TMA cannot describe (d % 4 != 0 or bases not 16-byte aligned), and
+// bf16 rows of odd d or at 2-byte-aligned bases. Other bf16 rows run
+// scores_bmax_sm90.cu, fed by TMA (sm90_tma.cuh: d % 8 == 0, 16-byte-aligned
+// bases) or by cp.async (sm90_cp_async.cuh: even d, 4-byte-aligned bases,
+// such as the 250-bit sign codes); other f32 rows scores_bmax_f32_sm90.cu.
+// K3 runs it on every row.
 
 #pragma once
 

@@ -28,10 +28,14 @@
 // fed by a two-stage cp.async pipeline; f32 as an exact FMA loop, no TF32).
 // Queries are the fastest grid dimension, so the blocks that share a corpus
 // tile run together and the tile comes from HBM once and from L2 after.
-// This kernel serves the rows that TMA cannot describe: f32 with d % 4 != 0
-// and bf16 with d % 8 != 0, or unaligned bases. Other rows run the TMA-fed
-// wgmma kernels: scores_bmax_sm90.cu for bf16, scores_bmax_f32_sm90.cu for
-// f32 (the 3xTF32 split) (ops/mips.py k1_variant chooses).
+// This kernel serves the rows that neither Hopper producer takes: f32 rows
+// TMA cannot describe (d % 4 != 0 or bases not 16-byte aligned), and bf16
+// rows of odd d or at 2-byte-aligned bases. Other rows run the wgmma
+// kernels: scores_bmax_sm90.cu for bf16, fed by TMA (d % 8 == 0,
+// 16-byte-aligned bases) or by cp.async (other even d at 4-byte-aligned
+// bases: the 250-bit sign and ITQ codes, sm90_cp_async.cuh), and
+// scores_bmax_f32_sm90.cu for f32 (the 3xTF32 split) (ops/mips.py
+// k1_variant chooses). A dispatch, not a fallback.
 
 #include <math.h>
 

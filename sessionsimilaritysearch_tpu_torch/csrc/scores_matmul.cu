@@ -13,9 +13,10 @@
 // corpus read, 4.3 GB of f32 scores written: 2.28 ms at 3.35 TB/s), so it is
 // compute-bound. The design is K1's tile loop (score_tile.cuh) with a plain
 // store epilogue: 64 x 128 tiles, WMMA mma.sync for bf16 and an exact FMA
-// loop for f32. K6's tile variant: rows that TMA can describe run K1's
-// Hopper kernels with a store-only epilogue (bf16: scores_bmax_sm90.cu
-// sss_scores_matmul_sm90; f32: scores_bmax_f32_sm90.cu
+// loop for f32. K6's tile variant: rows that a Hopper producer takes run
+// K1's Hopper kernels with a store-only epilogue (bf16: scores_bmax_sm90.cu
+// sss_scores_matmul_sm90, or sss_scores_matmul_cp_sm90 for even d at
+// 4-byte-aligned bases; f32: scores_bmax_f32_sm90.cu
 // sss_scores_matmul_f32_sm90; ops/mips.py k6_variant).
 
 #include "score_tile.cuh"

@@ -2,7 +2,7 @@
 // bf16 variant and K6 (scores_bmax_sm90.cu), K1's and K6's f32 variant
 // (scores_bmax_f32_sm90.cu), K2's int8 variant (scores_bmax_int8_sm90.cu)
 // and K4 (packed_scores_bmax.cu). The TMA ring that all but K4 share is in
-// sm90_tma.cuh.
+// sm90_tma.cuh, its cp.async producer in sm90_cp_async.cuh.
 //
 // - mbarriers and the ring position that producer and consumers walk;
 // - wgmma (bf16 m64n256k16 and s8 m64n128k32 with both operands K-major

@@ -15,6 +15,10 @@
 //   run together and it comes from HBM once) and keeps the ring full.
 //   Full barriers count the TMA bytes; empty barriers count the 8 consumer
 //   warps.
+// - bf16 rows that TMA cannot describe (d % 8 != 0 or bases not 16-byte
+//   aligned, but d even and bases 4-byte aligned) fill the same ring with
+//   the cp.async producer of sm90_cp_async.cuh instead: the same slots,
+//   layout and tile order, full barriers counting its 128 threads.
 // - The host side: one tensor map per operand, encoded per call with
 //   cuTensorMapEncodeTiled, reached through the runtime's driver entry point
 //   (no -lcuda); the dynamic shared-memory attribute and the grid.
@@ -55,14 +59,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// Thread 0 sets up the ring's barriers; the whole block waits for it.
+// Thread 0 sets up the ring's barriers; the whole block waits for it. A
+// full barrier counts `full_count` producer arrivals: 1 for the TMA
+// producer (the bytes are counted as transactions), the warpgroup's 128
+// threads for the cp.async producer (sm90_cp_async.cuh).
 template <int ST>
 __device__ __forceinline__ void ring_init(const unsigned char* smem, uint64_t* full,
-                                          uint64_t* empty) {
+                                          uint64_t* empty, uint32_t full_count = 1) {
   if (threadIdx.x == 0) {
     if (smem_u32(smem) % 1024 != 0) __trap();  // the 128-byte swizzle needs it
     for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], full_count);
       mbar_init(&empty[s], 8);
     }
     fence_barrier_init();

@@ -12,8 +12,8 @@ of each chunk:
 
 - float rows (f32 or bf16): the fused score + bucket-max kernel K1
   (``ops/mips.py``: ``csrc/scores_bmax_f32_sm90.cu`` for f32,
-  ``csrc/scores_bmax_sm90.cu`` for bf16, ``csrc/scores_bmax.cu`` for rows
-  TMA cannot describe). ``metric='l2'`` runs K1 too, through its per-row
+  ``csrc/scores_bmax_sm90.cu`` for bf16, fed by TMA or, for rows TMA
+  cannot describe, by ``cp.async``; ``csrc/scores_bmax.cu`` for the rest). ``metric='l2'`` runs K1 too, through its per-row
   penalty: the kernel scores (2q)·c − |c|², with |c|² kept per row beside
   the buffer, and the squared distance is |q|² minus that score (|q|² is
   one number per query, so it changes no ranking);

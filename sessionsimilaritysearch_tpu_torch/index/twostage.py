@@ -10,8 +10,8 @@ Stage 1, by prefilter and ``stage1``:
   ``sign((x - mean) @ components.T)``) sign codes:
   - ``stage1='matmul'`` (the default): +-1 bf16 codes in a [capacity,
     n_bits] buffer, ranked by ``ops.hamming.sign_topk`` through K1
-    (``ops/mips.py``; the ``wgmma`` variant at 256 bits, the tile variant
-    at widths that are no TMA stride, such as 250);
+    (``ops/mips.py``; the TMA-fed ``wgmma`` variant at 256 bits, the
+    ``cp.async``-fed one at widths that are no TMA stride, such as 250);
   - ``stage1='packed'``: transposed-packed codes in a packed
     ``BinaryIndex``, ranked through K4 (``ops/packed.py``);
 - 'int8x8': per-row int8 codes and scales (``ops.mips_int8``), ranked by

@@ -8,7 +8,7 @@ name carries a hash of the sources and the flags, so a second run reuses it
 and an edit rebuilds it. A missing ``nvcc`` or a failed build raises with
 the compiler's output: there is no path that carries on without the kernels.
 
-The Hopper variants of K1, K2 and K6 (``csrc/scores_bmax_sm90.cu``,
+The TMA-fed Hopper variants of K1, K2 and K6 (``csrc/scores_bmax_sm90.cu``,
 ``csrc/scores_bmax_f32_sm90.cu``, ``csrc/scores_bmax_int8_sm90.cu``, on
 ``csrc/sm90_tma.cuh``) encode TMA
 tensor maps with the driver's ``cuTensorMapEncodeTiled``, which they reach
@@ -177,6 +177,8 @@ def load_library() -> ctypes.CDLL:
                 ptr,                       # stream
             ]
             lib.sss_scores_bmax_f32_sm90.argtypes = lib.sss_scores_bmax_sm90.argtypes
+            lib.sss_scores_bmax_cp_sm90.argtypes = lib.sss_scores_bmax_sm90.argtypes
+            lib.sss_scores_matmul_cp_sm90.argtypes = lib.sss_scores_matmul_sm90.argtypes
             lib.sss_scores_matmul_f32_sm90.argtypes = [
                 ptr, ptr, ptr,             # queries, corpus, scores (all f32)
                 i32, i32, i32,             # q, n, d
@@ -206,7 +208,8 @@ def load_library() -> ctypes.CDLL:
                        lib.sss_hamming_bucket_min, lib.sss_scores_bmax_int8,
                        lib.sss_bucket_max, lib.sss_scores_matmul,
                        lib.sss_scores_bmax_int8_sm90, lib.sss_scores_matmul_sm90,
-                       lib.sss_scores_bmax_f32_sm90, lib.sss_scores_matmul_f32_sm90):
+                       lib.sss_scores_bmax_f32_sm90, lib.sss_scores_matmul_f32_sm90,
+                       lib.sss_scores_bmax_cp_sm90, lib.sss_scores_matmul_cp_sm90):
                 fn.restype = i32
             _lib = lib
         return _lib

@@ -10,17 +10,20 @@ Ports of the TPU kernels of ``sessionsimilaritysearch_tpu/ops/pallas_mips.py``:
   row stride, 16-byte-aligned bases) the TMA-fed, persistent ``wgmma``
   kernels, ``csrc/scores_bmax_sm90.cu`` for bf16 (d % 8 == 0) and
   ``csrc/scores_bmax_f32_sm90.cu`` for f32 (d % 4 == 0: the 3xTF32 split,
-  f32-accurate on the tensor cores); for other rows ``csrc/scores_bmax.cu``
-  (the ``score_tile.cuh`` loop: WMMA for bf16, an exact FMA loop for f32);
-  plain version :func:`scores_with_bucket_max_ref`.
+  f32-accurate on the tensor cores); for other bf16 rows of even d at
+  4-byte-aligned bases (the 250-bit sign and ITQ codes) the same bf16
+  kernel fed by ``cp.async`` (``csrc/sm90_cp_async.cuh``); for the rest
+  ``csrc/scores_bmax.cu`` (the ``score_tile.cuh`` loop: WMMA for bf16, an
+  exact FMA loop for f32); plain version :func:`scores_with_bucket_max_ref`.
 - K3: :56 ``_bucket_max_kernel`` -> :88 ``scores_bucket_max`` -> :322
   ``pallas_bucketed_topk``; kernel ``csrc/bucket_max.cu``, plain version
   :func:`scores_bucket_max_ref`, top-k :func:`bucketed_topk`.
 - K6: :247 ``_scores_kernel`` -> :259 ``scores_matmul``; kernels chosen by
   :func:`k6_variant`: K1's Hopper kernels with a store-only epilogue
-  (``sss_scores_matmul_sm90`` for bf16, ``sss_scores_matmul_f32_sm90`` for
-  f32) on the rows K1's would take, and ``csrc/scores_matmul.cu`` (the tile
-  loop) on the others; plain version :func:`scores_matmul_ref`.
+  (``sss_scores_matmul_sm90`` and ``sss_scores_matmul_cp_sm90`` for bf16,
+  ``sss_scores_matmul_f32_sm90`` for f32) on the rows K1's would take, and
+  ``csrc/scores_matmul.cu`` (the tile loop) on the others; plain version
+  :func:`scores_matmul_ref`.
 
 Buckets are 128 contiguous corpus rows, the layout of the JAX
 ``DenseIndex`` (``ops/topk.py:130``); the TPU kernels' strided layout was a
@@ -49,14 +52,18 @@ _TMA_ELEMS = {torch.bfloat16: 8, torch.float32: 4}
 # and nowhere else (CPU tensors never count). A run resets them to 0 and
 # reads them back to show that its path went through the kernels.
 # launch_count counts every K1 launch, wgmma_launch_count those of its
-# Hopper variants (csrc/scores_bmax_sm90.cu for bf16,
-# csrc/scores_bmax_f32_sm90.cu for f32) alone; likewise
-# scores_matmul_launch_count and scores_matmul_wgmma_launch_count for K6.
+# TMA-fed Hopper variants (csrc/scores_bmax_sm90.cu for bf16,
+# csrc/scores_bmax_f32_sm90.cu for f32) alone, cp_async_launch_count those
+# of the cp.async-fed bf16 variant; likewise scores_matmul_launch_count,
+# scores_matmul_wgmma_launch_count and scores_matmul_cp_async_launch_count
+# for K6.
 launch_count = 0
 wgmma_launch_count = 0
+cp_async_launch_count = 0
 bucket_max_launch_count = 0
 scores_matmul_launch_count = 0
 scores_matmul_wgmma_launch_count = 0
+scores_matmul_cp_async_launch_count = 0
 
 # gathered corpus rows (and their f32 copy) per query tile of bucketed_topk
 GATHER_BYTES = 1 << 30
@@ -136,20 +143,29 @@ def k1_variant(device_type: str, dtype: torch.dtype, d: int,
     'wgmma' for operands that TMA can describe -- row stride a multiple of
     16 bytes (bf16: d % 8 == 0, ``csrc/scores_bmax_sm90.cu``; f32:
     d % 4 == 0, ``csrc/scores_bmax_f32_sm90.cu``, the 3xTF32 split) and
-    every base pointer 16-byte aligned -- else 'tile'
-    (``csrc/scores_bmax.cu``; for f32 an exact FMA loop without TF32). A
-    dispatch, not a fallback: the chosen kernel launches or raises."""
+    every base pointer 16-byte aligned; 'cp_async' for other bf16 rows of
+    even d whose base pointers are 4-byte aligned (the 250-bit sign and ITQ
+    codes: a 500-byte stride) -- the bf16 kernel of
+    ``csrc/scores_bmax_sm90.cu`` with the ``cp.async`` producer of
+    ``csrc/sm90_cp_async.cuh``; else 'tile' (``csrc/scores_bmax.cu``: odd-d
+    or 2-byte-aligned bf16 rows, and f32 rows TMA cannot take, for which it
+    is an exact FMA loop without TF32). A dispatch, not a fallback: the
+    chosen kernel launches or raises."""
     if device_type == "cpu":
         return "plain"
     per_16_bytes = _TMA_ELEMS.get(dtype)
     if (per_16_bytes and d > 0 and d % per_16_bytes == 0
             and all(p % 16 == 0 for p in data_ptrs)):
         return "wgmma"
+    if (dtype == torch.bfloat16 and d > 0 and d % 2 == 0
+            and all(p % 4 == 0 for p in data_ptrs)):
+        return "cp_async"
     return "tile"
 
 
-# K6 runs K1's Hopper kernels (store-only epilogue) on the operands K1's
-# would take, and the tile loop of csrc/scores_matmul.cu on the others
+# K6 runs K1's Hopper kernels (store-only epilogue; TMA- or cp.async-fed)
+# on the operands K1's would take, and the tile loop of
+# csrc/scores_matmul.cu on the others
 k6_variant = k1_variant
 
 
@@ -193,7 +209,7 @@ def scores_with_bucket_max(
     """K1 for CUDA tensors -- the kernel :func:`k1_variant` names; its plain
     version for CPU tensors. Same contract as
     :func:`scores_with_bucket_max_ref`."""
-    global launch_count, wgmma_launch_count
+    global launch_count, wgmma_launch_count, cp_async_launch_count
     vc = _check(queries, corpus, valid_count, penalty, score_dtype)
     dev = _kernel_device(queries, corpus)
     if dev is None:
@@ -207,14 +223,19 @@ def scores_with_bucket_max(
     pen = None if penalty is None else penalty.data_ptr()
     out_bf16 = int(score_dtype == torch.bfloat16)
     lib = _build.load_library()
-    if k1_variant(dev.type, queries.dtype, d,
-                  (queries.data_ptr(), corpus.data_ptr())) == "wgmma":
-        name = ("scores_bmax_sm90" if queries.dtype == torch.bfloat16
+    variant = k1_variant(dev.type, queries.dtype, d,
+                         (queries.data_ptr(), corpus.data_ptr()))
+    if variant in ("wgmma", "cp_async"):
+        name = ("scores_bmax_cp_sm90" if variant == "cp_async"
+                else "scores_bmax_sm90" if queries.dtype == torch.bfloat16
                 else "scores_bmax_f32_sm90")
         _cuda_call(getattr(lib, "sss_" + name), name, dev,
                    queries.data_ptr(), corpus.data_ptr(), pen, scores.data_ptr(),
                    bmax.data_ptr(), q, n, d, vc, out_bf16)
-        wgmma_launch_count += 1
+        if variant == "wgmma":
+            wgmma_launch_count += 1
+        else:
+            cp_async_launch_count += 1
     else:
         _cuda_call(lib.sss_scores_bmax, "scores_bmax", dev,
                    queries.data_ptr(), corpus.data_ptr(), pen, scores.data_ptr(),
@@ -354,6 +375,7 @@ def scores_matmul(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     version for CPU tensors. [q, n] f32 scores from f32 or bf16 operands,
     summed in f32."""
     global scores_matmul_launch_count, scores_matmul_wgmma_launch_count
+    global scores_matmul_cp_async_launch_count
     _check(queries, corpus, None, None, torch.float32)
     dev = _kernel_device(queries, corpus)
     if dev is None:
@@ -362,13 +384,18 @@ def scores_matmul(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     n = corpus.shape[0]
     scores = torch.empty((q, n), dtype=torch.float32, device=dev)
     lib = _build.load_library()
-    if k6_variant(dev.type, queries.dtype, d,
-                  (queries.data_ptr(), corpus.data_ptr())) == "wgmma":
-        name = ("scores_matmul_sm90" if queries.dtype == torch.bfloat16
+    variant = k6_variant(dev.type, queries.dtype, d,
+                         (queries.data_ptr(), corpus.data_ptr()))
+    if variant in ("wgmma", "cp_async"):
+        name = ("scores_matmul_cp_sm90" if variant == "cp_async"
+                else "scores_matmul_sm90" if queries.dtype == torch.bfloat16
                 else "scores_matmul_f32_sm90")
         _cuda_call(getattr(lib, "sss_" + name), name, dev,
                    queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), q, n, d)
-        scores_matmul_wgmma_launch_count += 1
+        if variant == "wgmma":
+            scores_matmul_wgmma_launch_count += 1
+        else:
+            scores_matmul_cp_async_launch_count += 1
     else:
         _cuda_call(lib.sss_scores_matmul, "scores_matmul", dev,
                    queries.data_ptr(), corpus.data_ptr(), scores.data_ptr(), q, n, d,

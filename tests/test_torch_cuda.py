@@ -1,6 +1,6 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1 scores_bmax
-and its Hopper variants scores_bmax_sm90 for bf16 and scores_bmax_f32_sm90
-for f32, K2 scores_bmax_int8 and its Hopper variant scores_bmax_int8_sm90,
+and its Hopper variants scores_bmax_sm90 for bf16, TMA- or cp.async-fed,
+and scores_bmax_f32_sm90 for f32, K2 scores_bmax_int8 and its Hopper variant scores_bmax_int8_sm90,
 K3 bucket_max, K4 packed_scores_bmax, K5 hamming_bucket_min, K6
 scores_matmul and its Hopper variants) against their
 plain PyTorch versions, and the indexes and engine on the card against the
@@ -83,16 +83,123 @@ def test_wgmma_kernel_matches_plain(dev, d, score_dtype):
 
 @pytest.mark.parametrize("d", [37, 250])
 def test_rows_tma_cannot_take_run_the_tile_variant(dev, d):
+    # bf16 rows that are no TMA stride: odd d runs the tile loop, even d
+    # (the 250-bit sign codes) the cp.async-fed wgmma kernel
     g = torch.Generator(device=dev).manual_seed(7)
     q = torch.randn(37, d, device=dev, generator=g).bfloat16()
     c = torch.randn(5003, d, device=dev, generator=g).bfloat16()
-    before, before_w = mips.launch_count, mips.wgmma_launch_count
+    variant = mips.k1_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr()))
+    assert variant == {37: "tile", 250: "cp_async"}[d]
+    before = (mips.launch_count, mips.wgmma_launch_count, mips.cp_async_launch_count)
     s, bmax = mips.scores_with_bucket_max(q, c, 4037, None, torch.bfloat16)
     torch.cuda.synchronize()
-    assert (mips.launch_count, mips.wgmma_launch_count) == (before + 1, before_w)
+    assert (mips.launch_count, mips.wgmma_launch_count, mips.cp_async_launch_count) == (
+        before[0] + 1, before[1], before[2] + (variant == "cp_async"))
     s_ref, bmax_ref = mips.scores_with_bucket_max_ref(q, c, 4037, None, torch.bfloat16)
     torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
     torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=2.0**-7)
+
+
+def _bf16_rows(g, rows, d, dev, signs, offset=0):
+    """[rows, d] bf16, standard normal or +-1; `offset` elements into its
+    allocation (2 elements: a base 4 bytes off 16-byte alignment)."""
+    x = torch.randn(rows * d + offset, device=dev, generator=g)
+    if signs:
+        x = torch.where(x < 0, -1.0, 1.0)
+    return x.bfloat16()[offset:].view(rows, d)
+
+
+@pytest.mark.parametrize("signs", [False, True])
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,offset", [(2, 0), (130, 0), (202, 0), (250, 0), (1600, 2)])
+def test_cp_async_kernel_matches_plain(dev, d, offset, score_dtype, signs):
+    # K1's cp.async-fed Hopper variant: ragged q and n, a zero-filled K tail
+    # (d % 64 != 0), valid_count mid-bucket, 10% of rows penalised; d=1600
+    # with the corpus 4 bytes off 16-byte alignment
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = _bf16_rows(g, 37, d, dev, signs)
+    c = _bf16_rows(g, 5003, d, dev, signs, offset)
+    pen = torch.where(torch.rand(5003, device=dev, generator=g) < 0.1,
+                      float("-inf"), 0.0)
+    assert mips.k1_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr())) == "cp_async"
+    before = (mips.launch_count, mips.wgmma_launch_count, mips.cp_async_launch_count)
+    s, bmax = mips.scores_with_bucket_max(q, c, 4037, pen, score_dtype)
+    torch.cuda.synchronize()
+    assert (mips.launch_count, mips.wgmma_launch_count, mips.cp_async_launch_count) == (
+        before[0] + 1, before[1], before[2] + 1)
+    s_ref, bmax_ref = mips.scores_with_bucket_max_ref(q, c, 4037, pen, score_dtype)
+    if signs and d <= 256:
+        # +-1 products sum to integers of magnitude <= 256: exact in f32
+        # and in bf16, on both sides
+        assert torch.equal(s, s_ref) and torch.equal(bmax, bmax_ref)
+        return
+    assert torch.equal(torch.isneginf(s), torch.isneginf(s_ref))
+    # f32 sums of exact bf16 products in another order; bf16 scores: both
+    # sides round the f32 value, one ulp apart at most
+    torch.testing.assert_close(bmax, bmax_ref, atol=1e-3, rtol=1e-5)
+    rtol = 1e-5 if score_dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(s.float(), s_ref.float(), atol=1e-3, rtol=rtol)
+
+
+@pytest.mark.parametrize("q_n,n", [(37, 5003), (300, 4937)])
+@pytest.mark.parametrize("d", [202, 250])
+def test_cp_async_scores_matmul_matches_plain(dev, q_n, n, d):
+    # K6's store-only form on the cp.async-fed kernel: ragged q and n (one
+    # or two buckets in the last tile)
+    g = torch.Generator(device=dev).manual_seed(q_n + d)
+    q = _bf16_rows(g, q_n, d, dev, False)
+    c = _bf16_rows(g, n, d, dev, False)
+    assert mips.k6_variant(dev.type, q.dtype, d, (q.data_ptr(), c.data_ptr())) == "cp_async"
+    before = (mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count,
+              mips.scores_matmul_cp_async_launch_count)
+    s = mips.scores_matmul(q, c)
+    torch.cuda.synchronize()
+    assert (mips.scores_matmul_launch_count, mips.scores_matmul_wgmma_launch_count,
+            mips.scores_matmul_cp_async_launch_count) == (before[0] + 1, before[1],
+                                                          before[2] + 1)
+    # f32 sums of d exact bf16 products (|s| ~ sqrt(d)) in another order
+    torch.testing.assert_close(s, mips.scores_matmul_ref(q, c), atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
+def test_cp_async_producer_matches_tma_producer(dev, score_dtype):
+    # at d=256 both producers can feed the kernel: the same consumers sum
+    # the same slots in the same order, so the outputs are bit for bit equal
+    from sessionsimilaritysearch_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    g = torch.Generator(device=dev).manual_seed(16)
+    q = _bf16_rows(g, 300, 256, dev, False)
+    c = _bf16_rows(g, 4937, 256, dev, False)
+    pen = torch.where(torch.rand(4937, device=dev, generator=g) < 0.1, float("-inf"), 0.0)
+    out = {}
+    for name in ("scores_bmax_sm90", "scores_bmax_cp_sm90"):
+        s = torch.empty(300, 4937, dtype=score_dtype, device=dev)
+        bm = torch.empty(300, 39, device=dev)
+        mips._cuda_call(getattr(lib, "sss_" + name), name, dev, q.data_ptr(), c.data_ptr(),
+                        pen.data_ptr(), s.data_ptr(), bm.data_ptr(), 300, 4937, 256, 4001,
+                        int(score_dtype == torch.bfloat16))
+        out[name] = (s, bm)
+    torch.cuda.synchronize()
+    (s_t, bm_t), (s_c, bm_c) = out.values()
+    assert torch.equal(s_t, s_c) and torch.equal(bm_t, bm_c)
+
+
+def test_cp_async_entry_refuses_rows_it_cannot_take(dev):
+    # odd d, or a base 2 bytes off: the C entry refuses and the call raises
+    # with the CUDA error code
+    from sessionsimilaritysearch_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    q = torch.zeros(8, 38, dtype=torch.bfloat16, device=dev)
+    c = torch.zeros(129 * 38, dtype=torch.bfloat16, device=dev)
+    s = torch.empty(8, 128, device=dev)
+    bm = torch.empty(8, 1, device=dev)
+    for d, base in ((37, c.data_ptr()), (38, c.data_ptr() + 2)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            mips._cuda_call(lib.sss_scores_bmax_cp_sm90, "scores_bmax_cp_sm90", dev,
+                            q.data_ptr(), base, None, s.data_ptr(), bm.data_ptr(), 8, 128, d,
+                            128, 0)
 
 
 @pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
@@ -666,8 +773,8 @@ def test_binary_verbs_on_card_match_cpu(dev, mode, tmp_path):
     ("binary", "matmul", 256), ("itq", "matmul", 250), ("int8x8", "matmul", 0),
     ("pca", "matmul", 64), ("itq", "packed", 250)])
 def test_twostage_tiers_on_card_match_cpu(dev, prefilter, stage1, n_bits, tmp_path):
-    # every stage 1 on the card (K1 wgmma at 256 bits and pca 64, K1 tile at
-    # 250, K2, K4) after a removal, against the CPU's plain run of the same
+    # every stage 1 on the card (K1 wgmma at 256 bits and pca 64, K1
+    # cp_async at 250, K2, K4) after a removal, against the CPU's plain run of the same
     # index with a pool of every row (f32 products in another order may
     # flip a near-zero code bit, so a partial pool may differ at its edge),
     # and a snapshot round trip on the card with a pool of 64

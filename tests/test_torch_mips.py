@@ -51,8 +51,9 @@ def _strided_as_contiguous(corpus: np.ndarray, rows_per_bucket: int) -> np.ndarr
     return corpus.reshape(n // (128 * s), s, 128, d).transpose(0, 2, 1, 3).reshape(n, d)
 
 
-_COUNTERS = ("launch_count", "wgmma_launch_count", "bucket_max_launch_count",
-             "scores_matmul_launch_count", "scores_matmul_wgmma_launch_count")
+_COUNTERS = ("launch_count", "wgmma_launch_count", "cp_async_launch_count",
+             "bucket_max_launch_count", "scores_matmul_launch_count",
+             "scores_matmul_wgmma_launch_count", "scores_matmul_cp_async_launch_count")
 
 
 @pytest.fixture(autouse=True)
@@ -67,10 +68,17 @@ def _no_kernel_launch_on_cpu():
     ("cuda", torch.bfloat16, 1600, (0, 3200 * 65536), "wgmma"),    # a DenseIndex chunk
     ("cuda", torch.bfloat16, 200, (256, 512), "wgmma"),
     ("cuda", torch.bfloat16, 8, (16, 32), "wgmma"),                # the narrowest TMA row
-    ("cuda", torch.bfloat16, 250, (0, 0), "tile"),                 # BinaryIndex(sign) codes
-    ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 16-byte strided
-    ("cuda", torch.bfloat16, 1600, (8, 0), "tile"),                # queries off 16 bytes
-    ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 16 bytes
+    # bf16 rows TMA cannot describe, of even d at 4-byte-aligned bases: the
+    # cp.async-fed wgmma kernel
+    ("cuda", torch.bfloat16, 250, (0, 0), "cp_async"),             # BinaryIndex(sign) codes
+    ("cuda", torch.bfloat16, 202, (0, 0), "cp_async"),
+    ("cuda", torch.bfloat16, 2, (0, 0), "cp_async"),               # one 4-byte word a row
+    ("cuda", torch.bfloat16, 1600, (8, 0), "cp_async"),            # queries off 16 bytes
+    # odd d or a 2-byte-aligned base: the tile loop
+    ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 4-byte strided
+    ("cuda", torch.bfloat16, 37, (16, 32), "tile"),
+    ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 4 bytes
+    ("cuda", torch.bfloat16, 1600, (0, 2), "tile"),
     ("cuda", torch.float32, 1600, (0, 0), "wgmma"),                # the default f32 engine
     ("cuda", torch.float32, 200, (256, 512), "wgmma"),
     ("cuda", torch.float32, 36, (16, 32), "wgmma"),                # a zero-filled K tail
@@ -88,9 +96,14 @@ def test_k1_variant(device, dtype, d, ptrs, want):
     ("cuda", torch.bfloat16, 1600, (0, 3200 * 65536), "wgmma"),    # the bench point
     ("cuda", torch.bfloat16, 200, (256, 512), "wgmma"),            # the ragged case
     ("cuda", torch.bfloat16, 48, (16, 32), "wgmma"),
-    ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 16-byte strided
-    ("cuda", torch.bfloat16, 1600, (8, 0), "tile"),                # queries off 16 bytes
-    ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 16 bytes
+    ("cuda", torch.bfloat16, 37, (0, 0), "tile"),                  # rows not 4-byte strided
+    ("cuda", torch.bfloat16, 1600, (8, 0), "cp_async"),            # queries off 16 bytes
+    ("cuda", torch.bfloat16, 1600, (0, 3200 + 2), "tile"),         # corpus off 4 bytes
+    ("cuda", torch.bfloat16, 250, (0, 0), "cp_async"),             # the ITQ codes' width
+    ("cuda", torch.bfloat16, 202, (0, 0), "cp_async"),
+    ("cuda", torch.bfloat16, 2, (0, 0), "cp_async"),
+    ("cuda", torch.bfloat16, 1600, (0, 2), "tile"),
+    ("cuda", torch.bfloat16, 37, (16, 32), "tile"),
     ("cuda", torch.float32, 200, (0, 0), "wgmma"),                 # f32: the 3xTF32 split
     ("cuda", torch.float32, 1600, (256, 512), "wgmma"),
     ("cuda", torch.float32, 202, (0, 0), "tile"),                  # f32 tile loop: exact FMA
@@ -100,8 +113,9 @@ def test_k1_variant(device, dtype, d, ptrs, want):
     ("cpu", torch.float32, 200, (4, 4), "plain"),
 ])
 def test_k6_variant(device, dtype, d, ptrs, want):
-    # K6 runs K1's Hopper kernels with a store-only epilogue where K1's would
-    # run, the tile loop of csrc/scores_matmul.cu elsewhere
+    # K6 runs K1's Hopper kernels (TMA- or cp.async-fed) with a store-only
+    # epilogue where K1's would run, the tile loop of csrc/scores_matmul.cu
+    # elsewhere
     assert mips.k6_variant(device, dtype, d, ptrs) == want
 
 
