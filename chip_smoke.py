@@ -125,6 +125,34 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                DenseIndex, 256 searched at k=100, every top-1 the session
                itself (or an identical embedding), every K1 launch the f32
                wgmma variant;
+4h. session trainers -- the port's session trainers
+               (training/session_trainers.py) at Config() width: the
+               flagship subsession trainer (the production encoder, batch 50,
+               391,572 asins, 1000 sampled negatives, seeded weights) for 3
+               warm-up and 12 timed steps (median and p90 ms, sessions/s, every
+               loss finite), one batch repeated 8 steps with the same draws
+               (the loss must fall); one step each of the scratch subsession
+               (autoregressive), scratch session (mlm_electra) and joint
+               trainers at batch 50 (finite losses); for all four, one step of
+               8 sessions on the card and on the CPU from the same weights,
+               optimizer state and draws: the loss within rel 1e-5 and each
+               held leaf's clipped gradient within |card - CPU| / |CPU| <=
+               1e-3 (phase 4g's bounds); then the trained encoder in an f32
+               SessionSearchEngine: 8,192 sessions ingested, 256 searched at
+               k=100, every top-1 the session itself (or an identical
+               embedding), every K1 launch from the ingest to the search the
+               f32 wgmma variant;
+4i. fine-tune -- the similarity fine-tuner (training/finetune.py) over the
+               trained encoder's 1600-d embeddings: 256 triplets mined
+               (data.similarity.mine_triplets, 2,000 db sessions),
+               FinetuneHeads at code_len 250 with shared_init, 8 epochs of
+               alternating steps (ms a step, the loss); the db codes of the
+               8,192 sessions and the query codes of 256 test sessions served
+               through evaluate_binary in sign mode (K1's cp_async variant)
+               and packed mode (K4), each launched and each search's sorted
+               Hamming distances equal to the plain f64 product's; ave type
+               score@10 of the dense embeddings, the untrained and the
+               trained codes printed, not gated;
 4c. f32 kernel -- K1's f32 wgmma variant at q=1024, n=2^20, d=1600 f32 ->
                f32 on seeded f32 unit rows against its plain version, timed
                in the same rounds as the tile loop (through its own C entry
@@ -244,7 +272,7 @@ engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
 its C entry point;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
-and for K1, K2 and K4 also the searches of phases 4g, 7b, 8 and 9b, counted
+and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 7b, 8 and 9b, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
 holds phase 8's times per tier under ``twostage_tiers``);
@@ -254,8 +282,9 @@ bucketed_topk; K6: phase 14's scores_matmul, likewise with
 ``wgmma_launches``, ``tile``, ``f32_wgmma`` and ``cp_async``, its ragged
 case on the cp_async variant; and ``scores_bmax_cp``, K1's and K6's bf16
 kernel fed by cp.async for rows TMA cannot describe: its launches those of
-phase 7's sign-mode search, phase 8's 'itq' + 'matmul' tier and phase 9b's
-'itq' + 'matmul' engine, each path's under ``launches_by_path``, its times
+phase 7's sign-mode search, phase 8's 'itq' + 'matmul' tier, phase 9b's
+'itq' + 'matmul' engine and phase 4i's fine-tuned sign codes, each path's
+under ``launches_by_path``, its times
 at sign mode's shape, ``producer_ablation_d256`` beside the TMA variant),
 its largest error
 against its plain version, its time, the plain version's, the bound (the
@@ -1962,6 +1991,283 @@ def phase_pretrain(torch, mips, dev, card):
     return counts
 
 
+# the session trainers and the fine-tuner at Config() width
+ST_WARM, ST_TIMED, ST_REPEAT = 3, 12, 8  # warm-up, timed and repeated-batch steps
+ST_CPU_ROWS = 8  # sessions of the card-vs-CPU step
+# the card against the CPU on one step of 8 sessions: the loss's relative
+# difference and each held leaf's clipped gradient |card - CPU| / |CPU|
+# (the pretrainer's bounds, phase 4g)
+ST_CPU_LOSS_RTOL, ST_CPU_GRAD_REL = 1e-5, 1e-3
+ST_SERVE, ST_Q = 8192, 256  # the trained encoder's engine: sessions, queries
+FT_TRIPLETS, FT_MINE_DB, FT_EPOCHS, FT_K = 256, 2000, 8, 10  # the fine-tune and its score@k
+
+
+def tree_to(tree, dev):
+    """A dict of tensors (or of such dicts) on ``dev``."""
+    return {k: tree_to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+
+def step_vs_cpu(torch, model, state, cpu_model, cpu_state, step_maker, hosts, draws, dev):
+    """One train step on the card and the same step on the CPU from the same
+    weights, optimizer state and draws. Returns the loss's relative
+    difference and, over every parameter leaf whose rms gradient is at least
+    PRE_NOISE_RMS of the rms of all gradients, the largest relative
+    clipped-gradient difference and its leaf."""
+    import copy
+
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device
+
+    cpu = torch.device("cpu")
+    cpu_model.load_state_dict(model.state_dict())
+    # a copy: load_state_dict keeps tensors already on the parameters' device
+    cpu_state.optimizer.load_state_dict(copy.deepcopy(state.optimizer.state_dict()))
+    _, m_card = step_maker(model)(state, *[to_device(h, dev) for h in hosts], draws=draws)
+    _, m_cpu = step_maker(cpu_model)(cpu_state, *[to_device(h, cpu) for h in hosts],
+                                     draws=tree_to(draws, cpu))
+    loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+    grads = {k: q.grad.double() for k, q in cpu_model.named_parameters()}
+    rms_all = float(torch.sqrt(sum((g * g).sum() for g in grads.values())
+                               / sum(g.numel() for g in grads.values())))
+    worst = (0.0, "none")
+    for name, p in model.named_parameters():
+        g_cpu = grads[name]
+        if float(g_cpu.pow(2).mean().sqrt()) < PRE_NOISE_RMS * rms_all:
+            continue
+        rel = float((p.grad.detach().cpu().double() - g_cpu).norm() / g_cpu.norm())
+        worst = max(worst, (rel, name))
+    return loss_rel, worst[0], worst[1], float(m_card["loss"])
+
+
+def phase_session_trainers(torch, mips, dev, card):
+    """The session trainers at Config() width: the flagship subsession
+    trainer (batch 50, 391,572 asins, neg_sample_count 1000) timed, its loss
+    falling on a repeated batch and one 8-session step held to the CPU's;
+    one step each of the scratch subsession (autoregressive), scratch
+    session (mlm_electra) and joint trainers, each finite and held to the
+    CPU's; then the trained encoder in an f32 SessionSearchEngine (K1
+    counted from its ingest to its search). Returns (K1 counts, the model,
+    its engine, the sessions)."""
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.data import build_graph_batch
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device
+    from sessionsimilaritysearch_tpu_torch.training import session_trainers as st
+
+    torch.cuda.empty_cache()
+    cfg = port.Config()
+    B = cfg.batch_size
+    tok = port.get_tokenizer(cfg.vocab_size)
+    gen = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=5)
+    n_steps = ST_WARM + ST_TIMED
+    data = gen.dataset(B * n_steps)
+    # the CLI's train-{mode} batches: (prefix, future) pairs, query text kept
+    hosts = [build_graph_batch(data[i * B:(i + 1) * B], tok, cfg.dims)
+             for i in range(n_steps)]
+    t0 = time.perf_counter()
+    model, state = st.create_session_state(cfg, dev, "subsession", "flagship",
+                                           torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    step = st.make_session_train_step(model)
+    print(f"session trainer Config() flagship subsession [{card}]: {n_params / 1e6:.1f} M "
+          f"parameters, batch {B}, {cfg.asin_num} asins, {cfg.neg_sample_count} negatives, "
+          f"built in {time.perf_counter() - t0:.1f} s")
+    graphs = [(to_device(h, dev), {}) for h in hosts]
+    warm, _ = pretrain_steps(torch, step, state, graphs[:ST_WARM])
+    losses, ms = pretrain_steps(torch, step, state, graphs[ST_WARM:])
+    check(all(np.isfinite(warm + losses)), f"session trainer: non-finite losses {warm + losses}")
+    med, p90 = percentile(ms, 50), percentile(ms, 90)
+    print(f"  step [{card}]: median {med:.2f} ms, p90 {p90:.2f} ms over {ST_TIMED} steps after "
+          f"{ST_WARM} warm-up ({B / med * 1e3:.0f} sessions/s) {smi()}; loss curve "
+          f"{' '.join(f'{x:.4f}' for x in warm + losses)}")
+    g0 = graphs[0][0]
+    draws = model.draw(g0, state.generator)
+    rep, _ = pretrain_steps(torch, step, state, [(g0, {"draws": draws})] * (ST_REPEAT + 1))
+    check(rep[-1] < rep[0], f"session trainer: loss after {ST_REPEAT} steps on one batch "
+          f"{rep[-1]} is not below the first {rep[0]}")
+    print(f"  one batch repeated: loss {rep[0]:.5f} -> {rep[-1]:.5f} after {ST_REPEAT} steps")
+
+    # the card against the CPU: the flagship, then one step of each other trainer
+    # (the joint trainer's session view: each full session as its own target)
+    h8 = build_graph_batch(data[:ST_CPU_ROWS], tok, cfg.dims)
+    h8_full = build_graph_batch([(d[0] + d[1], d[0] + d[1]) for d in data[:ST_CPU_ROWS]], tok,
+                                cfg.dims)
+    t0 = time.perf_counter()
+    cpu_model, cpu_state = st.create_session_state(cfg, "cpu", "subsession", "flagship",
+                                                   torch.Generator().manual_seed(0))
+    d8 = model.draw(to_device(h8, dev), state.generator)
+    held = step_vs_cpu(torch, model, state, cpu_model, cpu_state, st.make_session_train_step,
+                       [h8], d8, dev)
+    del cpu_model, cpu_state
+    rows = [("flagship subsession autoregressive", *held, med, time.perf_counter() - t0)]
+    for name, kind, mode, style in (("scratch subsession autoregressive", "single",
+                                     "subsession", "autoregressive"),
+                                    ("scratch session mlm_electra", "single", "session",
+                                     "mlm_electra"),
+                                    ("joint (scratch, mlm_electra)", "joint", None, None)):
+        t0 = time.perf_counter()
+        gen_d, gen_c = (torch.Generator(device=dev).manual_seed(1),
+                        torch.Generator().manual_seed(1))
+        if kind == "joint":
+            m, s = st.create_joint_state(cfg, dev, generator=gen_d)
+            cm, cs = st.create_joint_state(cfg, "cpu", generator=gen_c)
+            sess = build_graph_batch([(d[0] + d[1], d[0] + d[1]) for d in data[:B]], tok,
+                                     cfg.dims)
+            maker, full, small_hosts = st.make_joint_train_step, [sess, hosts[0]], [h8_full, h8]
+            draws_fn = lambda g: m.draw(g[0], g[1], s.generator)  # noqa: E731
+        else:
+            m, s = st.create_session_state(cfg, dev, mode, "scratch", gen_d, style)
+            cm, cs = st.create_session_state(cfg, "cpu", mode, "scratch", gen_c, style)
+            maker, full, small_hosts = st.make_session_train_step, [hosts[0]], [h8]
+            draws_fn = lambda g: m.draw(g[0], s.generator)  # noqa: E731
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, met = maker(m)(s, *[to_device(h, dev) for h in full])
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) * 1e3
+        check(np.isfinite(loss), f"session trainer {name}: loss {loss}")
+        d_small = draws_fn([to_device(h, dev) for h in small_hosts])
+        held = step_vs_cpu(torch, m, s, cm, cs, maker, small_hosts, d_small, dev)
+        rows.append((name, *held, one_ms, time.perf_counter() - t0))
+        del m, s, cm, cs
+    print(f"  card vs CPU, one step on {ST_CPU_ROWS} sessions each [{card}] (loss rel bound "
+          f"{ST_CPU_LOSS_RTOL}; largest clipped-gradient |card - CPU| / |CPU| over leaves "
+          f"with rms gradient >= {PRE_NOISE_RMS} of all, bound {ST_CPU_GRAD_REL}):")
+    for name, loss_rel, grad_rel, leaf, loss8, step_ms, secs in rows:
+        print(f"    {name:36s} loss {loss8:.6g}, rel {loss_rel:.3g}; gradient rel "
+              f"{grad_rel:.3g} ({leaf}); a batch-{B} step {step_ms:.1f} ms (the flagship's: "
+              f"the median above; the others': their first); {secs:.1f} s")
+        check(loss_rel <= ST_CPU_LOSS_RTOL and grad_rel <= ST_CPU_GRAD_REL,
+              f"session trainer {name}: the card's step does not agree with the CPU's")
+    torch.cuda.empty_cache()
+
+    # the trained flagship encoder serving: an f32 SessionSearchEngine
+    serve_gen = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=2)
+    serve = serve_gen.dataset(ST_SERVE)
+    eng = port.SessionSearchEngine(cfg, tok, model.encoder, dim=cfg.session_emb_dim,
+                                   capacity=ST_SERVE, device=dev)
+    eng.embed(serve[:8])  # warm-up, counted as set-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng.add_sessions(serve)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    D, I = eng.search(serve[:ST_Q], k=100)
+    torch.cuda.synchronize()
+    search_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    check(counts["k1"] >= 1 and counts["k1"] == counts["k1_wgmma"],
+          f"session trainer: K1 launches {counts} (all must be the f32 wgmma variant)")
+    check(D.shape == (ST_Q, 100) and np.isfinite(D).all(), "session trainer: bad search result")
+    rows_ = np.arange(ST_Q)
+    emb = eng.reconstruct(np.arange(ST_SERVE))
+    tie = np.array([np.array_equal(emb[i], emb[j]) for i, j in zip(rows_, I[:, 0])])
+    self_hits = int((I[:, 0] == rows_).sum())
+    check(((I[:, 0] == rows_) | tie).all(), "session trainer: a top-1 is not the session itself")
+    print(f"  trained encoder -> f32 SessionSearchEngine [{card}]: {ST_SERVE} sessions ingested "
+          f"in {ingest_s:.2f} s ({ST_SERVE / ingest_s:.0f} /s), {ST_Q} searches at k=100 "
+          f"{search_ms:.1f} ms; top-1 the session itself {self_hits}/{ST_Q} "
+          f"({int(tie.sum()) - self_hits} exact ties); K1 launches {counts['k1']} (wgmma "
+          f"{counts['k1_wgmma']})")
+    summary = {"flagship_step_ms": {"median": med, "p90": p90},
+               "sessions_per_s": B / med * 1e3, "serve_ingest_per_s": ST_SERVE / ingest_s}
+    print(f"session trainers summary: {json.dumps(summary)}")
+    return counts, model, eng, serve_gen, serve
+
+
+def phase_finetune(torch, dev, card, model, eng, serve_gen, serve):
+    """The similarity fine-tuner over the trained flagship encoder's 1600-d
+    embeddings: triplets mined from the synthetic sessions, FinetuneHeads at
+    code_len 250 with shared_init, a few epochs of alternating steps; the
+    db and query codes served through evaluate_binary in sign mode (K1's
+    cp_async variant) and packed mode (K4), each search's Hamming distances
+    equal to the plain product's; ave type score@10 of dense, untrained and
+    trained codes (reported). Returns the counts of the two searches."""
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.data.similarity import get_ave_score, mine_triplets
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import evaluate_binary
+    from sessionsimilaritysearch_tpu_torch.training import finetune as ft
+
+    cfg = port.Config()
+    n_bits = cfg.code_len
+    test = serve_gen.dataset(ST_Q)
+    mine = serve_gen.dataset(2 * FT_TRIPLETS)
+    corpus_sessions = [d[0] for d in serve]
+    t0 = time.perf_counter()
+    triplets = mine_triplets(mine, serve[:FT_MINE_DB], "all_product_type_score", FT_TRIPLETS,
+                             pos_thresh=0.6, half_lo=0.1)
+    mine_s = time.perf_counter() - t0
+    check(len(triplets) >= 32, f"fine-tune: {len(triplets)} triplets mined")
+    t0 = time.perf_counter()
+    ce = eng.embed(serve, out="device")
+    qe = eng.embed(test, out="device")
+    embed_s = time.perf_counter() - t0
+
+    heads, fs = ft.create_finetune_state(cfg, dev, emb_dim=ce.shape[1], shared_init=True,
+                                         generator=torch.Generator(device=dev).manual_seed(7))
+    db_fn, q_fn = ft.make_code_fns(heads)
+    code_db0, code_q0 = db_fn(fs, ce), q_fn(fs, qe)
+    batch = min(32, max(4, len(triplets) // 4))
+    batches = ft.build_triplet_batches(triplets, lambda d: eng.embed(d),
+                                       [(q[0], q[0]) for q in mine[:64]], batch,
+                                       np.random.default_rng(0), device=dev)
+    step = ft.make_finetune_step(heads, cfg)
+    losses, ms = [], []
+    for _ in range(FT_EPOCHS):
+        for b in batches():
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fs, m = step(fs, b)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t1) * 1e3)
+    check(np.isfinite(losses).all(), "fine-tune: non-finite loss")
+    print(f"fine-tune Config() [{card}]: {len(triplets)} triplets mined in {mine_s:.2f} s "
+          f"({FT_MINE_DB} db sessions), {ST_SERVE + ST_Q} sessions embedded in {embed_s:.2f} s; "
+          f"FinetuneHeads {ce.shape[1]} -> {n_bits} bits, shared_init, {fs.step} alternating "
+          f"steps of batch {batch}: median {percentile(ms, 50):.3f} ms, p90 "
+          f"{percentile(ms, 90):.3f} ms a step {smi()}; loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}")
+
+    # serve the codes: sign mode (K1 cp_async), packed mode (K4)
+    code_db, code_q = db_fn(fs, ce), q_fn(fs, qe)
+    check(bool(code_db.abs().eq(1).all() & code_q.abs().eq(1).all()),
+          "fine-tune: codes are not +-1")
+    qb = torch.where(code_q > 0, 1.0, -1.0).double()
+    dbb = torch.where(code_db > 0, 1.0, -1.0).double()
+    plain = torch.topk((n_bits - qb @ dbb.T) / 2, 100, dim=1, largest=False).values
+    plain = plain.cpu().numpy()
+    counts, scores = {}, {}
+    for mode, key in (("sign", "k1_cp"), ("packed", "k4")):
+        evaluate_binary(code_db[:64], code_q[:8], corpus_sessions[:64], test[:8], k=10,
+                        mode=mode, with_report=False, device=dev)  # warm-up, uncounted
+        res, c = counted(torch, lambda: evaluate_binary(
+            code_db, code_q, corpus_sessions, test, k=100, mode=mode, with_report=False,
+            device=dev))
+        check(c[key] >= 1, f"fine-tune: {mode} mode launched no {key}: {c}")
+        check(np.array_equal(np.asarray(res.D, np.float64), plain),
+              f"fine-tune: {mode} mode's Hamming distances differ from the plain product's")
+        counts[mode] = c
+        scores[mode] = get_ave_score(res.I[:, :FT_K], test, corpus_sessions,
+                                     "all_product_type_score")
+        print(f"  {mode} mode: {ST_Q} queries x {ST_SERVE} codes at k=100, search "
+              f"{res.search_s * 1e3:.2f} ms (host clock), distances equal the plain product's; "
+              f"launches {c}")
+    untrained = evaluate_binary(code_db0, code_q0, corpus_sessions, test, k=FT_K, mode="sign",
+                                with_report=False, device=dev)
+    distinct = [int(torch.unique(c > 0, dim=0).shape[0]) for c in (code_db0, code_db)]
+    untrained_score = get_ave_score(untrained.I, test, corpus_sessions, "all_product_type_score")
+    idx = port.DenseIndex(cfg.session_emb_dim, ST_SERVE, device=dev)
+    idx.add(ce)
+    _, I_dense = idx.search(qe, FT_K)
+    dense = get_ave_score(I_dense, test, corpus_sessions, "all_product_type_score")
+    print(f"  ave type score@{FT_K} (reported, not gated): dense cosine {dense:.4f}, untrained "
+          f"codes {untrained_score:.4f}, "
+          f"trained codes {scores['sign']:.4f} (packed {scores['packed']:.4f}); distinct db "
+          f"codes among {ST_SERVE}: untrained {distinct[0]}, trained {distinct[1]}")
+    return counts
+
+
 def phase_f32_kernel(torch, mips, dev):
     """K1's f32 wgmma variant (the 3xTF32 split) at the bench point, timed in
     the same rounds as the tile loop and cuBLAS SGEMM (TF32 off), and the
@@ -3318,6 +3624,12 @@ def main() -> int:
                                               torch, mips, topk_mod, dev, parts, card_line,
                                               f32_rate)
     pretrain_counts = run_phase(torch, "pretrain", phase_pretrain, torch, mips, dev, card_line)
+    st_counts, st_model, st_eng, st_gen, st_serve = run_phase(
+        torch, "session trainers", phase_session_trainers, torch, mips, dev, card_line)
+    ft_counts = run_phase(torch, "fine-tune", phase_finetune, torch, dev, card_line, st_model,
+                          st_eng, st_gen, st_serve)
+    del st_model, st_eng
+    torch.cuda.empty_cache()
     err_f32, f32_bench, tile_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch,
                                                mips, dev)
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
@@ -3394,7 +3706,9 @@ def main() -> int:
     # kernel's `launches` sums every path it was counted on
     tier_counts = {name: t["launches"] for name, t in tiers.items()}
     new_paths = {"twostage_tiers": {}, "binary_maintenance": bin_path,
-                 "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts}
+                 "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts,
+                 "session_trainer_serving": st_counts, "finetuned_sign": ft_counts["sign"],
+                 "finetuned_packed": ft_counts["packed"]}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path
@@ -3412,7 +3726,8 @@ def main() -> int:
     # whose rows TMA cannot describe (each counted from 0), its times at
     # sign mode's shape, the producer ablation and K6's ragged case beside
     cp_by_path = {path: new_paths[path]["k1_cp"]
-                  for path in ("binary_sign", "twostage_tiers", "twostage_engine_verbs")}
+                  for path in ("binary_sign", "twostage_tiers", "twostage_engine_verbs",
+                               "finetuned_sign")}
     check(all(cp_by_path.values()),
           f"the cp_async variant was not launched on every path of 250-bit rows: {cp_by_path}")
     check(sum(c["k1_cp"] for c in new_paths.values()) == sum(cp_by_path.values()),

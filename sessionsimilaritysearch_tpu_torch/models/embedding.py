@@ -1,16 +1,58 @@
 """Node embedders: text -> vector, asin id -> vector (counterparts of
-``sessionsimilaritysearch_tpu/models/embedding.py:64`` ``TextEncoder`` and
-``:122`` ``NodeAsinEmbedding``)."""
+``sessionsimilaritysearch_tpu/models/embedding.py:25`` ``AveragePooling``,
+``:34`` ``NodeTextTransformer``, ``:64`` ``TextEncoder`` and ``:122``
+``NodeAsinEmbedding``)."""
 
 from __future__ import annotations
+
+import math
+from typing import Optional
 
 import torch
 from torch import nn
 
 from sessionsimilaritysearch_tpu_torch.models.transformer import (
     LN_EPS,
+    PositionalEncoding,
     TransformerEncoder,
 )
+
+
+class AveragePooling(nn.Module):
+    """Mean over one axis."""
+
+    def __init__(self, axis: int = 1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return x.mean(dim=self.axis)
+
+
+class NodeTextTransformer(nn.Module):
+    """From-scratch text-to-node-vector encoder (the session trainers'
+    scratch encoder): token embedding * sqrt(ninp) + sinusoidal PE ->
+    post-norm transformer with the key-padding mask -> the mean over ALL
+    positions, padding included (the reference's AveragePooling, kept for
+    parity, JAX ``embedding.py:62``). Unlike ``TextEncoder`` it is trained:
+    nothing is detached."""
+
+    def __init__(self, ntoken: int, ninp: int, nhead: int, nhid: int, nlayers: int,
+                 dropout: float = 0.5, device=None):
+        super().__init__()
+        self.ninp = ninp
+        self.embedding = nn.Embedding(ntoken, ninp, device=device)
+        self.pos_encoder = PositionalEncoding(ninp, dropout, device=device)
+        self.encoder = TransformerEncoder(ninp, nhead, nhid, nlayers, dropout, device=device)
+
+    def forward(self, input_ids, attention_mask, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """input_ids [B', T] int; attention_mask [B', T] (1 = real token)
+        -> [B', ninp]."""
+        x = self.embedding(input_ids) * math.sqrt(self.ninp)
+        x = self.pos_encoder(x, deterministic, generator)
+        x = self.encoder(x, attention_mask == 0, None, deterministic, generator)
+        return x.mean(dim=1)
 
 
 class TextEncoder(nn.Module):

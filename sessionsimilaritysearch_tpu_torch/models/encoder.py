@@ -1,8 +1,13 @@
-"""The flagship two-pool session encoder and the pretrainer's encoder
-(counterparts of ``sessionsimilaritysearch_tpu/models/encoder.py:35``
-``_embed_nodes``, ``:77-200`` ``GraphLevelEncoder``, ``:203-330``
-``UnifyPoolingGraphLevelEncoder``, ``:361`` ``build_text_backbone``, ``:373``
-``build_graph_encoder`` and ``:390`` ``build_pretrain_encoder``).
+"""The session encoders (counterparts of
+``sessionsimilaritysearch_tpu/models/encoder.py:35`` ``_embed_nodes``,
+``:77-200`` ``GraphLevelEncoder``, ``:203-330``
+``UnifyPoolingGraphLevelEncoder``, ``:333`` ``TextSessionEncoder``, ``:361``
+``build_text_backbone``, ``:373`` ``build_graph_encoder``, ``:390``
+``build_pretrain_encoder`` and ``:412`` ``build_text_session_encoder``).
+
+The node text embedder is the frozen ``TextEncoder`` (the flagship, the
+pretrainer, the text-only encoder) or the session trainers' trainable
+``NodeTextTransformer``, which reads no token types.
 
 Three forwards, as in the JAX module (``encoder.py:130-174``):
 
@@ -32,22 +37,32 @@ from sessionsimilaritysearch_tpu_torch.config import Config
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.models.embedding import (
     NodeAsinEmbedding,
+    NodeTextTransformer,
     TextEncoder,
 )
-from sessionsimilaritysearch_tpu_torch.models.gnn import DenseGATConv, HeteroGGNN
+from sessionsimilaritysearch_tpu_torch.models.gnn import DenseGATConv, DenseGCNConv, HeteroGGNN
 from sessionsimilaritysearch_tpu_torch.models.heads import BatchNorm, CrossAttentionTransformer
 from sessionsimilaritysearch_tpu_torch.models.pooling import (
     AttentionPooling,
+    GraphPooling,
     PositionalAttentionPooling,
     RecencySRGNNPooling,
     SRGNNPooling,
+    masked_mean,
 )
 
 
-def _embed_nodes(embedder: TextEncoder, ids, typ, att, get_token: bool = False):
+def _embed_nodes(embedder, ids, typ, att, get_token: bool = False,
+                 deterministic: bool = True, generator=None):
     """Run a text embedder over a [B, N, T] token grid -> [B, N, d] (and,
-    with ``get_token``, the token embeddings [B, N, T, d])."""
+    with ``get_token``, a ``TextEncoder``'s token embeddings [B, N, T, d]).
+    A ``NodeTextTransformer`` reads no token types and has no token output."""
     B, N, T = ids.shape
+    if isinstance(embedder, NodeTextTransformer):
+        if get_token:
+            raise ValueError("a NodeTextTransformer has no token embeddings")
+        return embedder(ids.reshape(B * N, T), att.reshape(B * N, T), deterministic,
+                        generator).reshape(B, N, -1)
     out = embedder(ids.reshape(B * N, T), typ.reshape(B * N, T),
                    att.reshape(B * N, T), get_token=get_token)
     if get_token:
@@ -65,8 +80,8 @@ class _NodeInputs(nn.Module):
     optional asin-id embedder, the GNN, and the GNN's input
     (:meth:`node_embeddings`)."""
 
-    def __init__(self, query_node_embedder: TextEncoder,
-                 product_node_embedder: Optional[NodeAsinEmbedding], gnn: HeteroGGNN,
+    def __init__(self, query_node_embedder: nn.Module,
+                 product_node_embedder: Optional[NodeAsinEmbedding], gnn: nn.Module,
                  use_id_embedding: bool):
         super().__init__()
         if use_id_embedding and product_node_embedder is None:
@@ -79,11 +94,14 @@ class _NodeInputs(nn.Module):
     def embed_texts(self, ids, typ, att):
         """Text backbone over bare [N, T] token rows -> [N, d_text]: the
         hook that build_title_table and build_keyword_table call."""
+        if isinstance(self.query_node_embedder, NodeTextTransformer):
+            return self.query_node_embedder(ids, att)
         return self.query_node_embedder(ids, typ, att)
 
     def node_embeddings(self, graph, query_node_mask=None, product_node_mask=None,
                         title_table=None, query_table=None, query_kw=None,
-                        get_token: bool = False):
+                        get_token: bool = False, deterministic: bool = True,
+                        generator=None):
         """The GNN's input: {'query': [B, Q, d_q], 'product': [B, P, d_p]},
         padded nodes zeroed (see ``GraphLevelEncoder.forward`` for the
         arguments); with ``get_token`` also the text pass's token embeddings
@@ -102,7 +120,8 @@ class _NodeInputs(nn.Module):
             b = _gather_rows(title_table, graph.product_asin)
         elif title_table is not None:
             query = _embed_nodes(self.query_node_embedder, graph.query_input_ids,
-                                 graph.query_type_ids, graph.query_attention_mask)
+                                 graph.query_type_ids, graph.query_attention_mask,
+                                 deterministic=deterministic, generator=generator)
             b = _gather_rows(title_table, graph.product_asin)
         else:
             # one text pass over both node stores (the same embedder)
@@ -112,7 +131,7 @@ class _NodeInputs(nn.Module):
                 torch.cat([graph.query_type_ids, graph.product_type_ids], dim=1),
                 torch.cat([graph.query_attention_mask,
                            graph.product_attention_mask], dim=1),
-                get_token=get_token,
+                get_token=get_token, deterministic=deterministic, generator=generator,
             )
             both = out[0] if get_token else out
             query, b = both[:, :Q], both[:, Q:]
@@ -141,24 +160,29 @@ class GraphLevelEncoder(_NodeInputs):
     None and the product width is the text width); hetero GNN; separate
     query/product poolings; output = concat(query_emb, product_emb)."""
 
-    def __init__(self, query_node_embedder: TextEncoder,
-                 product_node_embedder: Optional[NodeAsinEmbedding], gnn: HeteroGGNN,
+    def __init__(self, query_node_embedder: nn.Module,
+                 product_node_embedder: Optional[NodeAsinEmbedding], gnn: nn.Module,
                  product_pooling: nn.Module, query_pooling: nn.Module,
                  use_id_embedding: bool = True):
         super().__init__(query_node_embedder, product_node_embedder, gnn, use_id_embedding)
         self.product_pooling = product_pooling
         self.query_pooling = query_pooling
 
-    def readout(self, node_emb, graph):
-        """Query and product poolings, concatenated -> [B, 2 * gnn_nout]."""
-        query_embedding = self.query_pooling(node_emb["query"], graph.query_node_mask, graph)
-        product_embedding = self.product_pooling(
-            node_emb["product"], graph.product_node_mask, graph)
-        return torch.cat([query_embedding, product_embedding], dim=-1)
+    def readout(self, node_emb, graph, deterministic: bool = True, generator=None):
+        """Query and product poolings, concatenated -> [B, 2 * pooling width]
+        (a ``GraphPooling`` also takes the dropout's flag and generator)."""
+        def pool(pooling, x, mask):
+            if isinstance(pooling, GraphPooling):
+                return pooling(x, mask, graph, deterministic, generator)
+            return pooling(x, mask, graph)
+
+        return torch.cat([pool(self.query_pooling, node_emb["query"], graph.query_node_mask),
+                          pool(self.product_pooling, node_emb["product"],
+                               graph.product_node_mask)], dim=-1)
 
     def forward(self, graph, query_node_mask=None, product_node_mask=None,
                 get_node: bool = False, title_table=None, query_table=None,
-                query_kw=None):
+                query_kw=None, deterministic: bool = True, generator=None):
         """``graph``: a batched ``SessionGraph`` of tensors -> [B, 2 * gnn_nout]
         (with ``get_node``: ``(embedding, node_emb, None)``, as JAX returns).
 
@@ -169,11 +193,13 @@ class GraphLevelEncoder(_NodeInputs):
         ``query_table`` + ``query_kw``: [n_keywords, d_text] keyword
         embeddings and the [B, Q] table row of each query node (the query
         embedding depends only on its token row, so the gather is exact);
-        they need ``title_table`` too."""
+        they need ``title_table`` too. ``deterministic`` and ``generator``
+        reach the dropouts of a ``NodeTextTransformer`` and ``GraphPooling``
+        (the flagship has none)."""
         node_emb = self.gnn(self.node_embeddings(
             graph, query_node_mask, product_node_mask, title_table, query_table,
-            query_kw), graph)
-        out = self.readout(node_emb, graph)
+            query_kw, deterministic=deterministic, generator=generator), graph)
+        out = self.readout(node_emb, graph, deterministic, generator)
         if get_node:
             return out, node_emb, None
         return out
@@ -238,6 +264,25 @@ class UnifyPoolingGraphLevelEncoder(_NodeInputs):
             return embedding, token_emb
         return embedding
 
+class TextSessionEncoder(nn.Module):
+    """Text-only session encoder (the QAEA_Linear baseline; the fine-tuner's
+    QAEA wiring): the frozen text encoder over each sentence of the session
+    text (masked token mean inside the encoder), the masked mean over the
+    session's sentences, then the optional trainable ``lin``."""
+
+    def __init__(self, text_encoder: TextEncoder, n_in: int, n_out: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        self.text_encoder = text_encoder
+        self.lin = nn.Linear(n_in, n_out, device=device) if n_out is not None else None
+
+    def forward(self, graph):
+        sent = _embed_nodes(self.text_encoder, graph.text_input_ids, graph.text_type_ids,
+                            graph.text_attention_mask)            # [B, TXT, d]
+        emb = masked_mean(sent, graph.text_node_mask)
+        return self.lin(emb) if self.lin is not None else emb
+
+
 def build_text_backbone(cfg: Config, device=None) -> TextEncoder:
     return TextEncoder(
         vocab_size=cfg.vocab_size,
@@ -272,6 +317,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             for p in (m.att_src, m.att_dst):
                 limit = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
                 p.uniform_(-limit, limit, generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, DenseGCNConv):
             m.bias.zero_()
         elif isinstance(m, RecencySRGNNPooling):
             m.reset_lambda()
@@ -333,6 +380,22 @@ def build_pretrain_encoder(cfg: Config, device, generator: Optional[torch.Genera
         cross_attention_transformer=cat,
         use_id_embedding=False,
     )
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+    init_parameters(enc, generator)
+    return enc.eval()
+
+
+def build_text_session_encoder(cfg: Config, device="cuda",
+                               generator: Optional[torch.Generator] = None
+                               ) -> TextSessionEncoder:
+    """The text-only session encoder: the frozen text backbone and an
+    ``n_out``-wide ``lin`` -> [B, cfg.n_out]. Runs on the card unless
+    ``device`` says otherwise; weights drawn from ``generator`` (default: one
+    seeded with ``cfg.seed`` on the device); returned in eval mode."""
+    dev = resolve_device(device)
+    enc = TextSessionEncoder(build_text_backbone(cfg, device=dev), cfg.text_encoder_dim,
+                             cfg.n_out, device=dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(cfg.seed)
     init_parameters(enc, generator)

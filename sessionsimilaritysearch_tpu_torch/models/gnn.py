@@ -1,5 +1,11 @@
-"""Heterogeneous GNN backbone on dense padded session graphs (counterpart of
-``sessionsimilaritysearch_tpu/models/gnn.py:26-196``).
+"""Heterogeneous GNN backbones on dense padded session graphs (counterparts
+of ``sessionsimilaritysearch_tpu/models/gnn.py:26-196``, ``DenseSAGEConv``
+:112, ``DenseGCNConv`` :128 and ``HeteroSAGE`` :262).
+
+Flax infers a layer's input widths; torch takes them: a bipartite conv gets
+its source and destination widths, which differ in the first layer of the
+scratch encoder (query nodes ``emb_len`` wide, product nodes ``2 *
+emb_len``: the asin id embedding joined to the title text).
 
 ``adj[b, i, j]`` counts edges i -> j. GAT weights each parallel edge
 separately (count-weighted softmax); GatedGraphConv binarizes the adjacency
@@ -91,6 +97,44 @@ class DenseGATConv(nn.Module):
         return torch.matmul(alpha.transpose(1, 2), h_src) + self.bias
 
 
+class DenseSAGEConv(nn.Module):
+    """Bipartite SAGEConv with mean aggregation: ``lin_l`` (with bias) of the
+    mean over the binarized incoming edges (degree clipped at 1) plus
+    ``lin_r`` (no bias) of the destination's own features."""
+
+    def __init__(self, src_channels: int, dst_channels: int, out_channels: int,
+                 device=None):
+        super().__init__()
+        self.lin_l = nn.Linear(src_channels, out_channels, device=device)
+        self.lin_r = nn.Linear(dst_channels, out_channels, bias=False, device=device)
+
+    def forward(self, x_src, x_dst, adj):
+        a = (adj > 0).to(x_src.dtype)
+        deg = torch.clamp(a.sum(dim=1), min=1.0)                  # [B, D]
+        neigh = torch.matmul(a.transpose(1, 2), x_src) / deg[..., None]
+        return self.lin_l(neigh) + self.lin_r(x_dst)
+
+
+class DenseGCNConv(nn.Module):
+    """Bipartite GCN conv with symmetric degree normalization:
+    out_dst = sum_src A[s, d] / sqrt(deg_s * deg_d) * (W x_src) + b, degrees
+    of the binarized adjacency clipped at 1. The destination's features are
+    not read (``dst_channels`` is kept for the common conv signature)."""
+
+    def __init__(self, src_channels: int, dst_channels: int, out_channels: int,
+                 device=None):
+        super().__init__()
+        self.lin = nn.Linear(src_channels, out_channels, bias=False, device=device)
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def forward(self, x_src, x_dst, adj):
+        a = (adj > 0).to(x_src.dtype)
+        deg_s = torch.clamp(a.sum(dim=2), min=1.0)                # out-degree [B, S]
+        deg_d = torch.clamp(a.sum(dim=1), min=1.0)                # in-degree  [B, D]
+        norm = a / torch.sqrt(deg_s[:, :, None] * deg_d[:, None, :])
+        return torch.matmul(norm.transpose(1, 2), self.lin(x_src)) + self.bias
+
+
 def _adj_dict(graph) -> Dict[str, torch.Tensor]:
     """Dense adjacency per edge type from a batched SessionGraph."""
     return {
@@ -137,3 +181,40 @@ class HeteroGGNN(nn.Module):
             }
             outs.append(cur)
         return {t: torch.cat([o[t] for o in outs], dim=-1) for t in x_dict}
+
+
+_SAGE_CONVS = {"SAGE": DenseSAGEConv, "GCN": DenseGCNConv, "GAT": DenseGATConv}
+
+
+class HeteroSAGE(nn.Module):
+    """Three bipartite conv layers (widths hidden, hidden, out) lifted to the
+    query/product graph with sum aggregation and ReLU: products receive
+    ``l{i}_qp`` (query -> product) plus ``l{i}_pp`` (product -> product),
+    queries ``l{i}_pq``; ``conv_key`` picks SAGE, GCN or GAT. The output is
+    the last layer's node states (no input concat)."""
+
+    def __init__(self, query_channels: int, product_channels: int, hidden_dim: int,
+                 out_dim: int, conv_key: str = "SAGE", device=None):
+        super().__init__()
+        if conv_key not in _SAGE_CONVS:
+            raise ValueError("ConvKey can only be GAT, GCN or SAGE.")
+        conv = _SAGE_CONVS[conv_key]
+        convs = {}
+        dq, dp = query_channels, product_channels
+        for i, d in enumerate((hidden_dim, hidden_dim, out_dim)):
+            convs[f"l{i}_qp"] = conv(dq, dp, d, device=device)
+            convs[f"l{i}_pp"] = conv(dp, dp, d, device=device)
+            convs[f"l{i}_pq"] = conv(dp, dq, d, device=device)
+            dq = dp = d
+        self.convs = nn.ModuleDict(convs)
+
+    def forward(self, x_dict, graph):
+        adj = _adj_dict(graph)
+        cur = x_dict
+        for i in range(3):
+            q, p = cur["query"], cur["product"]
+            p_new = (self.convs[f"l{i}_qp"](q, p, adj["qp"])
+                     + self.convs[f"l{i}_pp"](p, p, adj["pp"]))
+            q_new = self.convs[f"l{i}_pq"](p, q, adj["pq"])
+            cur = {"query": torch.relu(q_new), "product": torch.relu(p_new)}
+        return cur

@@ -1,5 +1,6 @@
-"""Projection heads (counterparts of
-``sessionsimilaritysearch_tpu/models/heads.py:23`` ``MLP`` and ``:127``
+"""Projection, hashing and generation heads (counterparts of
+``sessionsimilaritysearch_tpu/models/heads.py:23`` ``MLP``, ``:53``
+``BinarizeHead``, ``:92`` ``TransformerDecoderHead`` and ``:127``
 ``CrossAttentionTransformer``).
 
 ``BatchNorm`` writes Flax's ``nn.BatchNorm`` out rather than using
@@ -21,6 +22,8 @@ import torch
 from torch import nn
 
 from sessionsimilaritysearch_tpu_torch.models.transformer import (
+    PositionalEncoding,
+    TransformerDecoder,
     TransformerEncoder,
     dropout,
 )
@@ -79,6 +82,64 @@ class MLP(nn.Module):
             x = dropout(torch.relu(x), self.dropout, deterministic, generator)
         x = self.dense_out(x)
         return torch.tanh(x) if self.last_act else x
+
+
+class BinarizeHead(nn.Module):
+    """Hashing head: ``lin1`` over the input (or, with ``use_mlp``, over
+    tanh of an ``MLP`` of width ``mlp_hidden`` without its last tanh,
+    joined to the input when ``jump``). Training returns ``tanh(out)``, the
+    relaxed code; eval the straight-through sign ``(sign(out) -
+    tanh(out)).detach() + tanh(out)``: exact +-1 codes (0 where out is 0)
+    with tanh's gradient."""
+
+    def __init__(self, in_features: int, n_output: int, use_mlp: bool = False,
+                 mlp_hidden: int = 0, jump: bool = False, device=None):
+        super().__init__()
+        self.use_mlp = use_mlp
+        self.jump = jump
+        width = in_features
+        if use_mlp:
+            self.mlp = MLP(in_features, mlp_hidden, mlp_hidden, 0, 0.0, last_act=False,
+                           device=device)
+            width = mlp_hidden + (in_features if jump else 0)
+        self.lin1 = nn.Linear(width, n_output, device=device)
+
+    def forward(self, x, train: bool = True):
+        """Training (``train``) also uses the MLP's batch statistics and
+        updates its running ones, as Flax's ``deterministic = not train``."""
+        out = x
+        if self.use_mlp:
+            out = torch.tanh(self.mlp(x, deterministic=not train))
+            if self.jump:
+                out = torch.cat([out, x], dim=-1)
+        out = self.lin1(out)
+        soft = torch.tanh(out)
+        if train:
+            return soft
+        return (torch.sign(out) - soft).detach() + soft
+
+
+class TransformerDecoderHead(nn.Module):
+    """PE -> transformer decoder over a session-embedding memory -> dropout
+    -> ``lin`` (the next/last-query generation heads). The JAX module's
+    ``TransformerDecoder_0`` is the port's ``decoder``."""
+
+    def __init__(self, ninp: int, nout: int, nhead: int, nhid: int, nlayers: int,
+                 dropout: float = 0.5, device=None):
+        super().__init__()
+        self.dropout = dropout
+        self.pos_encoder = PositionalEncoding(ninp, dropout, device=device)
+        self.decoder = TransformerDecoder(ninp, nhead, nhid, nlayers, dropout, device=device)
+        self.lin = nn.Linear(ninp, nout, device=device)
+
+    def forward(self, tgt, memory, tgt_mask=None, tgt_key_padding_mask=None,
+                deterministic: bool = True, generator: Optional[torch.Generator] = None):
+        """tgt [B, T, ninp]; memory [B, S, ninp]; tgt_mask [T, T] additive;
+        tgt_key_padding_mask [B, T], True = PAD -> [B, T, nout]."""
+        x = self.pos_encoder(tgt, deterministic, generator)
+        x = self.decoder(x, memory, tgt_mask, tgt_key_padding_mask, None, deterministic,
+                         generator)
+        return self.lin(dropout(x, self.dropout, deterministic, generator))
 
 
 class CrossAttentionTransformer(nn.Module):

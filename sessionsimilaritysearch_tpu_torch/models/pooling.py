@@ -4,9 +4,12 @@
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
+
+from sessionsimilaritysearch_tpu_torch.models.transformer import dropout
 
 
 def masked_mean(x, mask, dim: int = 1):
@@ -23,6 +26,53 @@ def masked_max(x, mask, dim: int = 1):
     valid = mask[..., None] > 0
     out = torch.where(valid, x, torch.finfo(x.dtype).min).amax(dim=dim)
     return torch.where(valid.any(dim=dim), out, torch.zeros_like(out))
+
+
+def _total_order(key):
+    """float32 -> int32 that orders as the floats do, with -0.0 below +0.0
+    (the order of ``lax.top_k``): negative floats' magnitude bits flipped."""
+    bits = key.to(torch.float32).view(torch.int32)
+    return torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+
+
+class GraphPooling(nn.Module):
+    """mean / add / max / sort pool -> dropout -> ``lin`` (counterpart of
+    ``pooling.py:36``). 'sort' keeps the ``sort_k`` nodes with the largest
+    last feature channel (padded nodes last) and concatenates them, so
+    ``lin`` takes ``sort_k * in_features`` (graphs of fewer than ``sort_k``
+    node slots, where JAX keeps them all, do not fit it). JAX picks them
+    with ``lax.top_k``, which breaks ties by the lower index; a stable
+    descending sort does the same (``torch.topk``'s tie order is not
+    defined). ``lax.top_k`` ranks -0.0 below +0.0, so the sort key is the
+    float's total order (``_total_order``)."""
+
+    def __init__(self, pooling_key: str, in_features: int, num_out: int,
+                 dropout: float = 0.0, sort_k: int = 4, device=None):
+        super().__init__()
+        if pooling_key not in ("mean", "add", "max", "sort"):
+            raise ValueError(f"unrecognized pooling key: {pooling_key}")
+        self.pooling_key = pooling_key
+        self.dropout = dropout
+        self.sort_k = sort_k
+        width = in_features * (sort_k if pooling_key == "sort" else 1)
+        self.lin = nn.Linear(width, num_out, device=device)
+
+    def forward(self, x, mask, graph=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        if self.pooling_key == "mean":
+            pooled = masked_mean(x, mask)
+        elif self.pooling_key == "add":
+            pooled = masked_sum(x, mask)
+        elif self.pooling_key == "max":
+            pooled = masked_max(x, mask)
+        else:
+            key = torch.where(mask > 0, x[..., -1], torch.finfo(x.dtype).min)
+            order = torch.sort(_total_order(key), dim=1, descending=True,
+                               stable=True).indices[:, : self.sort_k]
+            picked = torch.gather(x, 1, order[..., None].expand(-1, -1, x.shape[-1]))
+            picked = picked * torch.gather(mask, 1, order)[..., None]
+            pooled = picked.reshape(x.shape[0], -1)
+        return self.lin(dropout(pooled, self.dropout, deterministic, generator))
 
 
 class AttentionPooling(nn.Module):

@@ -1,5 +1,7 @@
-"""Post-norm transformer encoder (counterpart of
-``sessionsimilaritysearch_tpu/models/transformer.py:48-138``).
+"""Post-norm transformer encoder and decoder (counterparts of
+``sessionsimilaritysearch_tpu/models/transformer.py``: ``sinusoidal_pe`` :21,
+``PositionalEncoding`` :34, ``_attention`` and the encoder :48-138,
+``DecoderLayer`` :141, ``TransformerDecoder`` :178 and ``causal_mask`` :211).
 
 Attention is written with plain tensor ops, as the JAX code does, so both
 masking semantics match exactly: an additive ``attn_mask`` [Lq, Lk] is added
@@ -20,10 +22,30 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's epsilon (torch's default is 1e-5)
+
+
+def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
+    """The standard sine/cosine positional table [max_len, d_model], computed
+    in float32 numpy exactly as the JAX package computes it."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(
+        np.arange(0, d_model, 2, dtype=np.float32) * (-math.log(10000.0) / d_model)
+    )
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term[: pe[:, 1::2].shape[1]])
+    return pe
+
+
+def causal_mask(size: int, device=None) -> torch.Tensor:
+    """Upper-triangular -inf additive mask [size, size] (torch's
+    ``generate_square_subsequent_mask``)."""
+    return torch.triu(torch.full((size, size), float("-inf"), device=device), diagonal=1)
 
 
 def dropout(x, rate: float, deterministic: bool,
@@ -125,4 +147,73 @@ class TransformerEncoder(nn.Module):
         key_padding_mask; the port keeps its own serving order.)"""
         for layer in self.layers:
             x = layer(x, key_padding_mask, attn_mask, deterministic, generator)
+        return x
+
+
+class PositionalEncoding(nn.Module):
+    """Adds the sinusoidal table, then dropout. The table is a buffer left
+    out of the ``state_dict`` (Flax recomputes it and keeps no parameter)."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 5000,
+                 device=None):
+        super().__init__()
+        self.dropout = dropout
+        self.register_buffer("pe", torch.from_numpy(sinusoidal_pe(max_len, d_model)).to(device),
+                             persistent=False)
+
+    def forward(self, x, deterministic: bool = True, generator=None):
+        x = x + self.pe[None, : x.shape[1], :].to(x.dtype)
+        return dropout(x, self.dropout, deterministic, generator)
+
+
+class DecoderLayer(nn.Module):
+    """Post-norm ``nn.TransformerDecoderLayer``: self-attention (``self_attn``,
+    ``norm1``) -> cross-attention over the memory (``cross_attn``, ``norm2``)
+    -> ReLU FFN (``ffn_in``, ``ffn_out``, ``norm3``); dropout where the JAX
+    layer has it. A query row whose keys are all padding gets zero attention
+    (``_attention``), as in JAX: the decoder's rows for a session with no
+    target query are such rows."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.0, device=None):
+        super().__init__()
+        self.dropout = dropout
+        self.self_attn = MultiHeadAttention(d_model, nhead, device=device)
+        self.norm1 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, device=device)
+        self.norm2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+        self.ffn_in = nn.Linear(d_model, dim_feedforward, device=device)
+        self.ffn_out = nn.Linear(dim_feedforward, d_model, device=device)
+        self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
+
+    def forward(self, tgt, memory, tgt_mask=None, tgt_key_padding_mask=None,
+                memory_key_padding_mask=None, deterministic: bool = True, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout, deterministic, generator)
+
+        a = drop(self.self_attn(tgt, tgt, tgt, tgt_key_padding_mask, tgt_mask))
+        x = self.norm1(tgt + a)
+        c = drop(self.cross_attn(x, memory, memory, memory_key_padding_mask))
+        x = self.norm2(x + c)
+        f = drop(self.ffn_out(drop(torch.relu(self.ffn_in(x)))))
+        return self.norm3(x + f)
+
+
+class TransformerDecoder(nn.Module):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 nlayers: int, dropout: float = 0.0, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderLayer(d_model, nhead, dim_feedforward, dropout, device=device)
+            for _ in range(nlayers)
+        )
+
+    def forward(self, tgt, memory, tgt_mask=None, tgt_key_padding_mask=None,
+                memory_key_padding_mask=None, deterministic: bool = True, generator=None):
+        """tgt [B, T, D]; memory [B, S, D]; tgt_mask [T, T] additive;
+        the padding masks [B, T] / [B, S] with True = PAD."""
+        x = tgt
+        for layer in self.layers:
+            x = layer(x, memory, tgt_mask, tgt_key_padding_mask, memory_key_padding_mask,
+                      deterministic, generator)
         return x

@@ -1,2 +1,4 @@
 """Trainers of the port (counterparts of ``sessionsimilaritysearch_tpu.training``):
-so far the pretrainer, its losses, the train state and the training loop."""
+the pretrainer, the session / subsession / joint trainers, the similarity
+fine-tuner, their losses, the train state and the training loop."""
+from sessionsimilaritysearch_tpu_torch.training import losses  # noqa: F401

@@ -1,15 +1,25 @@
-"""The pretrainer's losses (counterparts of
-``sessionsimilaritysearch_tpu/training/losses.py``: ``_clipped_norm_rows``
-:32, ``cosine_similarity`` :36, ``contrastive_loss`` :43, ``make_token_mask``
-:65, ``electra_loss`` :80, ``all_text_embedding_loss`` :114,
-``product_target_onehot`` :144, ``product_asin_loss`` :154,
-``product_asin_precision_recall`` :180, ``node_reconstruction_loss`` :273 and
-``qaea_distill_loss`` :287), with the same clips, weightings and masks.
+"""The trainers' losses (counterparts of
+``sessionsimilaritysearch_tpu/training/losses.py``), with the same clips,
+weightings and masks:
 
-The random parts take their draws as arguments (``make_token_mask`` a
-``torch.Generator``, ``product_asin_loss`` its negative-sample mask), so a
-caller can feed the JAX package's draws and compare step for step. The
-fine-tune and session-trainer losses are not ported yet.
+- the pretrainer's: ``_clipped_norm_rows`` :32, ``cosine_similarity`` :36,
+  ``contrastive_loss`` :43, ``make_token_mask`` :65, ``electra_loss`` :80,
+  ``all_text_embedding_loss`` :114, ``product_target_onehot`` :144,
+  ``product_asin_loss`` :154, ``product_asin_precision_recall`` :180,
+  ``node_reconstruction_loss`` :273 and ``qaea_distill_loss`` :287;
+- the session trainers' query generation: ``make_mlm_target`` :297,
+  ``next_query_mlm_loss`` :308, ``autoregressive_query_loss`` :320 and
+  ``next_query_electra_loss`` :350;
+- the fine-tuner's: ``binary_regularize`` :56, ``_criterion`` :201,
+  ``pair_loss`` :209, ``pair_matrix_loss`` :216, ``sim_matrix_loss`` :228,
+  ``triplet_loss`` :238, ``aux_consistency_loss`` :246 and
+  ``reconstruction_loss`` :259.
+
+The random parts take their draws as arguments or from a
+``torch.Generator`` (``make_token_mask``, ``make_mlm_target``, the
+negative token ids of ``autoregressive_query_loss``; ``product_asin_loss``
+takes its negative-sample mask), so a caller can feed the JAX package's
+draws and compare step for step.
 """
 
 from __future__ import annotations
@@ -40,6 +50,11 @@ def contrastive_loss(view1, view2):
     eye = torch.eye(b, dtype=score.dtype, device=score.device)
     js = torch.log(1.0 - score) * (1.0 - eye) + 10.0 * torch.log(score) * eye
     return -js.sum() / (b * b + 9 * b)
+
+
+def binary_regularize(out):
+    """Push codes to +-1: mean |1 - |out||."""
+    return (1.0 - out.abs()).abs().mean()
 
 
 def make_token_mask(generator: torch.Generator, input_ids, mask_ratio: float,
@@ -138,3 +153,138 @@ def node_reconstruction_loss(node_pred, node_feat, keep_mask, node_exists=None):
 def qaea_distill_loss(pred, label):
     """mean(1 - cos) toward the frozen text embedding (no gradient into it)."""
     return (1.0 - cosine_similarity(pred, label.detach())).mean()
+
+
+# ---------------------------------------------------------------------------
+# Similarity fine-tune losses
+# ---------------------------------------------------------------------------
+
+def _unit_rows(x):
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=1, keepdim=True), min=1e-12)
+
+
+def _criterion(pred, tgt, loss_type: str):
+    if loss_type == "MSE":
+        return ((pred - tgt) ** 2).mean()
+    if loss_type == "L1":
+        return (pred - tgt).abs().mean()
+    raise ValueError(f"unrecognized loss type {loss_type}")
+
+
+def pair_loss(out1, out2, lab, loss_type: str = "MSE"):
+    """Per-row cosine against scalar labels."""
+    pred = cosine_similarity(out1, out2)
+    return _criterion(pred, lab.to(pred.dtype), loss_type)
+
+
+def pair_matrix_loss(out1, out2, lab, loss_type: str = "MSE"):
+    """The full cosine matrix against diag(labels), weighted sqrt(0.001 +
+    0.999 I) (the reference's diagonal-heavy weights)."""
+    pred = _unit_rows(out1) @ _unit_rows(out2).T
+    tgt = torch.diag(lab.to(pred.dtype))
+    b = out1.shape[0]
+    eye = torch.eye(b, dtype=pred.dtype, device=pred.device)
+    weight = torch.sqrt(0.001 * torch.ones_like(eye) + 0.999 * eye)
+    return _criterion(pred * weight, tgt * weight, loss_type)
+
+
+def sim_matrix_loss(out, label_matrix, loss_type: str = "MSE"):
+    """Cosine matrix against a label matrix, positives weighted sqrt(10);
+    returns (loss, pred, label)."""
+    n = _unit_rows(out)
+    pred = n @ n.T
+    label = label_matrix.to(pred.dtype)
+    weight = torch.sqrt(torch.where(label > 0, 10.0, 1.0))
+    return _criterion(pred * weight, label * weight, loss_type), pred, label
+
+
+def triplet_loss(out, pos_out, neg_out, pos_score, neg_score):
+    """Margin triplet on cosines, margin = pos_score - neg_score."""
+    pos_pred = cosine_similarity(out, pos_out)
+    neg_pred = cosine_similarity(out, neg_out)
+    return torch.clamp(neg_pred - pos_pred + (pos_score - neg_score), min=0.0).mean()
+
+
+def aux_consistency_loss(aux_sub_out, aux_out, base_pred):
+    """Mean squared distance of the codes' cosine matrix from the frozen
+    base's (no gradient into ``base_pred``)."""
+    pred = _unit_rows(aux_sub_out) @ _unit_rows(aux_out).T
+    return ((pred - base_pred.detach()) ** 2).mean()
+
+
+def reconstruction_loss(target_emb, rec_emb):
+    """Normalized squared L2 minus cosine of the reconstruction of the base
+    embedding (no gradient into ``target_emb``)."""
+    target_emb = target_emb.detach()
+    norm = torch.clamp((target_emb ** 2).sum(dim=1), min=1e-12)
+    l2 = (((target_emb - rec_emb) ** 2).sum(dim=1) / norm).mean()
+    return l2 - cosine_similarity(target_emb, rec_emb).mean()
+
+
+# ---------------------------------------------------------------------------
+# Decoder-based query-generation losses
+# ---------------------------------------------------------------------------
+
+def make_mlm_target(generator, y, y_mask, mask_prob: float, mask_token_id: int,
+                    min_maskable_id: int = MIN_MASKABLE_ID, pred_target=None):
+    """Positions of the target query to predict -- uniform < ``mask_prob``
+    and id >= 5, drawn from ``generator`` unless ``pred_target`` is given --
+    replaced by ``mask_token_id``; returns (masked_y, pred_target).
+    ``y_mask`` is unused, as in JAX."""
+    if pred_target is None:
+        pred_target = make_token_mask(generator, y, mask_prob, min_maskable_id)
+    return torch.where(pred_target, mask_token_id, y), pred_target
+
+
+def _token_ce(logits, labels):
+    """Softmax cross entropy per position with integer labels, [..., C]
+    logits -> [...]."""
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), labels.reshape(-1).long(), reduction="none"
+    ).reshape(labels.shape)
+
+
+def next_query_mlm_loss(logits, y, pred_target):
+    """CE at the predicted positions (mean over them, denominator clipped at
+    1), and the argmax-infilled sequence for the ELECTRA stage (detached;
+    ``argmax`` keeps the first maximum in both packages)."""
+    ce = _token_ce(logits, y)
+    w = pred_target.to(ce.dtype)
+    loss = (ce * w).sum() / torch.clamp(w.sum(), min=1.0)
+    output = torch.where(pred_target, logits.argmax(dim=-1), y)
+    return loss, output.detach()
+
+
+def negative_token_ids(generator, batch: int, steps: int, neg_k: int, vocab: int, device):
+    """The autoregressive loss's negatives: [batch, steps, neg_k] uniform
+    token ids in [0, vocab)."""
+    return torch.randint(0, vocab, (batch, steps, neg_k), generator=generator, device=device)
+
+
+def autoregressive_query_loss(generator, dec_out, y, y_mask, token_table, neg_k: int,
+                              neg_ids=None):
+    """Next-token loss with sampled negatives over one causal decode:
+    position t of ``dec_out`` [B, T, d] predicts token t + 1; pos =
+    sigmoid(rep . emb(y_next)), neg = sigmoid(-rep . emb(random)) summed
+    over ``neg_k`` negatives (``neg_ids`` [B, T - 1, neg_k], drawn from
+    ``generator`` when not given), masked means, weighted 1 / (1 + neg_k)."""
+    B, T, _ = dec_out.shape
+    rep = dec_out[:, :-1, :]
+    mask = y_mask[:, 1:].to(rep.dtype)
+    pos_val = torch.sigmoid((rep * token_table[y[:, 1:].long()]).sum(dim=-1))
+    if neg_ids is None:
+        neg_ids = negative_token_ids(generator, B, T - 1, neg_k, token_table.shape[0],
+                                     dec_out.device)
+    neg_emb = token_table[neg_ids.long()]                       # [B, T-1, K, d]
+    neg_val = torch.sigmoid(-torch.einsum("btd,btkd->btk", rep, neg_emb)).sum(dim=-1)
+    denom = torch.clamp(mask.sum(), min=1.0)
+    total = (pos_val * mask).sum() / denom + (neg_val * mask).sum() / denom
+    return -total / (1 + neg_k)
+
+
+def next_query_electra_loss(logits2, output, y, y_mask):
+    """Replaced-token detection over the infilled sequence: 2-way CE per
+    position (label 1 where the infill kept the original), masked mean."""
+    ce = _token_ce(logits2, (output == y).long())
+    m = y_mask.to(ce.dtype)
+    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)

@@ -61,14 +61,17 @@ class CheckpointManager:
 
 def state_to_tree(state) -> dict:
     """TrainState -> a tree ``torch.save`` writes: the step, the parameters,
-    the BatchNorm statistics (buffers), the optimizer state and the
+    the BatchNorm statistics (the persistent buffers: not the positional
+    tables, which the modules rebuild), the optimizer state and the
     generator state. The tensors are the live ones: save before the next
     step."""
     model = state.model
+    params = dict(model.named_parameters())
     return {
         "step": int(state.step),
-        "params": {k: v for k, v in model.named_parameters()},
-        "batch_stats": {k: v for k, v in model.named_buffers()},
+        "params": params,
+        "batch_stats": {k: v for k, v in model.state_dict(keep_vars=True).items()
+                        if k not in params},
         "opt_state": state.optimizer.state_dict(),
         "generator": state.generator.get_state(),
     }

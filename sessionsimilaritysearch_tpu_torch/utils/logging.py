@@ -1,4 +1,5 @@
-"""Structured run logging.
+"""Structured run logging (a copy of ``sessionsimilaritysearch_tpu/utils/logging.py``
+but for ``RunDir``'s logger, which the port keys on its log file's path).
 
 The reference logs free-text lines to a per-experiment file and snapshots
 its config by copying ``config.py`` + the training script into the savedir
@@ -25,10 +26,21 @@ class RunDir:
         if config is not None and hasattr(config, "to_json"):
             with open(os.path.join(path, "config.json"), "w") as f:
                 f.write(config.to_json())
-        self.logger = logging.getLogger(f"sss.{name}.{id(self)}")
+        # The logger is keyed on the absolute path of its log file, not on
+        # id(self): loggers are global and Python gives a freed object's id
+        # to a new one, so an id-keyed logger of a new RunDir could still hold
+        # a freed RunDir's handler and write to the other directory's file.
+        # A handler left on this logger that writes elsewhere (or to a file
+        # since deleted) is closed and replaced.
+        log_file = os.path.abspath(os.path.join(path, f"{name}.log"))
+        self.logger = logging.getLogger(f"sss.{name}.{log_file}")
         self.logger.setLevel(logging.INFO)
+        for h in list(self.logger.handlers):
+            if getattr(h, "baseFilename", None) != log_file or not os.path.exists(log_file):
+                self.logger.removeHandler(h)
+                h.close()
         if not self.logger.handlers:
-            h = logging.FileHandler(os.path.join(path, f"{name}.log"))
+            h = logging.FileHandler(log_file)
             h.setFormatter(
                 logging.Formatter("%(asctime)s:%(levelname)s:%(message)s")
             )

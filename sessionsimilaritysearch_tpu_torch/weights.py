@@ -1,7 +1,7 @@
-"""State of the JAX package -> the port: the encoders' and the pretrainer's
-Flax parameters (and BatchNorm statistics) as a ``state_dict``, a JAX train
-state's Adam moments as torch optimizer state, and the two-stage index's
-SimHash projection.
+"""State of the JAX package -> the port: the encoders', the pretrainer's, the
+session trainers' and the fine-tuner's Flax parameters (and BatchNorm
+statistics) as a ``state_dict``, a JAX train state's Adam moments as torch
+optimizer state, and the two-stage index's SimHash projection.
 
 The encoder's input is the params pytree of ``sessionsimilaritysearch_tpu.models``' Flax
 ``GraphLevelEncoder`` with numpy leaves, i.e.
@@ -13,25 +13,34 @@ same function. What differs between the two naming schemes:
 - Flax ``Dense.kernel`` is ``[in, out]``; torch ``Linear.weight`` is
   ``[out, in]``.
 - Flax names unnamed submodules after their class: ``Dense_0`` / ``Dense_1``
-  (FFN in / out), ``LayerNorm_0`` / ``LayerNorm_1``, ``MultiHeadAttention_0``;
-  the port names them ``ffn_in``, ``ffn_out``, ``norm1``, ``norm2``,
-  ``self_attn``.
+  (FFN in / out, in an encoder or a decoder layer), ``LayerNorm_0`` /
+  ``LayerNorm_1`` / ``LayerNorm_2`` (a decoder layer's third),
+  ``MultiHeadAttention_0``; the port names them ``ffn_in``, ``ffn_out``,
+  ``norm1``, ``norm2``, ``norm3``, ``self_attn``. A decoder layer's
+  ``self_attn`` and ``cross_attn`` keep their names.
 - Flax ``LayerNorm`` calls its gain ``scale`` and ``Embed`` its table
   ``embedding``; torch calls both ``weight``.
 - Transformer layers ``layer_{i}`` live in ``layers.{i}``; GNN convs
   ``l{i}_{qp,pq,pp}`` in ``gnn.convs``.
 - ``att_src`` / ``att_dst`` are ``[out, 1]`` on both sides.
 
-- The cross-attention branch's ``TransformerEncoder_0`` is the port's
-  ``encoder``.
+- The cross-attention branch's and ``NodeTextTransformer``'s
+  ``TransformerEncoder_0`` is the port's ``encoder``;
+  ``TransformerDecoderHead``'s ``TransformerDecoder_0`` its ``decoder``.
 
 Other leaves keep their name and shape: the recency pooling's 0-d
 ``raw_lambda`` becomes the 0-d ``product_pooling.raw_lambda`` and its
 ``lin_rec`` a Linear like the others; the pretrainer's heads keep
 ``dense_{i}``, ``bn_{i}`` and ``dense_out`` (a BatchNorm's ``scale`` is its
 ``weight``), the pooling its ``*_lin`` and ``positional_emb``, the model its
-``target_asin_embedding``. The ``batch_stats`` leaves ``mean`` and ``var``
-become the BatchNorm buffers of the same names. An encoder built with
+``target_asin_embedding``; the session trainers' ``next_product_head``,
+``query_decoder``, ``electra_decoder``, ``memory_proj`` and
+``token_table_proj`` (and ``session_model`` / ``subsession_model`` of a
+``JointModel``), the SAGE / GCN convs' ``lin_l`` / ``lin_r`` / ``lin``, a
+``GraphPooling``'s ``lin``, a ``BinarizeHead``'s ``lin1`` and the
+fine-tuner's ``q_dec`` / ``db_dec`` keep their names too. The
+``batch_stats`` leaves ``mean`` and ``var`` become the BatchNorm buffers of
+the same names. An encoder built with
 ``use_id_embedding=False`` has no ``product_node_embedder`` on either side.
 
 A JAX train state (``utils/checkpoint.py`` ``state_to_tree``: step, params,
@@ -39,6 +48,9 @@ batch_stats and the optax chain state, live or read from a msgpack file by
 ``utils.checkpoint.read_flax_checkpoint``) loads into a port ``TrainState``
 with :func:`load_flax_train_state`: ``ScaleByAdamState.mu``, ``.nu`` and
 ``.count`` become each parameter's ``exp_avg``, ``exp_avg_sq`` and ``step``.
+A JAX ``FinetuneState`` (params, ``opt_db``, ``opt_q``, step) loads into a
+port ``FinetuneState`` with :func:`load_flax_finetune_state`: each optax
+state's moments of its own tower go to that tower's optimizer.
 """
 
 from __future__ import annotations
@@ -55,7 +67,9 @@ _MODULE_RENAME = {
     "Dense_1": "ffn_out",
     "LayerNorm_0": "norm1",
     "LayerNorm_1": "norm2",
+    "LayerNorm_2": "norm3",
     "TransformerEncoder_0": "encoder",
+    "TransformerDecoder_0": "decoder",
 }
 _LEAF_RENAME = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
 _LAYER = re.compile(r"layer_(\d+)")
@@ -129,22 +143,27 @@ def _adam_state(opt_state) -> dict:
     return None
 
 
-def flax_adam_state(opt_state, model: torch.nn.Module) -> Dict[int, dict]:
+def flax_adam_state(opt_state, model: torch.nn.Module, names=None) -> Dict[int, dict]:
     """The ``state`` part of a torch Adam / AdamW ``state_dict`` over
-    ``model.parameters()`` from an optax ``chain(clip_by_global_norm,
-    adam | adamw)`` state: per parameter index ``step`` (the Adam count, a
-    float32 scalar as torch keeps it), ``exp_avg`` (mu) and ``exp_avg_sq``
-    (nu), transposed like their parameters."""
+    ``model.parameters()`` (or over the parameters ``names`` lists, in that
+    order) from an optax ``chain(clip_by_global_norm, adam | adamw)`` state:
+    per parameter index ``step`` (the Adam count, a float32 scalar as torch
+    keeps it), ``exp_avg`` (mu) and ``exp_avg_sq`` (nu), transposed like
+    their parameters. With ``names``, the leaves of other parameters are
+    left out."""
     adam = _adam_state(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
-    index = {name: i for i, (name, _) in enumerate(model.named_parameters())}
+    if names is None:
+        names = [name for name, _ in model.named_parameters()]
+    index = {name: i for i, name in enumerate(names)}
     count = torch.tensor(float(np.asarray(adam["count"])), dtype=torch.float32)
     state: Dict[int, dict] = {}
     for key, leaf in (("exp_avg", "mu"), ("exp_avg_sq", "nu")):
         for path, arr in _leaves(adam[leaf]):
-            state.setdefault(index[torch_key(path)], {"step": count.clone()})[key] = \
-                _to_torch(path, arr)
+            if torch_key(path) in index:
+                state.setdefault(index[torch_key(path)], {"step": count.clone()})[key] = \
+                    _to_torch(path, arr)
     if len(state) != len(index):
         raise ValueError(f"Adam state covers {len(state)} of {len(index)} parameters")
     return state
@@ -163,6 +182,24 @@ def load_flax_train_state(state, tree) -> None:
         opt = state.optimizer.state_dict()
         opt["state"] = flax_adam_state(tree["opt_state"], state.model)
         state.optimizer.load_state_dict(opt)
+    state.step = int(np.asarray(tree["step"]))
+
+
+def load_flax_finetune_state(state, tree) -> None:
+    """Load a JAX ``FinetuneState`` -- ``{"params", "opt_db", "opt_q",
+    "step"}`` with numpy leaves, e.g. ``jax.tree.map(np.asarray,
+    jax_state._asdict())`` -- into the port's ``FinetuneState`` of the same
+    ``Config`` and width (strict): the parameters, each tower's Adam moments
+    and count from its own optax state (``opt_db`` -> ``state.opt_db``,
+    ``opt_q`` -> ``state.opt_q``; the other tower's leaves there are the
+    zeros of a masked gradient and are left out), and the step."""
+    tree = _as_dict(tree)
+    state.model.load_state_dict(flax_to_state_dict(tree["params"]), strict=True)
+    for side, opt in (("db", state.opt_db), ("q", state.opt_q)):
+        names = [name for name, _ in state.model.side_parameters(side)]
+        sd = opt.state_dict()
+        sd["state"] = flax_adam_state(tree[f"opt_{side}"], state.model, names)
+        opt.load_state_dict(sd)
     state.step = int(np.asarray(tree["step"]))
 
 

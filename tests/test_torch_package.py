@@ -169,6 +169,45 @@ def test_pretraining_on_the_cpu_loads_no_jax_package(tmp_path):
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_session_training_and_finetuning_on_the_cpu_load_no_jax_package():
+    # a fresh interpreter takes one session-trainer step (flagship, subsession)
+    # and one fine-tune step over its embeddings, then hard-codes them; neither
+    # the JAX package nor JAX may be loaded afterwards
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import sessionsimilaritysearch_tpu_torch as port\n"
+        "from sessionsimilaritysearch_tpu_torch.data.graph import build_graph_batch\n"
+        "from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device\n"
+        "from sessionsimilaritysearch_tpu_torch.training import finetune as ft\n"
+        "from sessionsimilaritysearch_tpu_torch.training import session_trainers as st\n"
+        "cfg = port.tiny_test_config()\n"
+        "tok = port.get_tokenizer(cfg.vocab_size)\n"
+        "data = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0).dataset(8)\n"
+        "g = to_device(build_graph_batch(data, tok, cfg.dims), port.device.resolve_device('cpu'))\n"
+        "model, state = st.create_session_state(cfg, 'cpu', encoder_kind='flagship')\n"
+        "state, m = st.make_session_train_step(model)(state, g)\n"
+        "assert np.isfinite(float(m['loss'])) and state.step == 1\n"
+        "emb = model.encode(g).detach()\n"
+        "heads, fs = ft.create_finetune_state(cfg, 'cpu', emb_dim=emb.shape[1],\n"
+        "                                     shared_init=True)\n"
+        "b = ft.TripletBatch(emb, emb.flip(0), emb.roll(1, 0), emb.roll(2, 0),\n"
+        "                    *(emb[:, 0] * 0 + v for v in (0.9, 0.5, 0.1)), emb, emb)\n"
+        "fs, fm = ft.make_finetune_step(heads, cfg)(fs, b)\n"
+        "assert np.isfinite(float(fm['loss'])) and fs.step == 1\n"
+        "db, q = ft.make_code_fns(heads)\n"
+        "assert db(fs, emb).abs().eq(1).all()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'sessionsimilaritysearch_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_no_source_imports_the_jax_package():
     # every module of the port and chip_smoke.py, read as source: no import
     # statement names JAX or the JAX package, at any depth of the file

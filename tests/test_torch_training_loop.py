@@ -424,3 +424,36 @@ class _Epochs:
 
     def __iter__(self):
         return iter(next(self.epochs))
+
+
+def test_a_new_rundir_writes_only_to_its_own_log(tmp_path):
+    """RunDir keys its logger on its log file's path: a RunDir made after
+    another one of the same name was freed (Python hands the freed object's
+    id to the new one) writes every message to its own file, none to the
+    freed one's."""
+    import gc
+
+    for i in range(50):
+        a = RunDir(str(tmp_path / f"a{i}"), None, "pretrain")
+        a.logger.info("from a")
+        del a
+        gc.collect()
+        b = RunDir(str(tmp_path / f"b{i}"), None, "pretrain")
+        b.logger.warning(f"message {i}")
+        for h in b.logger.handlers:
+            h.flush()
+        assert f"message {i}" in open(b.file("pretrain.log")).read(), i
+        assert "message" not in open(tmp_path / f"a{i}" / "pretrain.log").read(), i
+
+
+def test_a_rundir_reopened_on_a_recreated_directory_logs_there(tmp_path):
+    import shutil
+
+    rd = RunDir(str(tmp_path / "run"), None, "finetune")
+    rd.logger.info("first")
+    shutil.rmtree(tmp_path / "run")
+    rd2 = RunDir(str(tmp_path / "run"), None, "finetune")
+    rd2.logger.info("second")
+    for h in rd2.logger.handlers:
+        h.flush()
+    assert "second" in open(rd2.file("finetune.log")).read()
