@@ -153,6 +153,29 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                Hamming distances equal to the plain f64 product's; ave type
                score@10 of the dense embeddings, the untrained and the
                trained codes printed, not gated;
+4j. node-level encoders -- NodeLevelEncoder (models/encoder.py) at
+               Config() width: the text backbone and the asin-id embedding
+               (391,572 asins) under HGT (hidden 800, 4 heads, 3 layers:
+               3,200-wide nodes) and under HeteroGGNN, seeded weights; a
+               batch of 256 sessions on the card (median ms over 10 calls,
+               CUDA events) and on the CPU from the same weights: the largest
+               |card - CPU| over the largest |CPU| per node type at most
+               1e-4 (TF32 off);
+4k. cli -- the port's CLI (cli.py) at Config() width, not --tiny, driven
+               in-process through cli.main on the card in a temporary
+               directory deleted afterwards: pretrain, train-subsession and
+               train-session (512 sessions, one epoch), finetune
+               --from-pretrain on that pretrain run, evaluate in modes model
+               (with --save-results), knn, hybrid and SKNN, --mode load of
+               the saved results (the model run's report back), etl; each
+               JSON line holds the JAX CLI's keys, every loss is finite,
+               steps equals the train loader's batch count (10), evaluate's
+               model and knn modes launch K1, every launch the f32 wgmma
+               variant (n_out = 500 f32 rows); each subcommand's wall
+               seconds; then `python -m sessionsimilaritysearch_tpu_torch.cli
+               evaluate --mode model` in a subprocess without --device runs
+               (on the card: the default), and the same with no card visible
+               fails;
 4c. f32 kernel -- K1's f32 wgmma variant at q=1024, n=2^20, d=1600 f32 ->
                f32 on seeded f32 unit rows against its plain version, timed
                in the same rounds as the tile loop (through its own C entry
@@ -272,7 +295,7 @@ engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
 its C entry point;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
-and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 7b, 8 and 9b, counted
+and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8 and 9b, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
 holds phase 8's times per tier under ``twostage_tiers``);
@@ -2268,6 +2291,238 @@ def phase_finetune(torch, dev, card, model, eng, serve_gen, serve):
     return counts
 
 
+# the node-level encoders and the CLI at Config() width
+NL_ROWS, NL_CALLS = 256, 10  # sessions a batch; timed calls of each encoder
+# the card against the CPU on the same weights and batch: the largest
+# |difference| over the largest |CPU output|, per node type (TF32 off)
+NL_CARD_CPU_REL = 1e-4
+CLI_SESSIONS = 512  # --num-sessions of every CLI run
+# the keys of the JAX CLI's JSON line per subcommand
+# (sessionsimilaritysearch_tpu/cli.py:123, :171, :264, :280, :323, :350, :383)
+CLI_TRAIN_KEYS = {"best_valid_loss", "steps"}
+CLI_FINETUNE_KEYS = {"final_loss", "triplets"}
+CLI_REPORT_KEYS = {"ave_all_jaccard", "ave_cur_jaccard", "ave_all_query_score",
+                   "ave_all_product_title_score", "ave_all_product_type_score",
+                   "future_map", "all_map", "cur_map", "future_recall", "all_recall",
+                   "frac_above_0.5"}
+CLI_KNN_KEYS = {"mode", "recall_at_k", "K", "search_s", "qps"}
+CLI_ETL_KEYS = {"sessions", "distinct_asins", "out"}
+
+
+def phase_node_level(torch, dev, card):
+    """NodeLevelEncoder at Config() width with the HGT backbone (hidden 800,
+    4 heads, 3 layers: 3,200-wide nodes) and with the HeteroGGNN backbone:
+    256 sessions on the card (median ms of a batch over NL_CALLS calls) and
+    on the CPU from the same weights, the largest |card - CPU| over the
+    largest |CPU| per node type at most NL_CARD_CPU_REL."""
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.data import build_graph_batch
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device
+    from sessionsimilaritysearch_tpu_torch.models import (
+        HGT,
+        HeteroGGNN,
+        NodeAsinEmbedding,
+        NodeLevelEncoder,
+    )
+    from sessionsimilaritysearch_tpu_torch.models.encoder import build_text_backbone, init_parameters
+
+    cfg = port.Config()
+    cpu = torch.device("cpu")
+    tok = port.get_tokenizer(cfg.vocab_size)
+    data = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=9).dataset(NL_ROWS)
+    host = build_graph_batch(data, tok, cfg.dims)
+    g_card, g_cpu = to_device(host, dev), to_device(host, cpu)
+    d_text, d_asin, hid, layers = cfg.text_encoder_dim, cfg.emb_len, cfg.gnn_nhid, cfg.gnn_nlayers
+    backbones = {
+        "HGT": (lambda d: HGT(d_text, d_asin, hid, cfg.gnn_nhead, layers, device=d),
+                (layers + 1) * hid),
+        "HeteroGGNN": (lambda d: HeteroGGNN(d_text, d_asin, hid, layers, device=d), None),
+    }
+    out = {}
+    for name, (make_gnn, width) in backbones.items():
+        t0 = time.perf_counter()
+        enc = NodeLevelEncoder(build_text_backbone(cfg, dev),
+                               NodeAsinEmbedding(cfg.asin_num, cfg.emb_len, device=dev),
+                               make_gnn(dev), device=dev)
+        init_parameters(enc, torch.Generator(device=dev).manual_seed(3))
+        enc.eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in enc.parameters())
+        ms = []
+        with torch.no_grad():
+            got = enc(g_card)  # warm-up
+            for _ in range(NL_CALLS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                got = enc(g_card)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            state = smi()
+            cpu_enc = NodeLevelEncoder(build_text_backbone(cfg, cpu),
+                                       NodeAsinEmbedding(cfg.asin_num, cfg.emb_len, device=cpu),
+                                       make_gnn(cpu), device=cpu)
+            cpu_enc.load_state_dict(enc.state_dict())
+            t0 = time.perf_counter()
+            want = cpu_enc.eval()(g_cpu)
+            cpu_s = time.perf_counter() - t0
+        rel = {}
+        for t in ("query", "product"):
+            check(tuple(got[t].shape[:2]) == tuple(want[t].shape[:2]),
+                  f"node-level {name}: {t} shape {tuple(got[t].shape)}")
+            if width is not None:
+                check(got[t].shape[-1] == width, f"node-level {name}: {t} width "
+                      f"{got[t].shape[-1]}, expected {width}")
+            check(bool(torch.isfinite(got[t]).all()), f"node-level {name}: non-finite {t}")
+            rel[t] = float((got[t].cpu() - want[t]).abs().max() / want[t].abs().max())
+            check(rel[t] <= NL_CARD_CPU_REL, f"node-level {name}: {t} card vs CPU {rel[t]:.3g} "
+                  f"> {NL_CARD_CPU_REL}")
+        med = percentile(ms, 50)
+        print(f"node-level encoder {name} Config() [{card}]: {n_params / 1e6:.1f} M parameters "
+              f"(built in {build_s:.1f} s), nodes {got['query'].shape[-1]} wide; a batch of "
+              f"{NL_ROWS} sessions median {med:.2f} ms (p90 {percentile(ms, 90):.2f}) over "
+              f"{NL_CALLS} calls (CUDA events) {state}; card vs CPU max |diff| / max |CPU| "
+              f"query {rel['query']:.3g}, product {rel['product']:.3g} (bound "
+              f"{NL_CARD_CPU_REL}; the CPU forward {cpu_s:.1f} s)")
+        out[name] = {"median_ms": med, "card_cpu_rel": rel}
+        del enc, cpu_enc, got, want
+        torch.cuda.empty_cache()
+    print(f"node-level summary: {json.dumps(out)}")
+    return out
+
+
+def cli_call(torch, cli, argv, card):
+    """One in-process CLI call on the card: (its JSON line, wall seconds,
+    the K1 / K2 / K4 launches counted from 0 around it)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--device", "cuda", *argv])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    lines = buf.getvalue().strip().splitlines()
+    check(bool(lines), f"cli {' '.join(argv[:3])}: printed nothing")
+    out = json.loads(lines[-1])
+    print(f"  cli {' '.join(a for a in argv if not a.startswith('/'))} [{card}]: "
+          f"{secs:.1f} s; {json.dumps(out)}; launches {counts}")
+    return out, secs, counts
+
+
+def epoch_losses(path) -> list:
+    """The train losses a RunDir log wrote ('epoch i: train X ...')."""
+    with open(path) as f:
+        return [float(line.split("train ")[1].split()[0].rstrip(","))
+                for line in f if ": train " in line]
+
+
+def phase_cli(torch, dev, card):
+    """The port's CLI at Config() width (not --tiny), driven in-process
+    through cli.main on the card, in a temporary directory deleted
+    afterwards: pretrain, train-subsession and train-session (512 sessions,
+    one epoch), finetune --from-pretrain on that pretrain run, evaluate in
+    modes model (with --save-results), knn, hybrid and SKNN, --mode load of
+    the saved results, etl; each JSON line holds the JAX CLI's keys, every
+    loss is finite, ``steps`` is the train loader's batch count, evaluate's
+    model and knn modes launch K1 (each launch the f32 wgmma variant, the
+    n_out = 500 f32 rows); then `python -m sessionsimilaritysearch_tpu_torch
+    .cli evaluate --mode model` in a subprocess without --device runs on
+    the card, and with no card visible it fails. Returns the K1 counts of
+    evaluate's model and knn runs."""
+    import shutil
+
+    from sessionsimilaritysearch_tpu_torch import cli
+    from sessionsimilaritysearch_tpu_torch.config import Config
+
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="sss_cli_")
+    common = ["--num-sessions", str(CLI_SESSIONS)]
+    n_train = CLI_SESSIONS - max(CLI_SESSIONS // 10, 1)
+    steps = -(-n_train // Config().batch_size)
+    secs, k1 = {}, {}
+    try:
+        for cmd in ("pretrain", "train-subsession", "train-session"):
+            run = os.path.join(root, cmd)
+            out, secs[cmd], _ = cli_call(torch, cli, [cmd, *common, "--epochs", "1",
+                                                      "--savedir", run], card)
+            check(set(out) == CLI_TRAIN_KEYS, f"cli {cmd}: keys {sorted(out)}")
+            check(out["steps"] == steps, f"cli {cmd}: {out['steps']} steps, the loader has "
+                  f"{steps} batches")
+            losses = epoch_losses(os.path.join(run, f"{cmd.split('-')[-1]}.log"))
+            check(len(losses) == 1 and np.isfinite(losses).all()
+                  and np.isfinite(out["best_valid_loss"]),
+                  f"cli {cmd}: train losses {losses}, valid {out['best_valid_loss']}")
+            if cmd != "pretrain":
+                shutil.rmtree(run)
+        out, secs["finetune"], _ = cli_call(
+            torch, cli, ["finetune", *common, "--savedir", os.path.join(root, "finetune"),
+                         "--from-pretrain", os.path.join(root, "pretrain")], card)
+        check(set(out) == CLI_FINETUNE_KEYS and np.isfinite(out["final_loss"])
+              and out["triplets"] > 0, f"cli finetune --from-pretrain: {out}")
+        shutil.rmtree(os.path.join(root, "pretrain"))
+
+        saved = os.path.join(root, "results.pkl")
+        reports = {}
+        for mode, extra in (("model", ["--save-results", saved]), ("knn", []),
+                            ("hybrid", []), ("SKNN", [])):
+            out, secs[f"evaluate {mode}"], counts = cli_call(
+                torch, cli, ["evaluate", "--mode", mode, *common, *extra], card)
+            keys = CLI_KNN_KEYS if mode == "knn" else {"mode", "qps", "search_s",
+                                                        *CLI_REPORT_KEYS}
+            check(keys <= set(out) and out["mode"] == mode,
+                  f"cli evaluate {mode}: keys {sorted(out)}")
+            check(all(np.isfinite(v) for k, v in out.items() if k not in ("mode", "qps")),
+                  f"cli evaluate {mode}: {out}")
+            if mode in ("model", "knn"):
+                check(counts["k1"] >= 1 and counts["k1"] == counts["k1_wgmma"],
+                      f"cli evaluate {mode}: K1 launches {counts} (all must be the f32 wgmma "
+                      "variant)")
+                k1[f"cli_evaluate_{mode}"] = counts
+            reports[mode] = out
+        out, secs["evaluate load"], _ = cli_call(
+            torch, cli, ["evaluate", "--mode", "load", "--results", saved], card)
+        want = {k: v for k, v in reports["model"].items() if k not in ("mode", "qps", "search_s")}
+        check(out == {"mode": "load", **want},
+              f"cli evaluate --mode load: {out} is not the model run's report {want}")
+        out, secs["etl"], _ = cli_call(torch, cli, ["etl", *common, "--out",
+                                                    os.path.join(root, "etl")], card)
+        check(set(out) == CLI_ETL_KEYS and out["sessions"] == CLI_SESSIONS,
+              f"cli etl: {out}")
+
+        # the default device: a subprocess without --device, then one with no card visible
+        env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+        env["PYTHONPATH"] = HERE
+        argv = [sys.executable, "-m", "sessionsimilaritysearch_tpu_torch.cli", "evaluate",
+                "--mode", "model", "--num-sessions", str(CLI_SESSIONS)]
+        t0 = time.perf_counter()
+        sub = subprocess.run(argv, cwd=root, env=env, capture_output=True, text=True,
+                             timeout=600)
+        secs["subprocess evaluate model"] = time.perf_counter() - t0
+        check(sub.returncode == 0, f"cli subprocess without --device failed: {sub.stderr[-2000:]}")
+        line = json.loads(sub.stdout.strip().splitlines()[-1])
+        check(line["mode"] == "model" and CLI_REPORT_KEYS <= set(line),
+              f"cli subprocess: {line}")
+        blind = subprocess.run(argv, cwd=root, env={**env, "CUDA_VISIBLE_DEVICES": ""},
+                               capture_output=True, text=True, timeout=600)
+        check(blind.returncode != 0 and "torch.cuda.is_available() is False" in blind.stderr,
+              "cli subprocess with no card visible did not refuse to run")
+        print(f"  cli subprocess `python -m sessionsimilaritysearch_tpu_torch.cli evaluate --mode "
+              f"model` without --device [{card}]: {secs['subprocess evaluate model']:.1f} s, "
+              f"{json.dumps(line)}; with no card visible it exits {blind.returncode} "
+              "(device 'cuda' requested, no CPU fallback)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"cli summary [{card}]: wall seconds {json.dumps(secs)}")
+    return k1
+
+
 def phase_f32_kernel(torch, mips, dev):
     """K1's f32 wgmma variant (the 3xTF32 split) at the bench point, timed in
     the same rounds as the tile loop and cuBLAS SGEMM (TF32 off), and the
@@ -3630,6 +3885,8 @@ def main() -> int:
                           st_eng, st_gen, st_serve)
     del st_model, st_eng
     torch.cuda.empty_cache()
+    run_phase(torch, "node-level encoders", phase_node_level, torch, dev, card_line)
+    cli_counts = run_phase(torch, "cli", phase_cli, torch, dev, card_line)
     err_f32, f32_bench, tile_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch,
                                                mips, dev)
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
@@ -3708,7 +3965,7 @@ def main() -> int:
     new_paths = {"twostage_tiers": {}, "binary_maintenance": bin_path,
                  "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts,
                  "session_trainer_serving": st_counts, "finetuned_sign": ft_counts["sign"],
-                 "finetuned_packed": ft_counts["packed"]}
+                 "finetuned_packed": ft_counts["packed"], **cli_counts}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path

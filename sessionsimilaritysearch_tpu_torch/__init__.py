@@ -38,6 +38,9 @@ sparse and hybrid runners, saved results). The pretrainer: ``PretrainModel``
 (the Unify-pooling encoder, the target asin embedding, the heads and the
 loss menu), ``adam_with_clip``, ``run_training`` with ``torch.save``
 checkpoints, and a reader of the JAX trainers' flax msgpack checkpoints.
+The session trainers and the fine-tuner; ``HGT`` and ``NodeLevelEncoder``;
+the CLI (``python -m sessionsimilaritysearch_tpu_torch.cli``, on the card
+unless ``--device cpu``); the profiling and sanitizer utilities.
 
 Layer map:
 
@@ -48,18 +51,20 @@ Layer map:
 - ``weights``     -- Flax params tree -> port ``state_dict``; a JAX train
   state -> a port ``TrainState``; SimHash projection
 - ``native_build`` -- builds the native graph builder from ``native/``
-- ``models``      -- transformer, embedders, HeteroGGNN, poolings, heads,
-  the flagship and the pretrainer's encoders
+- ``models``      -- transformer, embedders, HeteroGGNN, HGT, poolings,
+  heads, the flagship, node-level and the trainers' encoders
 - ``ops``         -- the kernels' build and wrappers (``mips``, ``mips_int8``,
   ``packed``, ``popcount``), Hamming search (``hamming``), projections,
   top-k helpers
 - ``index``       -- ``DenseIndex``, ``BinaryIndex``, ``TwoStageIndex``
-- ``training``    -- the pretrainer, its losses, the train state and the loop
+- ``training``    -- the pretrainer, the session trainers, the fine-tuner,
+  their losses, the train state and the loop
 - ``utils``       -- precision policies (``serving_params``), profiling,
-  checkpoints (and the JAX checkpoint reader)
+  sanitizers, checkpoints (and the JAX checkpoint reader)
 - ``evalharness`` -- ``EmbeddingPipeline``, catalog tables and the cached
   encode fn, the evaluation runners, metrics
 - ``engine``      -- ``SessionSearchEngine``
+- ``cli``         -- the command-line entry points (``sss-torch``)
 """
 
 from sessionsimilaritysearch_tpu_torch.config import Config, tiny_test_config  # noqa: F401

@@ -1,6 +1,6 @@
 """Encoder modules of the port (counterparts of ``sessionsimilaritysearch_tpu.models``,
-which exports the same names; ``HGT`` and ``NodeLevelEncoder`` are not ported
-yet)."""
+which exports the same names; this package adds ``AveragePooling``,
+``RecencySRGNNPooling`` and the ``losses`` module)."""
 
 from sessionsimilaritysearch_tpu_torch.models.embedding import (  # noqa: F401
     AveragePooling,
@@ -13,6 +13,7 @@ from sessionsimilaritysearch_tpu_torch.models.gnn import (  # noqa: F401
     DenseGatedGraphConv,
     DenseGCNConv,
     DenseSAGEConv,
+    HGT,
     HeteroGGNN,
     HeteroSAGE,
 )
@@ -31,6 +32,7 @@ from sessionsimilaritysearch_tpu_torch.models.heads import (  # noqa: F401
 )
 from sessionsimilaritysearch_tpu_torch.models.encoder import (  # noqa: F401
     GraphLevelEncoder,
+    NodeLevelEncoder,
     TextSessionEncoder,
     UnifyPoolingGraphLevelEncoder,
     build_graph_encoder,

@@ -1,6 +1,6 @@
 """The session encoders (counterparts of
 ``sessionsimilaritysearch_tpu/models/encoder.py:35`` ``_embed_nodes``,
-``:77-200`` ``GraphLevelEncoder``, ``:203-330``
+``:56-74`` ``NodeLevelEncoder``, ``:77-200`` ``GraphLevelEncoder``, ``:203-330``
 ``UnifyPoolingGraphLevelEncoder``, ``:333`` ``TextSessionEncoder``, ``:361``
 ``build_text_backbone``, ``:373`` ``build_graph_encoder``, ``:390``
 ``build_pretrain_encoder`` and ``:412`` ``build_text_session_encoder``).
@@ -73,6 +73,32 @@ def _embed_nodes(embedder, ids, typ, att, get_token: bool = False,
 def _gather_rows(table, ids):
     """``table[ids]`` for an integer grid [B, N] -> [B, N, d]."""
     return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, -1)
+
+
+class NodeLevelEncoder(nn.Module):
+    """Embedders -> GNN -> per-node embeddings (JAX ``encoder.py:56-74``):
+    the query nodes through the text embedder, the product nodes through
+    the asin-id embedder alone (no titles, no node masks), then the GNN
+    (``HGT`` or ``HeteroGGNN``) -> {'query': [B, Q, d], 'product': [B, P,
+    d]}. The modules are moved to ``device``, the card unless the caller
+    asks for the CPU."""
+
+    def __init__(self, query_node_embedder: nn.Module,
+                 product_node_embedder: NodeAsinEmbedding, gnn: nn.Module, device="cuda"):
+        super().__init__()
+        self.query_node_embedder = query_node_embedder
+        self.product_node_embedder = product_node_embedder
+        self.gnn = gnn
+        self.to(resolve_device(device))
+
+    def forward(self, graph, deterministic: bool = True, generator=None):
+        emb = {
+            "query": _embed_nodes(self.query_node_embedder, graph.query_input_ids,
+                                  graph.query_type_ids, graph.query_attention_mask,
+                                  deterministic=deterministic, generator=generator),
+            "product": self.product_node_embedder(graph.product_asin),
+        }
+        return self.gnn(emb, graph)
 
 
 class _NodeInputs(nn.Module):

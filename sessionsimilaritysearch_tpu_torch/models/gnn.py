@@ -1,6 +1,6 @@
 """Heterogeneous GNN backbones on dense padded session graphs (counterparts
 of ``sessionsimilaritysearch_tpu/models/gnn.py:26-196``, ``DenseSAGEConv``
-:112, ``DenseGCNConv`` :128 and ``HeteroSAGE`` :262).
+:112, ``DenseGCNConv`` :128, ``HGT`` :199 and ``HeteroSAGE`` :262).
 
 Flax infers a layer's input widths; torch takes them: a bipartite conv gets
 its source and destination widths, which differ in the first layer of the
@@ -18,6 +18,8 @@ from typing import Dict
 
 import torch
 from torch import nn
+
+from sessionsimilaritysearch_tpu_torch.device import resolve_device
 
 
 class GRUCell(nn.Module):
@@ -181,6 +183,69 @@ class HeteroGGNN(nn.Module):
             }
             outs.append(cur)
         return {t: torch.cat([o[t] for o in outs], dim=-1) for t in x_dict}
+
+
+_EDGE_TYPES = (("query", "product", "qp"), ("product", "query", "pq"),
+               ("product", "product", "pp"))
+
+
+class HGT(nn.Module):
+    """Heterogeneous graph transformer (JAX ``gnn.py:199-263``): per node
+    type an input Linear + ReLU (``lin_{t}``), then per layer type-specific
+    Q/K/V projections (``l{i}_{q,k,v}_{t}``) and, for each edge type, a
+    multi-head attention of the destinations over their sources through the
+    dense adjacency mask (``adj > 0``: edge counts do not weight it), whose
+    messages go through ``l{i}_out_{qp,pq,pp}`` and are summed into the
+    destination type; then ``gelu(agg) + cur`` (tanh GELU, as Flax's). The
+    output is the concat of the projected input (``add_input_feat``) and
+    every layer's output. The submodules keep their Flax names, so
+    ``weights.flax_to_state_dict`` carries them across as they are."""
+
+    def __init__(self, query_channels: int, product_channels: int, hidden_channels: int,
+                 num_heads: int, num_layers: int, device="cuda"):
+        super().__init__()
+        if hidden_channels % num_heads:
+            raise ValueError(f"hidden_channels {hidden_channels} is not a multiple of "
+                             f"num_heads {num_heads}")
+        dev = resolve_device(device)
+        self.num_heads, self.num_layers = num_heads, num_layers
+        C = hidden_channels
+        for t, d in (("query", query_channels), ("product", product_channels)):
+            self.add_module(f"lin_{t}", nn.Linear(d, C, device=dev))
+        for i in range(num_layers):
+            for t in ("query", "product"):
+                for p in "qkv":
+                    self.add_module(f"l{i}_{p}_{t}", nn.Linear(C, C, device=dev))
+            for _, _, key in _EDGE_TYPES:
+                self.add_module(f"l{i}_out_{key}", nn.Linear(C, C, device=dev))
+
+    def forward(self, x_dict, graph, add_input_feat: bool = True):
+        layer = self._modules
+        cur = {t: torch.relu(layer[f"lin_{t}"](x)) for t, x in x_dict.items()}
+        adj = _adj_dict(graph)
+        outs = [cur]
+        H = self.num_heads
+        for i in range(self.num_layers):
+            proj = {(p, t): layer[f"l{i}_{p}_{t}"](cur[t]) for t in cur for p in "qkv"}
+            agg = {t: torch.zeros_like(cur[t]) for t in cur}
+            for src, dst, key in _EDGE_TYPES:
+                a = adj[key]                                       # [B, S, D]
+                B, S, D = a.shape
+                q = proj["q", dst].reshape(B, D, H, -1)
+                k = proj["k", src].reshape(B, S, H, -1)
+                v = proj["v", src].reshape(B, S, H, -1)
+                scale = torch.tensor(q.shape[-1], dtype=q.dtype).sqrt()
+                scores = torch.einsum("bdhc,bshc->bhsd", q, k) / scale
+                mask = (a > 0)[:, None]                            # [B, 1, S, D]
+                scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+                # softmax over the sources; a destination with none gets zero
+                att = torch.softmax(scores, dim=2).masked_fill(~mask, 0.0)
+                msg = torch.einsum("bhsd,bshc->bdhc", att, v).reshape(B, D, -1)
+                agg[dst] = agg[dst] + layer[f"l{i}_out_{key}"](msg)
+            cur = {t: nn.functional.gelu(agg[t], approximate="tanh") + cur[t] for t in cur}
+            outs.append(cur)
+        start = 0 if add_input_feat else 1
+        return {t: torch.cat([o[t] for o in outs[start:]], dim=-1) for t in x_dict}
 
 
 _SAGE_CONVS = {"SAGE": DenseSAGEConv, "GCN": DenseGCNConv, "GAT": DenseGATConv}
