@@ -245,6 +245,28 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                k=100 after a verb holds value recall >= 0.999 (two bf16 ulps)
                against a fresh engine that ingested the surviving sessions,
                and the restored engine returns the capture's top-k exactly;
+9c. sharded serving -- a mesh of 4 shards on the one card
+               (parallel.create_mesh): (a) SessionSearchEngine(mesh=) with
+               phase 4's encoder and 8,192 sessions against the unsharded
+               engine (values to 1e-5, ids where distinct, value-recall@100
+               1.0; 4 f32 wgmma K1 launches per search), remove_sessions of
+               512 ids (tombstones; no removed id returns; survivors keep
+               their rows) and save / restore (the same top-k); (b)
+               ShardedDenseIndex at 2^20 x 1600, 1024 queries k=100, in f32,
+               bf16 and int8x8 against DenseIndex on the same rows, the bf16
+               gate (value-recall@10 >= 0.999 at two bf16 ulps), search and
+               merge times; (c) ShardedTwoStageIndex at 2^20 x 1600, pool 128
+               per shard, tiers binary/matmul/256, itq/matmul/250,
+               binary/packed/256, int8x8, pca/64: each shard's pool against
+               its plain stage 1, the top-k against the f64 re-rank of the
+               pools, planted rows top-1, stage-1 / re-rank / total times;
+               (d) ShardedBinaryIndex at 2^20 x 250 bits, sign and packed:
+               distances equal the plain product's and BinaryIndex's; (e) a
+               world-1 process group over NCCL (TCP rendezvous on
+               localhost): a bf16 2^18 x 1600 ShardedDenseIndex on
+               global_mesh() whose merge all-gathers CUDA tensors equals the
+               in-process mesh's; four shards on one card measure the
+               sharding's overhead, not scale-out;
 10. int8 kernel -- K2 against its plain version: ragged cases (q=37,
                n=5003, valid_count 4037, 10% masked; f32 and bf16 scores) on
                the tile variant csrc/scores_bmax_int8.cu at d=200 and the
@@ -295,10 +317,11 @@ engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
 its C entry point;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
-and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8 and 9b, counted
+and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b and 9c, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
-holds phase 8's times per tier under ``twostage_tiers``);
+holds phase 8's times per tier under ``twostage_tiers``, K1's phase 9c's
+numbers under ``sharded_serving``);
 its ``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
 with f32 scores, ``tile`` the tile variant's; K3: phase 13's
 bucketed_topk; K6: phase 14's scores_matmul, likewise with
@@ -3321,6 +3344,403 @@ def phase_twostage_engine(torch, dev, parts):
     print(f"two-stage engine stats: {json.dumps(eng.stats())}")
     return launches
 
+# phase 9c: sharded serving, four shards on the one card
+SH_SHARDS, SH_ROWS, SH_DIM, SH_Q, SH_K = 4, 1 << 20, 1600, 1024, 100
+SH_ENGINE_Q, SH_REMOVE = 256, 512
+SH_POOL = 128
+SH_FIT_ROWS = 4096  # the sharded tiers' ITQ and PCA fits (any fit serves the checks)
+SH_TIERS = (("binary", "matmul", 256), ("itq", "matmul", 250), ("binary", "packed", 256),
+            ("int8x8", "matmul", 0), ("pca", "matmul", 64))
+SH_BITS = 250
+SH_NCCL_ROWS = 1 << 18
+
+
+def same_topk(torch, got, want, tol, what) -> float:
+    """A sharded (D, I) against the unsharded one's: the same missing slots,
+    values within ``tol``, ids equal wherever the values are more than
+    ``tol`` from their neighbours. Returns the largest |difference|."""
+    (D, I), (Dw, Iw) = ([np.asarray(x.cpu() if hasattr(x, "cpu") else x) for x in r]
+                        for r in (got, want))
+    check(D.shape == Dw.shape, f"{what}: shapes {D.shape} vs {Dw.shape}")
+    missing = Iw < 0
+    check(((I < 0) == missing).all(), f"{what}: missing slots differ")
+    err = float(np.abs(D[~missing] - Dw[~missing]).max()) if (~missing).any() else 0.0
+    check(err <= tol, f"{what}: values max_abs_err {err} > {tol}")
+    gap = np.abs(np.diff(np.where(missing, -1e30, Dw), axis=1)) > tol
+    ones = np.ones((D.shape[0], 1), bool)
+    sure = np.concatenate([ones, gap], 1) & np.concatenate([gap, ones], 1) & ~missing
+    check((I[sure] == Iw[sure]).all(), f"{what}: ids differ where the values are distinct")
+    return err
+
+
+def best_of(fn, times: int = 3) -> float:
+    """Best host-clock ms of ``fn`` (which must end in a synchronize)."""
+    out = []
+    for _ in range(times):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return min(out)
+
+
+def scaled(counts: dict, times: int) -> dict:
+    return {key: v * times for key, v in counts.items()}
+
+
+def sharded_engine(torch, topk_mod, mesh, dev, parts, card):
+    """(a) SessionSearchEngine(mesh=) at Config() width against the
+    unsharded engine on the same sessions, then removal and save / restore."""
+    import tempfile
+
+    import sessionsimilaritysearch_tpu_torch as port
+
+    cfg, tok, enc, data, _ = parts
+    n, q = len(data), data[:SH_ENGINE_Q]
+    kw = dict(dim=cfg.session_emb_dim, capacity=n)
+    one = port.SessionSearchEngine(cfg, tok, enc, device=dev, **kw)
+    eng = port.SessionSearchEngine(cfg, tok, enc, mesh=mesh, **kw)
+    ingest = {}
+    for name, e in (("unsharded", one), ("sharded", eng)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e.add_sessions(data)
+        torch.cuda.synchronize()
+        ingest[name] = time.perf_counter() - t0
+    check(eng.index.ntotal == n and eng.stats()["pending"] == 0, "sharded engine: ingest")
+    (D, I), counts = counted(torch, lambda: eng.search(q, k=SH_K))
+    check(counts == {**NO_LAUNCHES, "k1": SH_SHARDS, "k1_wgmma": SH_SHARDS},
+          f"sharded engine: one search's launches {counts} (want {SH_SHARDS} f32 wgmma K1)")
+    D1, I1 = one.search(q, k=SH_K)
+    err = same_topk(torch, (D, I), (D1, I1), 1e-5, "sharded engine vs unsharded")
+    emb = topk_mod.l2_normalize(one.embed(q, out="device").float())
+    exact = emb.double() @ one.index._buf[:n].double().T
+    rec = value_recall(torch, topk_mod, exact, torch.from_numpy(I).to(dev), SH_K, 1e-5)
+    check(rec == 1.0, f"sharded engine: value-recall@{SH_K} {rec}")
+    ms = {"sharded": best_of(lambda: eng.search(q, k=SH_K)),
+          "unsharded": best_of(lambda: one.search(q, k=SH_K))}
+    # removal by ids: tombstones; removed ids never return, survivors keep
+    # their ids (and rows)
+    gone = np.random.default_rng(0).choice(n, SH_REMOVE, replace=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check(eng.remove_sessions(ids=gone) == SH_REMOVE, "sharded engine: removal count")
+    remove_ms = (time.perf_counter() - t0) * 1e3
+    D2, I2 = eng.search(q, k=SH_K)
+    check(not np.isin(I2, gone).any(), "sharded engine: a removed id came back")
+    keep = np.setdiff1d(np.arange(n), gone)
+    mask = np.ones(n, bool)
+    mask[gone] = False
+    same_topk(torch, (D2, I2), one.index.search(emb, SH_K, row_mask=mask), 1e-5,
+              "sharded engine after removal vs the unsharded one masked")
+    check(np.array_equal(eng.reconstruct(keep[::16]), one.reconstruct(keep[::16])),
+          "sharded engine: a survivor's row moved to another id")
+    # save / restore on the same mesh: the same top-k, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "sharded")
+        t0 = time.perf_counter()
+        eng.save(prefix)
+        save_s = time.perf_counter() - t0
+        back = port.SessionSearchEngine(cfg, tok, enc, mesh=mesh, **kw)
+        t0 = time.perf_counter()
+        back.restore(prefix)
+        restore_s = time.perf_counter() - t0
+    D3, I3 = back.search(q, k=SH_K)
+    check(np.array_equal(D3, D2) and np.array_equal(I3, I2) and back._removed == set(gone),
+          "sharded engine: the restored engine's top-k or tombstones differ")
+    print(f"  (a) engine Config() f32, {n} sessions on {SH_SHARDS} shards: ingest "
+          f"{ingest['sharded']:.2f} s (unsharded {ingest['unsharded']:.2f} s); search "
+          f"{SH_ENGINE_Q} k={SH_K} {ms['sharded']:.2f} ms (unsharded {ms['unsharded']:.2f} ms, "
+          f"best of 3); launches {counts['k1']} f32 wgmma K1; vs unsharded max_abs_err "
+          f"{err:.3g}, value-recall@{SH_K} {rec}; remove {SH_REMOVE} ids {remove_ms:.1f} ms; "
+          f"save {save_s:.2f} s, restore {restore_s:.2f} s, restored top-k identical [{card}]")
+    return counts, {"search_ms": ms, "ingest_s": ingest, "remove_ms": remove_ms,
+                    "save_s": save_s, "restore_s": restore_s, "max_abs_err": err}
+
+
+def fill_both(torch, g, a, b, n, d, dev):
+    """The same n seeded unit rows into two indexes, 65,536 at a time."""
+    for lo in range(0, n, 1 << 16):
+        rows = torch.randn(min(1 << 16, n - lo), d, generator=g, device=dev)
+        rows = rows / rows.norm(dim=1, keepdim=True)
+        a.add(rows)
+        b.add(rows)
+    torch.cuda.synchronize()
+
+
+def sharded_dense(torch, topk_mod, mesh, dev, card):
+    """(b) ShardedDenseIndex at 2^20 x 1600 in f32, bf16 and int8x8 against
+    DenseIndex on the same rows; the bf16 gate; search and merge times."""
+    from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex
+    from sessionsimilaritysearch_tpu_torch.index.sharded import ShardedDenseIndex
+    from sessionsimilaritysearch_tpu_torch.parallel.collectives import merge_candidates
+
+    n, d, q_n, k = SH_ROWS, SH_DIM, SH_Q, SH_K
+    bf = torch.bfloat16
+    total, out = dict(NO_LAUNCHES), {}
+    for name, kw, tol, want in (
+            ("f32", {}, 1e-5, {"k1": SH_SHARDS, "k1_wgmma": SH_SHARDS}),
+            ("bf16", {"dtype": bf, "score_dtype": bf}, BF16_TOL,
+             {"k1": SH_SHARDS, "k1_wgmma": SH_SHARDS}),
+            ("int8x8", {"quantize": "int8x8"}, 1e-5, {"k2": SH_SHARDS, "k2_wgmma": SH_SHARDS})):
+        one = DenseIndex(d, n, device=dev, **kw)
+        sh = ShardedDenseIndex(d, n, mesh, **kw)
+        g = torch.Generator(device=dev).manual_seed(21)
+        fill_both(torch, g, one, sh, n, d, dev)
+        queries = torch.randn(q_n, d, generator=g, device=dev)
+        sh.search(queries, k)  # warm-up
+        (D, I), counts = counted(torch, lambda: sh.search(queries, k, out="device"))
+        check(counts == {**NO_LAUNCHES, **want},
+              f"sharded dense {name}: one search's launches {counts}")
+        total = add_counts(total, counts)
+        err = same_topk(torch, (D, I), one.search(queries, k, out="device"), tol,
+                        f"sharded dense {name} vs DenseIndex")
+        ms = {"sharded": best_of(lambda: sh.search(queries, k)),
+              "unsharded": best_of(lambda: one.search(queries, k))}
+        merge_ms = cuda_ms(torch, lambda: merge_candidates(mesh, [D] * SH_SHARDS,
+                                                           [I] * SH_SHARDS, k), 20)
+        line = ""
+        if name == "bf16":
+            # bench.py's gate: value-recall@10 >= 0.999 at two bf16 ulps
+            # against the f64 oracle, on the first 65,536 rows (a gid mask)
+            sub_n, sub_q = min(65536, n), 64
+            _, Im = sh.search(queries[:sub_q], 10, row_mask=np.arange(n) < sub_n)
+            check((Im < sub_n).all(), "sharded dense bf16: the gid mask let a row through")
+            sub = sh.reconstruct_batch(np.arange(sub_n))
+            qs = topk_mod.l2_normalize(queries[:sub_q].to(bf)).float().cpu().numpy()
+            rec = topk_mod.value_recall_at_k(Im, qs, sub, 10, rel_tol=BF16_TOL)
+            check(rec >= 0.999, f"sharded dense bf16: value-recall@10 {rec}")
+            line = f"; value-recall@10 {rec} vs the f64 oracle (gate 0.999)"
+        out[name] = {"search_ms": ms, "merge_ms": merge_ms, "max_abs_err": err,
+                     "launches": counts}
+        print(f"  (b) dense {name} {n} x {d}, {q_n} queries k={k}: sharded search "
+              f"{ms['sharded']:.2f} ms, DenseIndex {ms['unsharded']:.2f} ms (best of 3, host "
+              f"clock); merge {merge_ms:.3f} ms (CUDA events, {SH_SHARDS} x [{q_n}, {k}]); "
+              f"launches {counts}; vs DenseIndex max_abs_err {err:.3g}{line} {smi()} [{card}]")
+        del one, sh
+        torch.cuda.empty_cache()
+    return total, out
+
+
+def shard_plain_stage1(torch, idx, j, qn):
+    """Shard j's stage-1 scores [q, fill] f32 through the kernels' plain
+    versions, on its own codes (what its stage 1 ranks)."""
+    from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+
+    f, bf = int(idx._fill[idx._local[j]]), torch.bfloat16
+    codes, scales = idx._encode(qn)
+    if idx.stage1 == "packed":
+        q = torch.nn.functional.pad(codes, (0, idx.bits_pad - idx.n_bits))
+        used = -(-f // idx.block_rows) * (idx.block_rows // 32)
+        s, _ = packed.packed_scores_with_bucket_max_ref(q, idx._codes[j][:used], f, None, bf)
+        return s[:, :f].float()
+    if idx.prefilter == "int8x8":
+        s, _ = mips_int8.scores_with_bucket_max_int8_ref(codes, idx._codes[j][:f],
+                                                         idx._scales[j][:f], score_dtype=bf)
+        return s.float() * scales[:, None]
+    s, _ = mips.scores_with_bucket_max_ref(codes, idx._codes[j][:f], score_dtype=bf)
+    return s.float()
+
+
+def sharded_twostage(torch, topk_mod, mesh, dev, card):
+    """(c) ShardedTwoStageIndex at 2^20 x 1600 bf16, pool 128 per shard, in
+    five tiers: each shard's pool against its plain stage 1, the top-k
+    against the f64 re-rank of the shards' pools, planted rows top-1."""
+    from sessionsimilaritysearch_tpu_torch.index.twostage import ShardedTwoStageIndex
+    from sessionsimilaritysearch_tpu_torch.ops.projection import fit_itq, fit_pca
+    from sessionsimilaritysearch_tpu_torch.parallel.collectives import shard_pool
+
+    n, d, q_n, k, pool = SH_ROWS, SH_DIM, SH_Q, SH_K, SH_POOL
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows = unit_rows(torch, g, n, d, dev)
+    planted = torch.arange(q_n, device=dev) * (n // q_n) + 7
+    noise = torch.randn(q_n, d, generator=g, device=dev)
+    queries = rows[planted].float() + 0.4843 * noise / noise.norm(dim=1, keepdim=True)
+    qn = topk_mod.l2_normalize(queries)
+    qb = qn.to(torch.bfloat16).double()  # the re-rank's queries (bf16, as in JAX)
+    sample = rows[:SH_FIT_ROWS].float().cpu().numpy()
+    projectors = {"itq": fit_itq(sample, 250), "pca": fit_pca(sample, 64)}
+    total, out, errs = dict(NO_LAUNCHES), {}, []
+    for prefilter, stage1, n_bits in SH_TIERS:
+        name = f"{prefilter}/{stage1}" + (f"/{n_bits}" if n_bits else "")
+        idx = ShardedTwoStageIndex(d, n, mesh, prefilter=prefilter, stage1=stage1,
+                                   projector=projectors.get(prefilter), n_bits=n_bits or 256,
+                                   pool=pool)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, n, 1 << 16):
+            idx.add(rows[lo: lo + (1 << 16)])
+        torch.cuda.synchronize()
+        fill_s = time.perf_counter() - t0
+        (D, I), counts = counted(torch, lambda: idx.search(queries, k))
+        want = scaled(expected_variant(prefilter, stage1, n_bits), SH_SHARDS)
+        check(counts == want, f"sharded two-stage {name}: launches {counts}, want {want}")
+        total = add_counts(total, counts)
+        codes, scales = idx._encode(qn)
+        if stage1 == "packed":
+            codes = torch.nn.functional.pad(codes, (0, idx.bits_pad - idx.n_bits))
+        kw = dict(packed_bits=idx.n_bits if stage1 == "packed" else None, q_code_scales=scales)
+
+        def pools():
+            return [shard_pool(codes, idx._codes[j], pool, int(idx._fill[s]),
+                               code_scales=None if idx._scales is None else idx._scales[j],
+                               **kw) for j, s in enumerate(idx._local)]
+
+        cands, best = pools(), []
+        for j, cand in enumerate(cands):
+            plain = shard_plain_stage1(torch, idx, j, qn)
+            got = torch.gather(plain, 1, cand)
+            s1 = topk_mod.value_recall_from_scores(
+                got.cpu().numpy(), torch.topk(plain, pool, dim=1).values.cpu().numpy(),
+                (BF16_TOL * plain.abs().amax(dim=1)).cpu().numpy())
+            check(s1 == 1.0, f"sharded two-stage {name} shard {j}: stage-1 value recall {s1}")
+            best.append(torch.cat([torch.topk(torch.bmm(
+                idx._buf[j][cand[lo: lo + 128]].double(), qb[lo: lo + 128, :, None])[..., 0],
+                k, dim=1).values for lo in range(0, q_n, 128)]))
+            del plain
+        best = torch.topk(torch.cat(best, dim=1), k, dim=1).values.cpu().numpy()
+        err = float(np.abs(D - best).max())
+        check(err <= 1e-5, f"sharded two-stage {name}: top-{k} vs the f64 re-rank of the "
+              f"shards' pools {err}")
+        hits = float((I[:, 0] == planted.cpu().numpy()).mean())
+        check(hits == 1.0, f"sharded two-stage {name}: planted rows at top-1 {hits}")
+        errs.append(err)
+        s1_ms = cuda_ms(torch, pools, 3)
+        rr_ms = cuda_ms(torch, lambda: [topk_mod.rerank_topk(qn.to(torch.bfloat16), idx._buf[j],
+                                                              c, k)
+                                        for j, c in enumerate(cands)], 3)
+        total_ms = best_of(lambda: idx.search(queries, k))
+        out[name] = {"fill_s": fill_s, "launches": counts, "stage1_ms": s1_ms,
+                     "rerank_ms": rr_ms, "total_ms": total_ms}
+        print(f"  (c) two-stage {name} {n} x {d} pool {pool}/shard: search {total_ms:.2f} ms (best of "
+              f"3); stage 1 {s1_ms:.3f} ms, re-rank {rr_ms:.3f} ms over {SH_SHARDS} shards "
+              f"(CUDA events); fill {fill_s:.2f} s; launches {counts}; stage-1 value recall "
+              f"1.0 per shard, top-{k} vs f64 re-rank {err:.3g}, planted top-1 {hits} "
+              f"{smi()} [{card}]")
+        del idx
+        torch.cuda.empty_cache()
+    del rows
+    torch.cuda.empty_cache()
+    return total, out, max(errs)
+
+
+def sharded_binary(torch, mesh, dev, card):
+    """(d) ShardedBinaryIndex at 2^20 x 250 bits, sign and packed: the
+    distances equal the plain f32 product's and BinaryIndex's."""
+    from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
+    from sessionsimilaritysearch_tpu_torch.index.sharded_binary import ShardedBinaryIndex
+
+    n, bits, q_n, k = SH_ROWS, SH_BITS, SH_Q, SH_K
+    g = torch.Generator(device=dev).manual_seed(29)
+    codes = random_signs(torch, g, n, bits, dev)
+    q = codes[torch.arange(q_n, device=dev) * (n // q_n)].clone()
+    q[:, :40] = -q[:, :40]  # 40 bits from a stored code
+    # the plain version: exact +-1 products in f32, 256 queries at a time
+    plain = torch.cat([torch.topk(((bits - q[lo: lo + 256].float() @ codes.float().T) / 2),
+                                  k, dim=1, largest=False).values
+                       for lo in range(0, q_n, 256)]).to(torch.int32)
+    total, out = dict(NO_LAUNCHES), {}
+    for mode, want in (("sign", {"k1": SH_SHARDS, "k1_cp": SH_SHARDS}),
+                       ("packed", {"k4": SH_SHARDS})):
+        sh = ShardedBinaryIndex(bits, n, mesh, mode=mode)
+        one = BinaryIndex(bits, n, mode, device=dev)
+        for lo in range(0, n, 1 << 16):
+            sh.add(codes[lo: lo + (1 << 16)])
+            one.add(codes[lo: lo + (1 << 16)])
+        (D, I), counts = counted(torch, lambda: sh.search(q, k, out="device"))
+        check(counts == {**NO_LAUNCHES, **want}, f"sharded binary {mode}: launches {counts}")
+        total = add_counts(total, counts)
+        check(torch.equal(D, plain), f"sharded binary {mode}: distances differ from plain")
+        check(torch.equal(D, one.search_device(q, k)[0]),
+              f"sharded binary {mode}: distances differ from BinaryIndex's")
+        mine = ((bits - (q.float()[:, None, :] * codes[I.clamp(min=0)].float()).sum(-1)) / 2)
+        check(torch.equal(mine.to(torch.int32), D), f"sharded binary {mode}: an id's distance")
+        ms = {"sharded": best_of(lambda: sh.search(q, k)),
+              "unsharded": best_of(lambda: one.search(q, k))}
+        out[mode] = {"search_ms": ms, "launches": counts}
+        print(f"  (d) binary {mode} {n} x {bits} bits, {q_n} queries k={k}: sharded search "
+              f"{ms['sharded']:.2f} ms, BinaryIndex {ms['unsharded']:.2f} ms (best of 3); "
+              f"launches {counts}; distances equal the plain product's and BinaryIndex's "
+              f"{smi()} [{card}]")
+        del sh, one
+        torch.cuda.empty_cache()
+    return total, out
+
+
+def sharded_nccl(torch, mesh, dev, card):
+    """(e) A world-1 process group over NCCL (TCP rendezvous on localhost):
+    a bf16 ShardedDenseIndex on global_mesh() whose merge all-gathers CUDA
+    tensors, against the same index on the in-process mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from sessionsimilaritysearch_tpu_torch.index.sharded import ShardedDenseIndex
+    from sessionsimilaritysearch_tpu_torch.parallel import multihost
+    from sessionsimilaritysearch_tpu_torch.parallel.collectives import merge_candidates
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port_no = sock.getsockname()[1]
+    sock.close()
+    multihost.initialize_distributed(f"localhost:{port_no}", 1, 0)
+    gathered = []
+    all_gather = dist.all_gather
+
+    def spy(out, t, *a, **kw):
+        gathered.append(t.device.type)
+        return all_gather(out, t, *a, **kw)
+
+    try:
+        gm = multihost.global_mesh(local_devices=[dev] * SH_SHARDS)
+        check(gm.distributed and gm.world == 1, f"nccl: global mesh {gm}")
+        bf, n, d, k = torch.bfloat16, SH_NCCL_ROWS, SH_DIM, SH_K
+        a = ShardedDenseIndex(d, n, gm, dtype=bf, score_dtype=bf)
+        b = ShardedDenseIndex(d, n, mesh, dtype=bf, score_dtype=bf)
+        g = torch.Generator(device=dev).manual_seed(31)
+        fill_both(torch, g, a, b, n, d, dev)
+        queries = torch.randn(SH_Q, d, generator=g, device=dev)
+        dist.all_gather = spy
+        try:
+            (D, I), counts = counted(torch, lambda: a.search(queries, k, out="device"))
+        finally:
+            dist.all_gather = all_gather
+        check(gathered == [dev.type] * 2,
+              f"nccl: the merge's all-gathers ran on {gathered}, want two on {dev.type} tensors")
+        Dl, Il = b.search(queries, k, out="device")
+        check(torch.equal(D, Dl) and torch.equal(I, Il),
+              "nccl: the NCCL merge's top-k differs from the in-process mesh's")
+        gather_ms = cuda_ms(torch, lambda: merge_candidates(gm, [D] * SH_SHARDS,
+                                                            [I] * SH_SHARDS, k), 20)
+        local_ms = cuda_ms(torch, lambda: merge_candidates(mesh, [D] * SH_SHARDS,
+                                                           [I] * SH_SHARDS, k), 20)
+        print(f"  (e) NCCL world 1 ({dist.get_backend()}): {n} x {d} bf16, {SH_Q} queries "
+              f"k={k}: top-k equal to the in-process mesh's; merge with the all-gather "
+              f"{gather_ms:.3f} ms, without {local_ms:.3f} ms (CUDA events); launches "
+              f"{counts} [{card}]")
+    finally:
+        dist.destroy_process_group()
+    return counts, {"merge_with_all_gather_ms": gather_ms, "merge_in_process_ms": local_ms}
+
+
+def phase_sharded(torch, topk_mod, dev, parts, card):
+    """Phase 9c: sharded serving as four shards on the one card."""
+    from sessionsimilaritysearch_tpu_torch.parallel import create_mesh
+
+    mesh = create_mesh(devices=[dev] * SH_SHARDS)
+    print(f"sharded serving: {mesh}; four shards on one card measure the sharding's "
+          f"overhead (launches per shard, the merge), not scale-out [{card}]")
+    engine_counts, engine = sharded_engine(torch, topk_mod, mesh, dev, parts, card)
+    dense_counts, dense = sharded_dense(torch, topk_mod, mesh, dev, card)
+    tier_counts, tiers, tier_err = sharded_twostage(torch, topk_mod, mesh, dev, card)
+    bin_counts, binary = sharded_binary(torch, mesh, dev, card)
+    nccl_counts, nccl = sharded_nccl(torch, mesh, dev, card)
+    paths = {"sharded_engine": engine_counts, "sharded_dense": dense_counts,
+             "sharded_twostage": tier_counts, "sharded_binary": bin_counts,
+             "sharded_nccl": nccl_counts}
+    return paths, {"engine": engine, "dense": dense, "twostage": tiers, "binary": binary,
+                   "nccl": nccl}, max(tier_err, engine["max_abs_err"])
+
+
 def int8_case(torch, mips_int8, g, q_n, n, d, dev):
     """Seeded int8 codes and scales: unit rows quantized per row."""
     codes = torch.empty(n, d, dtype=torch.int8, device=dev)
@@ -3903,6 +4323,8 @@ def main() -> int:
                             torch, dev, parts)
     ts_verbs = run_phase(torch, "two-stage engine verbs", phase_twostage_engine_verbs, torch,
                          dev, parts, card_line)
+    sharded_paths, sharded, err_sharded = run_phase(torch, "sharded serving", phase_sharded,
+                                                    torch, topk_mod, dev, parts, card_line)
     k2 = run_phase(torch, "int8 kernel", phase_int8_kernel, torch, dev)
     run_phase(torch, "int8 index", phase_int8_index, torch, topk_mod, dev)
     k2_launches, k2_wgmma = run_phase(torch, "int8x8 engine", phase_int8_engine, torch,
@@ -3965,7 +4387,7 @@ def main() -> int:
     new_paths = {"twostage_tiers": {}, "binary_maintenance": bin_path,
                  "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts,
                  "session_trainer_serving": st_counts, "finetuned_sign": ft_counts["sign"],
-                 "finetuned_packed": ft_counts["packed"], **cli_counts}
+                 "finetuned_packed": ft_counts["packed"], **cli_counts, **sharded_paths}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path
@@ -3978,13 +4400,14 @@ def main() -> int:
             entry_["launches_by_path"]["cp_async"] = {path: c["k1_cp"]
                                                       for path, c in new_paths.items()}
         entry_["launches"] += sum(by_path.values())
-    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers)
+    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers, err_sharded)
+    k1_entry["sharded_serving"] = sharded
     # K1's and K6's bf16 kernel fed by cp.async: its launches on the paths
     # whose rows TMA cannot describe (each counted from 0), its times at
     # sign mode's shape, the producer ablation and K6's ragged case beside
     cp_by_path = {path: new_paths[path]["k1_cp"]
                   for path in ("binary_sign", "twostage_tiers", "twostage_engine_verbs",
-                               "finetuned_sign")}
+                               "finetuned_sign", "sharded_twostage", "sharded_binary")}
     check(all(cp_by_path.values()),
           f"the cp_async variant was not launched on every path of 250-bit rows: {cp_by_path}")
     check(sum(c["k1_cp"] for c in new_paths.values()) == sum(cp_by_path.values()),

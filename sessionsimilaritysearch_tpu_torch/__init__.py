@@ -40,7 +40,12 @@ loss menu), ``adam_with_clip``, ``run_training`` with ``torch.save``
 checkpoints, and a reader of the JAX trainers' flax msgpack checkpoints.
 The session trainers and the fine-tuner; ``HGT`` and ``NodeLevelEncoder``;
 the CLI (``python -m sessionsimilaritysearch_tpu_torch.cli``, on the card
-unless ``--device cpu``); the profiling and sanitizer utilities.
+unless ``--device cpu``); the profiling and sanitizer utilities. Sharded
+serving: a mesh of shards (``parallel.create_mesh``; several shards may share
+a device), ``ShardedDenseIndex``, ``ShardedBinaryIndex`` and
+``ShardedTwoStageIndex``, each shard scanned by the kernels above and the
+candidates merged across shards and, over ``torch.distributed``, across
+processes; ``SessionSearchEngine(mesh=...)``.
 
 Layer map:
 
@@ -56,7 +61,10 @@ Layer map:
 - ``ops``         -- the kernels' build and wrappers (``mips``, ``mips_int8``,
   ``packed``, ``popcount``), Hamming search (``hamming``), projections,
   top-k helpers
-- ``index``       -- ``DenseIndex``, ``BinaryIndex``, ``TwoStageIndex``
+- ``index``       -- ``DenseIndex``, ``BinaryIndex``, ``TwoStageIndex`` and
+  their sharded twins
+- ``parallel``    -- the mesh, ``torch.distributed`` set-up, the cross-shard
+  collectives
 - ``training``    -- the pretrainer, the session trainers, the fine-tuner,
   their losses, the train state and the loop
 - ``utils``       -- precision policies (``serving_params``), profiling,
@@ -74,7 +82,13 @@ from sessionsimilaritysearch_tpu_torch import device  # noqa: F401  (sets TF32 o
 from sessionsimilaritysearch_tpu_torch.engine import SessionSearchEngine  # noqa: F401
 from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex  # noqa: F401
 from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex  # noqa: F401
-from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex  # noqa: F401
+from sessionsimilaritysearch_tpu_torch.index.sharded import ShardedDenseIndex  # noqa: F401
+from sessionsimilaritysearch_tpu_torch.index.sharded_binary import ShardedBinaryIndex  # noqa: F401
+from sessionsimilaritysearch_tpu_torch.index.twostage import (  # noqa: F401
+    ShardedTwoStageIndex,
+    TwoStageIndex,
+)
+from sessionsimilaritysearch_tpu_torch.parallel import create_mesh  # noqa: F401
 from sessionsimilaritysearch_tpu_torch.models.encoder import (  # noqa: F401
     GraphLevelEncoder,
     build_graph_encoder,

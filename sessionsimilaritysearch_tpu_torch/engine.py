@@ -1,12 +1,15 @@
-"""SessionSearchEngine: the serving facade on one GPU (counterpart of
+"""SessionSearchEngine: the serving facade (counterpart of
 ``sessionsimilaritysearch_tpu/engine.py:151``).
 
 Encode sessions with the encoder, keep the embedding corpus on the device
-(a flat ``DenseIndex``, or a two-stage ``TwoStageIndex``), stream-insert new sessions (on the caller's thread or a
-background one), answer top-k queries (deduplicated, filtered by a session
-predicate, or re-ranked by fusing the dense score with an item-overlap or
-STAN cosine), answer radius queries, remove sessions by id, content or age,
-save the serving state and restore it, and report timing counters.
+(a flat ``DenseIndex``, or a two-stage ``TwoStageIndex``; with ``mesh=``
+their sharded twins ``ShardedDenseIndex`` and ``ShardedTwoStageIndex``,
+row-sharded over the mesh's shards), stream-insert new sessions (on the
+caller's thread or a background one), answer top-k queries (deduplicated,
+filtered by a session predicate, or re-ranked by fusing the dense score
+with an item-overlap or STAN cosine), answer radius queries, remove
+sessions by id, content or age, save the serving state and restore it, and
+report timing counters.
 
 The per-row metadata and its helpers (``_item_set``, ``_overlap_cos``,
 ``_item_stan_weights``, ``_session_key``, ``_GrowArr``, ``SaveHandle``, the
@@ -14,8 +17,14 @@ metadata compaction, ``_hybrid_rerank``, ``_dedup_topk``, ``_where_mask``)
 are copied from the JAX engine, where they are plain Python/numpy in a
 module that imports JAX. A snapshot is the JAX engine's: the index's npz
 and a ``.sessions.pkl`` with the same keys, so each package restores the
-other's dense and two-stage engine snapshots (a JAX ``'binary'`` two-stage
-one given the SimHash projection, see ``index/twostage.py``).
+other's dense and two-stage engine snapshots, sharded ones included (a JAX
+``'binary'`` two-stage one given the SimHash projection, see
+``index/twostage.py``).
+
+A sharded engine keeps stable global ids, as in JAX: sessions go in whole
+stripes of the shard count (the remainder waits in ``pending``), and a
+removal leaves a tombstone (``_removed``) in the per-row metadata, which
+stays indexed by global id, where the single-device engine compacts it.
 """
 
 from __future__ import annotations
@@ -36,7 +45,9 @@ from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.evalharness import metrics as metrics_mod
 from sessionsimilaritysearch_tpu_torch.evalharness.harness import EmbeddingPipeline
 from sessionsimilaritysearch_tpu_torch.index.dense import DenseIndex, compaction_plan
-from sessionsimilaritysearch_tpu_torch.index.twostage import TwoStageIndex
+from sessionsimilaritysearch_tpu_torch.index.sharded import ShardedDenseIndex
+from sessionsimilaritysearch_tpu_torch.index.twostage import ShardedTwoStageIndex, TwoStageIndex
+from sessionsimilaritysearch_tpu_torch.ops.hamming import TBLOCK
 from sessionsimilaritysearch_tpu_torch.ops.topk import check_selection
 from sessionsimilaritysearch_tpu_torch.utils.profiling import PhaseTimer
 
@@ -194,7 +205,7 @@ class _SessionUnpickler(pickle.Unpickler):
 
 
 class SessionSearchEngine:
-    """Encode-then-exact-search session similarity serving on one device.
+    """Encode-then-exact-search session similarity serving.
 
     Args:
       cfg: config (graph dims, ignore_query, retrieval defaults).
@@ -207,10 +218,15 @@ class SessionSearchEngine:
         ``prepare`` hook).
       dim: embedding dimension.
       capacity: max corpus size.
-      device: where the encoder runs and the corpus lives ('cpu' or a CUDA
-        device); required, with no fallback.
+      device: where the encoder runs and, without a mesh, the corpus lives
+        ('cpu' or a CUDA device); required without ``mesh``, with no
+        fallback; with one it defaults to the first local shard's device.
       metric: 'cos', 'ip' or 'l2' (the flat index only).
-      mesh: not ported (ROADMAP.md Queue 1 item 8); anything but None raises.
+      mesh: a ``parallel.Mesh``: the corpus shards row-wise over its
+        ``'data'`` axis (``ShardedDenseIndex``, or ``ShardedTwoStageIndex``
+        with a prefilter); capacity rounds up to whole stripes (packed stage
+        1: whole 2048-slot pack blocks per shard). Ids are stable global
+        ids; a removal leaves a tombstone. Not with ``center`` or 'l2'.
       batch_size: encoder batch (the last batch is wrap-padded).
       mode: the top-k selection ('exact', 'approx', 'exact_cert' or
         'sort'). Accepted as the JAX engine accepts it, whose single-device
@@ -245,7 +261,7 @@ class SessionSearchEngine:
         dim: int,
         capacity: int,
         *,
-        device,
+        device=None,
         metric: str = "cos",
         mesh=None,
         batch_size: int = 256,
@@ -258,12 +274,16 @@ class SessionSearchEngine:
         stage1: str = "matmul",
         dtype: Optional[torch.dtype] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "SessionSearchEngine mesh= is not ported yet (ROADMAP.md Queue 1 item 8)")
         check_selection(mode, 0.95)
+        if device is None:
+            if mesh is None:
+                raise TypeError("SessionSearchEngine needs device= (or mesh=)")
+            device = mesh.shard_devices()[mesh.local_shards()[0]]
         self.cfg = cfg
         self.device = resolve_device(device)
+        # with a mesh the index is sharded: stable global ids (tombstones in
+        # place of compaction) and no device-side snapshot
+        self._mesh = mesh
         self.timer = PhaseTimer(self.device)
         self.sessions: List = []  # retained for metric reports and where=
         self._pipe = EmbeddingPipeline(
@@ -296,14 +316,37 @@ class SessionSearchEngine:
         # optional caller-supplied ingest stamp per row (TTL expiry); NaN =
         # unstamped
         self._stamps = _GrowArr(np.float64)
-        if prefilter is None:
+        # gids removed from a sharded index: its ids are stable, so their
+        # metadata rows stay (tombstones) where the single-device index compacts
+        self._removed: set = set()
+        # sharded inserts go in whole stripes of the shard count
+        self._pad_to = 1
+        if quantize is not None and prefilter is not None:
+            raise ValueError("two-stage mode stores its own code buffers; drop quantize")
+        if mesh is not None:
+            if center is not None:
+                raise ValueError("center= applies to the single-device DenseIndex only")
+            ndev = mesh.shape["data"]
+            unit = ndev * (TBLOCK if prefilter is not None and stage1 == "packed" else 1)
+            capacity = -(-capacity // unit) * unit
+            if prefilter is None:
+                self.index = ShardedDenseIndex(
+                    dim=dim, capacity=capacity, mesh=mesh, metric=metric, mode=mode,
+                    quantize=quantize, **({} if dtype is None else {"dtype": dtype}),
+                )
+            else:
+                self.index = ShardedTwoStageIndex(
+                    dim=dim, capacity=capacity, mesh=mesh, metric=metric,
+                    prefilter=prefilter, pool=pool, projector=projector, stage1=stage1,
+                    **({} if dtype is None else {"store_dtype": dtype}),
+                )
+            self._pad_to = ndev
+        elif prefilter is None:
             self.index = DenseIndex(
                 dim=dim, capacity=capacity, device=self.device, metric=metric,
                 quantize=quantize, center=center,
                 **({} if dtype is None else {"dtype": dtype}),
             )
-        elif quantize is not None:
-            raise ValueError("two-stage mode stores its own code buffers; drop quantize")
         elif center is not None:
             raise ValueError("center= applies to the flat DenseIndex only; drop prefilter")
         else:
@@ -324,15 +367,18 @@ class SessionSearchEngine:
     def add_sessions(self, data: Sequence, stamp: Optional[float] = None) -> None:
         """Encode + stream-insert sessions into the corpus. ``stamp``: an
         optional ingest timestamp (any monotonic float) recorded per row for
-        :meth:`expire`; unstamped rows never expire."""
+        :meth:`expire`; unstamped rows never expire. A sharded engine inserts
+        whole stripes of the shard count; the remainder waits (``pending`` in
+        :meth:`stats`) for the next add."""
         with self._ingest_lock:
             self._add_locked(data, stamp)
 
     def _add_locked(self, data: Sequence, stamp: Optional[float] = None) -> None:
         self._pending.extend((d, stamp) for d in data)
-        if not self._pending:
+        m = (len(self._pending) // self._pad_to) * self._pad_to
+        if m == 0:
             return
-        pairs, self._pending = self._pending, []
+        pairs, self._pending = self._pending[:m], self._pending[m:]
         emb = self.embed([d for d, _ in pairs], out="device")
         with self.timer("insert"):
             self.index.add(emb)
@@ -489,9 +535,11 @@ class SessionSearchEngine:
         serving layer). Pass EITHER ``data`` (sessions or (prefix, future)
         pairs: every stored row with the same content goes, and so do
         matching pending rows) OR ``ids`` (row ids as :meth:`search` returns
-        them). Rows compact positionally as in FAISS ``remove_ids``: ids
-        already handed out renumber. Takes the ingest lock (safe against
-        ``add_sessions_async``); a query running meanwhile may read
+        them). Single-device rows compact positionally as in FAISS
+        ``remove_ids``: ids already handed out renumber. A sharded engine's
+        ids are stable: removed ids are never reused or returned, and their
+        metadata rows stay as tombstones. Takes the ingest lock (safe
+        against ``add_sessions_async``); a query running meanwhile may read
         renumbered metadata. Returns the number of rows removed."""
         if (data is None) == (ids is None):
             raise ValueError("pass exactly one of data= or ids=")
@@ -509,12 +557,17 @@ class SessionSearchEngine:
                     (self._key_to_id[k] for k in keys if k in self._key_to_id),
                     np.int64,
                 )
-                rows = np.flatnonzero(
-                    np.isin(self._canon_ids.view(len(self._canon)), kids)).tolist()
+                mask = np.isin(self._canon_ids.view(len(self._canon)), kids)
+                mask[self._tombstones()] = False
+                rows = np.flatnonzero(mask).tolist()
             else:
                 rows = [int(i) for i in ids if int(i) >= 0]
             if not rows:
                 return 0
+            if self._mesh is not None:
+                removed = self.index.remove_ids(rows)
+                self._removed.update(rows)
+                return removed
             src, dst, new_size = compaction_plan(self.index.ntotal, rows)
             removed = self.index.remove_ids(rows)
             # the same compaction on every row-aligned metadata structure
@@ -529,10 +582,16 @@ class SessionSearchEngine:
             self._pending = [
                 (d, ts) for d, ts in self._pending if ts is None or ts >= before
             ]
-            ids = np.flatnonzero(self._stamps.view() < before)  # NaN compares False
+            mask = self._stamps.view() < before  # NaN compares False
+            mask[self._tombstones()] = False
+            ids = np.flatnonzero(mask)
             if ids.size == 0:
                 return 0
             return self.remove_sessions(ids=ids)
+
+    def _tombstones(self) -> np.ndarray:
+        """The removed gids of a sharded engine (empty otherwise)."""
+        return np.fromiter(self._removed, np.int64, len(self._removed))
 
     # ------------------------------------------------------------------
     def search(self, data: Sequence, k: Optional[int] = None,
@@ -696,7 +755,7 @@ class SessionSearchEngine:
         ``I[lims[i]:lims[i+1]]``, sorted best-first. ``where`` filters as in
         :meth:`search`. Needs the flat index: a two-stage pool has no radius
         semantics."""
-        if not isinstance(self.index, DenseIndex):
+        if not isinstance(self.index, (DenseIndex, ShardedDenseIndex)):
             raise ValueError(
                 "range_search needs an exact full-corpus index; this engine "
                 f"serves a {type(self.index).__name__} (two-stage pools have "
@@ -711,8 +770,10 @@ class SessionSearchEngine:
         return out
 
     def _where_mask(self, where: Callable) -> np.ndarray:
-        """Evaluate a session predicate into the index's positional row
-        mask."""
+        """Evaluate a session predicate into the index's row mask:
+        positional for the single-device indexes, keyed by global id for the
+        sharded ones (whose session list is the id space, tombstones
+        included)."""
         return np.fromiter(
             (bool(where(s)) for s in self.sessions),
             dtype=bool, count=len(self.sessions),
@@ -787,11 +848,13 @@ class SessionSearchEngine:
         inserts are flushed first. Returns a :class:`SaveHandle`: call
         ``join()`` before restoring from ``prefix``; a writer error
         surfaces there. The index's own ``write_snapshot`` writes its
-        npz."""
+        npz. A sharded index has no device-side capture, as in JAX: the
+        writer saves it under the ingest lock, so searches go on while
+        ingest and maintenance wait for the write."""
         self.flush()
         with self._ingest_lock:
-            write_index = type(self.index).write_snapshot
-            snap = self.index.snapshot()
+            snap = None if self._mesh is not None else self.index.snapshot()
+            index = self.index
             meta = {
                 "sessions": list(self.sessions),
                 # float array, NaN = unstamped
@@ -801,7 +864,11 @@ class SessionSearchEngine:
             }
 
         def work():
-            write_index(snap, prefix + ".index")
+            if snap is not None:
+                type(index).write_snapshot(snap, prefix + ".index")
+            else:
+                with self._ingest_lock:
+                    index.save(prefix + ".index")
             with open(prefix + ".sessions.pkl", "wb") as f:
                 _SessionPickler(f).dump(meta)
 
@@ -813,16 +880,26 @@ class SessionSearchEngine:
         """Load a snapshot (either package's engine) into this engine. The
         index class is this engine's (``DenseIndex`` or ``TwoStageIndex``),
         its serving configuration comes from the snapshot, its capacity
-        from this engine. ``projection``: the SimHash projection of a JAX
-        ``'binary'`` two-stage snapshot, which stores only its seed
+        from this engine. A mesh engine loads the snapshot's sharded class
+        (two-stage when it has a prefilter) on its own mesh, re-striped if
+        the shard count differs, with the snapshot's capacity, and rebuilds
+        its tombstones from the ids the index no longer holds.
+        ``projection``: the SimHash projection of a JAX ``'binary'``
+        two-stage snapshot, which stores only its seed
         (``TwoStageIndex.load``). The live index is dropped before the
         snapshot loads, so the device never holds two corpora; if the load
         fails, the engine is left without an index. The encoder is not part
         of the snapshot."""
         with self._ingest_lock:
-            kind, cap = type(self.index), self.index.capacity
+            kind, cap, mesh = type(self.index), self.index.capacity, self._mesh
             self.index = None
-            if kind is TwoStageIndex:
+            if mesh is not None:
+                with np.load(prefix + ".index.npz") as z:
+                    two_stage = "prefilter" in z
+                self.index = (
+                    ShardedTwoStageIndex.load(prefix + ".index", mesh, projection=projection)
+                    if two_stage else ShardedDenseIndex.load(prefix + ".index", mesh))
+            elif kind is TwoStageIndex:
                 self.index = TwoStageIndex.load(prefix + ".index", capacity=cap,
                                                 device=self.device, projection=projection)
             else:
@@ -843,3 +920,7 @@ class SessionSearchEngine:
             pend_ts = list(blob.get("pending_stamps", [None] * len(pend)))
             self._pending = list(zip(pend, pend_ts))
             self._rebuild_meta()
+            self._removed = set()
+            if mesh is not None:
+                held = self.index._host_ids[self.index._host_ids >= 0]
+                self._removed = set(np.setdiff1d(np.arange(self.index._next_id), held).tolist())

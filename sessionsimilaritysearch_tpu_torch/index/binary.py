@@ -73,6 +73,20 @@ def _t_move_bits(buf: torch.Tensor, src: np.ndarray, dst: np.ndarray,
     buf.index_add_(0, p_dst, bits << j_dst[:, None].to(torch.int32))
 
 
+def _t_or_bits(buf: torch.Tensor, bits: torch.Tensor, start: int, block_rows: int) -> None:
+    """OR [m, <= bits_pad] bool code bits into the transposed words of the
+    slots [start, start + m) (their bits are zero: freed slots are zeroed).
+    The slots that share a bit j lie in distinct packed rows, so one indexed
+    OR per j writes them all, and the words equal the JAX index's
+    scatter-add, bit 31 included."""
+    vals = torch.nn.functional.pad(bits.to(torch.int32), (0, buf.shape[1] - bits.shape[1]))
+    p, j = hamming.t_slot_coords(np.arange(start, start + bits.shape[0]), block_rows)
+    for jj in np.unique(j):
+        sel = np.flatnonzero(j == jj)
+        rows = torch.from_numpy(p[sel]).to(buf.device)
+        buf[rows] |= vals[torch.from_numpy(sel).to(buf.device)] << int(jj)
+
+
 class BinaryIndex:
     """Flat exact Hamming index over sign codes [*, n_bits].
 
@@ -128,22 +142,13 @@ class BinaryIndex:
 
     def add(self, signs) -> None:
         """Append [m, n_bits] sign codes. Packed mode ORs each code bit into
-        its transposed word: the slots of one add that share a bit j lie in
-        distinct packed rows, so one indexed OR per j writes them all, and
-        the words equal the JAX index's scatter-add, bit 31 included."""
+        its transposed word (:func:`_t_or_bits`)."""
         bits = self._signs(signs)
         m = bits.shape[0]
         if self.size + m > self.capacity:
             raise ValueError(f"index full: {self.size}+{m} > capacity {self.capacity}")
         if self.mode == "packed":
-            vals = torch.nn.functional.pad(bits.to(torch.int32),
-                                           (0, self.bits_pad - self.n_bits))
-            p, j = hamming.t_slot_coords(np.arange(self.size, self.size + m),
-                                         self.block_rows)
-            for jj in np.unique(j):
-                sel = np.flatnonzero(j == jj)
-                rows = torch.from_numpy(p[sel]).to(self.device)
-                self._buf[rows] |= vals[torch.from_numpy(sel).to(self.device)] << int(jj)
+            _t_or_bits(self._buf, bits, self.size, self.block_rows)
         else:
             self._buf[self.size: self.size + m] = torch.where(bits, 1.0, -1.0).to(
                 torch.bfloat16)

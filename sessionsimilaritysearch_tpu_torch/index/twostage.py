@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
-from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
+from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex, _t_move_bits, _t_or_bits
 from sessionsimilaritysearch_tpu_torch.index.dense import (
     _DTYPE_NAMES,
     DenseIndex,
@@ -57,6 +57,7 @@ from sessionsimilaritysearch_tpu_torch.index.dense import (
     positional_mask,
     to_host_chunked,
 )
+from sessionsimilaritysearch_tpu_torch.index.sharded import _load_npz, _restripe, _ShardedRows
 from sessionsimilaritysearch_tpu_torch.ops import hamming, mips_int8
 from sessionsimilaritysearch_tpu_torch.ops.projection import PCAProjector, fit_itq, fit_pca
 from sessionsimilaritysearch_tpu_torch.ops.topk import (
@@ -65,6 +66,8 @@ from sessionsimilaritysearch_tpu_torch.ops.topk import (
     l2_normalize,
     rerank_topk,
 )
+from sessionsimilaritysearch_tpu_torch.parallel.collectives import sharded_twostage_topk
+from sessionsimilaritysearch_tpu_torch.parallel.mesh import Mesh
 
 PREFILTERS = ("binary", "itq", "int8x8", "pca")
 # corpus rows per stage-1 chunk: a [q, chunk] bf16 score buffer (2 GiB at
@@ -84,7 +87,100 @@ def _signs(y: torch.Tensor) -> torch.Tensor:
     return torch.where(y >= 0, 1.0, -1.0).to(torch.bfloat16)
 
 
-class TwoStageIndex:
+def _check_args(metric, prefilter, stage1, projector) -> None:
+    if metric not in ("cos", "ip"):
+        raise ValueError(f"unknown metric {metric!r}")
+    if prefilter not in PREFILTERS:
+        raise ValueError(f"unknown prefilter {prefilter!r}")
+    if stage1 not in ("matmul", "packed"):
+        raise ValueError(f"unknown stage1 {stage1!r}")
+    if stage1 == "packed" and prefilter not in ("binary", "itq"):
+        raise ValueError(
+            "stage1='packed' scans sign codes; use the 'binary' or 'itq' prefilter")
+    if prefilter in ("pca", "itq") and projector is None:
+        raise ValueError(
+            f"prefilter={prefilter!r} needs a fitted projector (fit_pca / fit_itq)")
+
+
+class _StageOne:
+    """The stage-1 code transform of a prefilter and its parameters (on
+    ``self.device``): the SimHash projection ('binary'), or a fitted
+    projector's mean and components ('itq', 'pca')."""
+
+    def _init_stage1(self, n_bits: int, projector, projection) -> int:
+        """Set the parameters up; returns the code width ('itq': the
+        projector's rows)."""
+        dim, seed = self.dim, self.seed
+        if self.prefilter in ("pca", "itq"):
+            self._proj_mean = _f32(projector.mean, self.device)
+            self._proj_comp = _f32(projector.components, self.device)
+            self._proj_explained = float(projector.explained)
+            if self.prefilter == "itq":
+                n_bits = self._proj_comp.shape[0]
+        elif self.prefilter == "binary":
+            if projection is None:
+                g = torch.Generator().manual_seed(seed)
+                self._projection = torch.randn(dim, n_bits, generator=g).to(self.device)
+            else:
+                self._projection = _f32(projection, self.device)
+                if self._projection.shape != (dim, n_bits):
+                    raise ValueError(
+                        f"projection must be [{dim}, {n_bits}], got "
+                        f"{tuple(self._projection.shape)}"
+                    )
+        return n_bits
+
+    def _project(self, x: torch.Tensor) -> torch.Tensor:
+        """'pca' codes: the projection, L2-normalized, in bf16."""
+        y = (x - self._proj_mean.to(x.device)) @ self._proj_comp.to(x.device).T
+        return l2_normalize(y, eps=1e-24).to(torch.bfloat16)
+
+    def _encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Stage-1 codes of f32 rows (f32 products, on ``x``'s device), with
+        their int8 scales under 'int8x8'."""
+        if self.prefilter == "binary":
+            return _signs(x @ self._projection.to(x.device)), None
+        if self.prefilter == "itq":
+            return _signs((x - self._proj_mean.to(x.device))
+                          @ self._proj_comp.to(x.device).T), None
+        if self.prefilter == "int8x8":
+            return mips_int8.quantize_rows_int8(x)
+        return self._project(x), None
+
+    def _stage1_snapshot(self) -> dict:
+        """The stage-1 parameters as snapshot keys (numpy)."""
+        if self.prefilter in ("pca", "itq"):
+            return {"proj_mean": self._proj_mean.cpu().numpy(),
+                    "proj_comp": self._proj_comp.cpu().numpy(),
+                    "proj_explained": self._proj_explained}
+        if self.prefilter == "binary":
+            return {"projection": self._projection.cpu().numpy()}
+        return {}
+
+
+def _stage1_load_args(z, path: str, projection) -> dict:
+    """The projector or projection a snapshot's stage 1 needs: 'itq' /
+    'pca' carry theirs; a 'binary' file needs its SimHash projection (the
+    port writes it) or ``projection=`` (a JAX file stores only the
+    seed)."""
+    prefilter = str(z["prefilter"]) if "prefilter" in z else "binary"
+    if prefilter in ("pca", "itq"):
+        return {"projector": PCAProjector(np.asarray(z["proj_mean"], np.float32),
+                                          np.asarray(z["proj_comp"], np.float32),
+                                          float(z["proj_explained"]))}
+    if prefilter == "binary":
+        if projection is None:
+            if "projection" not in z:
+                raise ValueError(
+                    f"{path}: a 'binary' snapshot without its SimHash projection "
+                    "(the JAX package stores only the seed); pass projection= "
+                    "(weights.simhash_projection of the JAX index's)")
+            projection = z["projection"]
+        return {"projection": projection}
+    return {}
+
+
+class TwoStageIndex(_StageOne):
     """Stage-1 prefilter + exact re-rank over one embedding corpus.
 
     Args:
@@ -125,18 +221,7 @@ class TwoStageIndex:
         stage1: str = "matmul",
         projection=None,
     ):
-        if metric not in ("cos", "ip"):
-            raise ValueError(f"unknown metric {metric!r}")
-        if prefilter not in PREFILTERS:
-            raise ValueError(f"unknown prefilter {prefilter!r}")
-        if stage1 not in ("matmul", "packed"):
-            raise ValueError(f"unknown stage1 {stage1!r}")
-        if stage1 == "packed" and prefilter not in ("binary", "itq"):
-            raise ValueError(
-                "stage1='packed' scans sign codes; use the 'binary' or 'itq' prefilter")
-        if prefilter in ("pca", "itq") and projector is None:
-            raise ValueError(
-                f"prefilter={prefilter!r} needs a fitted projector (fit_pca / fit_itq)")
+        _check_args(metric, prefilter, stage1, projector)
         check_selection("approx", recall_target)
         self.dim = dim
         self.capacity = capacity
@@ -149,23 +234,7 @@ class TwoStageIndex:
         self.stage1 = stage1
         self.device = resolve_device(device)
         self.size = 0
-        if prefilter in ("pca", "itq"):
-            self._proj_mean = _f32(projector.mean, self.device)
-            self._proj_comp = _f32(projector.components, self.device)
-            self._proj_explained = float(projector.explained)
-            if prefilter == "itq":
-                n_bits = self._proj_comp.shape[0]
-        elif prefilter == "binary":
-            if projection is None:
-                g = torch.Generator().manual_seed(seed)
-                self._projection = torch.randn(dim, n_bits, generator=g).to(self.device)
-            else:
-                self._projection = _f32(projection, self.device)
-                if self._projection.shape != (dim, n_bits):
-                    raise ValueError(
-                        f"projection must be [{dim}, {n_bits}], got "
-                        f"{tuple(self._projection.shape)}"
-                    )
+        n_bits = self._init_stage1(n_bits, projector, projection)
         self.n_bits = n_bits
         self._buf = torch.zeros((capacity, dim), dtype=store_dtype, device=self.device)
         self._codes_index = None
@@ -185,22 +254,6 @@ class TwoStageIndex:
     @property
     def ntotal(self) -> int:
         return self.size
-
-    def _project(self, x: torch.Tensor) -> torch.Tensor:
-        """'pca' codes: the projection, L2-normalized, in bf16."""
-        y = (x - self._proj_mean) @ self._proj_comp.T
-        return l2_normalize(y, eps=1e-24).to(torch.bfloat16)
-
-    def _encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """Stage-1 codes of f32 rows (f32 products), with their int8 scales
-        under 'int8x8'."""
-        if self.prefilter == "binary":
-            return _signs(x @ self._projection), None
-        if self.prefilter == "itq":
-            return _signs((x - self._proj_mean) @ self._proj_comp.T), None
-        if self.prefilter == "int8x8":
-            return mips_int8.quantize_rows_int8(x)
-        return self._project(x), None
 
     def _rows(self, x) -> torch.Tensor:
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
@@ -348,12 +401,7 @@ class TwoStageIndex:
         }
         if self.prefilter == "int8x8":
             snap["scales"] = self._scales[:size].clone()
-        if self.prefilter in ("pca", "itq"):
-            snap["proj_mean"] = self._proj_mean.cpu().numpy()
-            snap["proj_comp"] = self._proj_comp.cpu().numpy()
-            snap["proj_explained"] = self._proj_explained
-        if self.prefilter == "binary":
-            snap["projection"] = self._projection.cpu().numpy()
+        snap.update(self._stage1_snapshot())
         if self._codes_index is not None:
             ci = self._codes_index
             snap["codes_packed_t"] = ci._buf[: ci._t_used_rows()].clone()
@@ -394,27 +442,14 @@ class TwoStageIndex:
         index's); an explicit ``projection`` wins."""
         with np.load(path if path.endswith(".npz") else path + ".npz") as z:
             prefilter = str(z["prefilter"])
-            projector = None
-            if prefilter in ("pca", "itq"):
-                projector = PCAProjector(np.asarray(z["proj_mean"], np.float32),
-                                         np.asarray(z["proj_comp"], np.float32),
-                                         float(z["proj_explained"]))
-            if prefilter == "binary" and projection is None:
-                if "projection" not in z:
-                    raise ValueError(
-                        f"{path}: a 'binary' snapshot without its SimHash projection "
-                        "(the JAX package stores only the seed); pass projection= "
-                        "(weights.simhash_projection of the JAX index's)")
-                projection = z["projection"]
+            stage1_args = _stage1_load_args(z, path, projection)
             idx = cls(
                 int(z["dim"]), capacity or int(z["capacity"]), device=device,
                 metric=str(z["metric"]), prefilter=prefilter, n_bits=int(z["n_bits"]),
                 pool=int(kw.pop("pool", int(z["pool"]))),
                 store_dtype=_named_dtype(str(z["store_dtype"])),
-                recall_target=float(z["recall_target"]), projector=projector,
-                seed=int(z["seed"]),
-                stage1=str(z["stage1"]) if "stage1" in z else "matmul",
-                projection=projection if prefilter == "binary" else None, **kw,
+                recall_target=float(z["recall_target"]), seed=int(z["seed"]),
+                stage1=str(z["stage1"]) if "stage1" in z else "matmul", **stage1_args, **kw,
             )
             if "buf_u16" in z:  # bf16 rows as raw bit patterns
                 buf = torch.from_numpy(z["buf_u16"].view(np.int16)).view(torch.bfloat16)
@@ -446,6 +481,250 @@ class TwoStageIndex:
                 idx._scales[:n] = torch.from_numpy(
                     np.asarray(z["scales"], np.float32)).to(idx.device)
         idx.size = n
+        return idx
+
+
+class ShardedTwoStageIndex(_ShardedRows, _StageOne):
+    """Two-stage serving over a corpus row-sharded across a mesh axis
+    (JAX ``index/twostage.py:535``).
+
+    The full-width rows and their stage-1 codes stripe across the mesh's
+    ``axis`` as in ``ShardedDenseIndex``; each shard prefilters and
+    re-ranks its own rows, and the per-shard [q, k] candidates merge
+    (``parallel.collectives.sharded_twostage_topk``). Every prefilter of
+    :class:`TwoStageIndex` ('binary' / 'itq' x stage1 'matmul' / 'packed',
+    'int8x8', 'pca'); ``pool`` counts candidates PER SHARD. With
+    ``stage1='packed'`` each shard keeps its codes transposed-packed
+    ([shard_rows / 32, bits_pad] int32, ``BinaryIndex`` layout per shard),
+    so the shard rows must be whole 2048-slot pack blocks. ``score_dtype``
+    rounds the re-rank scores (f32: exact). Ids are STABLE global
+    insertion-order ids. ``projection`` as in :class:`TwoStageIndex`; the
+    parameters live on the first local shard's device.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        capacity: int,
+        mesh: Mesh,
+        axis: str = "data",
+        metric: str = "cos",
+        prefilter: str = "binary",
+        n_bits: int = 256,
+        pool: int = 512,
+        store_dtype: torch.dtype = torch.bfloat16,
+        recall_target: float = 0.95,
+        score_dtype: torch.dtype = torch.float32,
+        projector=None,
+        seed: int = 0,
+        stage1: str = "matmul",
+        projection=None,
+    ):
+        _check_args(metric, prefilter, stage1, projector)
+        check_selection("approx", recall_target)
+        self._init_rows(mesh, axis, capacity)
+        self.dim = dim
+        self.metric = metric
+        self.prefilter = prefilter
+        self.pool = pool
+        self.store_dtype = store_dtype
+        self.recall_target = recall_target
+        self.score_dtype = score_dtype
+        self.seed = seed
+        self.stage1 = stage1
+        self.device = self._devices[0]
+        n_bits = self._init_stage1(n_bits, projector, projection)
+        # the stage-1 code width, as the JAX sharded index records it
+        if prefilter == "pca":
+            n_bits = self._proj_comp.shape[0]
+        elif prefilter == "int8x8":
+            n_bits = dim
+        self.n_bits = n_bits
+        self._buf = [torch.zeros((self.shard_rows, dim), dtype=store_dtype, device=d)
+                     for d in self._devices]
+        self._scales = None
+        if stage1 == "packed":
+            self.block_rows = hamming.TBLOCK
+            self.bits_pad = -(-n_bits // 128) * 128
+            if self.shard_rows % self.block_rows:
+                raise ValueError(
+                    f"stage1='packed' needs whole {self.block_rows}-slot pack blocks per "
+                    f"shard; got shard_rows={self.shard_rows} (capacity {capacity} over "
+                    f"{self.ndev} shards)")
+            shape, dtype, fill = (self.shard_rows // 32, self.bits_pad), torch.int32, 0
+        elif prefilter in ("binary", "itq"):
+            shape, dtype, fill = (self.shard_rows, n_bits), torch.bfloat16, -1
+        elif prefilter == "int8x8":
+            shape, dtype, fill = (self.shard_rows, n_bits), torch.int8, 0
+            self._scales = [torch.zeros(self.shard_rows, dtype=torch.float32, device=d)
+                            for d in self._devices]
+        else:
+            shape, dtype, fill = (self.shard_rows, n_bits), torch.bfloat16, 0
+        self._codes = [torch.full(shape, fill, dtype=dtype, device=d) for d in self._devices]
+
+    def _write(self, j: int, start: int, rows: torch.Tensor, codes: torch.Tensor,
+               scales: Optional[torch.Tensor]) -> None:
+        """Rows, their stage-1 codes (and int8 scales) into local shard j at
+        ``start``; packed codes OR into the shard's words."""
+        dev, m = self._devices[j], rows.shape[0]
+        self._buf[j][start: start + m] = rows.to(dev, self.store_dtype)
+        if self.stage1 == "packed":
+            _t_or_bits(self._codes[j], codes.to(dev) > 0, start, self.block_rows)
+        else:
+            self._codes[j][start: start + m] = codes.to(dev, self._codes[j].dtype)
+        if scales is not None:
+            self._scales[j][start: start + m] = scales.to(dev)
+
+    def add(self, emb) -> None:
+        """Append [m, d]; m must divide by the shard count. Each shard
+        normalizes ('cos') and encodes its own part. Rows keep global
+        insertion-order ids."""
+        emb = emb if isinstance(emb, torch.Tensor) else torch.as_tensor(np.asarray(emb))
+        if emb.dim() != 2 or emb.shape[1] != self.dim:
+            raise ValueError(f"expected [m, {self.dim}] rows, got {tuple(emb.shape)}")
+        m = emb.shape[0]
+        per = self._stripe(m, "sharded two-stage index")
+        for j, s in enumerate(self._local):
+            x = emb[s * per: (s + 1) * per].to(self._devices[j], torch.float32)
+            if self.metric == "cos":
+                x = l2_normalize(x)
+            codes, scales = self._encode(x)
+            self._write(j, int(self._fill[s]), x, codes, scales)
+            self._write_ids(j, s, per)
+        self._commit_add(m, per)
+
+    def remove_ids(self, gids) -> int:
+        """Remove rows by GLOBAL id: each owning shard compacts swap-with-last
+        across rows, codes (packed: code bits, and the freed slots zeroed)
+        and scales together; surviving ids never change. Returns the rows
+        removed."""
+        def move(j, src, dst, new_fill, old_fill):
+            if self.stage1 == "packed" and new_fill < old_fill:
+                _t_move_bits(self._codes[j], src.cpu().numpy(), dst.cpu().numpy(),
+                             new_fill, old_fill, self.block_rows)
+            if src.numel():
+                bufs = [self._buf, self._scales]
+                if self.stage1 != "packed":
+                    bufs.append(self._codes)
+                for buf in bufs:
+                    if buf is not None:
+                        buf[j][dst] = buf[j][src]
+
+        return self._remove(gids, move)
+
+    def reconstruct_batch(self, gids) -> np.ndarray:
+        """Full-width stored rows by GLOBAL id, [m, d] float32 in the order
+        given; absent ids raise KeyError."""
+        return self._rows_by_id(gids, self.dim, lambda j, slots: self._buf[j][slots])
+
+    def reconstruct(self, gid: int) -> np.ndarray:
+        return self.reconstruct_batch([int(gid)])[0]
+
+    def search(self, queries, k: int, pool: Optional[int] = None, row_mask=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Global exact-over-pool top-k: (D [q, k] float32 descending, I [q,
+        k] int64 global ids); missing slots (-inf, -1). ``pool``: stage-1
+        candidates per shard (at least ``k``, at most the shard's rows).
+        ``row_mask``: optional bool array keyed by GLOBAL id, applied inside
+        each shard's stage 1."""
+        pool = min(max(pool or self.pool, k), self.shard_rows)
+        q = torch.as_tensor(queries if isinstance(queries, torch.Tensor)
+                            else np.asarray(queries)).to(self.device, torch.float32)
+        if q.dim() != 2 or q.shape[1] != self.dim:
+            raise ValueError(f"expected [q, {self.dim}] queries, got {tuple(q.shape)}")
+        qn = l2_normalize(q) if self.metric == "cos" else q
+        q_codes, q_scales = self._encode(qn)
+        packed_bits = None
+        if self.stage1 == "packed":
+            packed_bits = self.n_bits
+            q_codes = torch.nn.functional.pad(q_codes, (0, self.bits_pad - self.n_bits))
+        vals, ids = sharded_twostage_topk(
+            qn.to(self.store_dtype), q_codes.contiguous(), self._buf, self._codes, k,
+            self.mesh, axis=self.axis, shard_ids=self._ids, valid_per_shard=self._fill,
+            pool=pool, recall_target=self.recall_target, score_dtype=self.score_dtype,
+            code_scales=self._scales, q_code_scales=q_scales,
+            row_mask=self._slot_masks(row_mask), packed_bits=packed_bits,
+        )
+        return vals.cpu().numpy(), ids.cpu().numpy()
+
+    # --- persistence: the JAX index's npz, key for key (+ 'projection')
+    def save(self, path: str) -> None:
+        """npz of every shard's rows (as f32) and codes (packed words;
+        int8 codes and scales; else f16), ids, fills and the serving
+        configuration. On a mesh that spans processes every rank takes
+        part and rank 0 writes."""
+        if self.stage1 == "packed":
+            extra = {"codes_packed_t": self._host(self._codes), "block_rows": self.block_rows}
+        elif self.prefilter == "int8x8":
+            extra = {"codes": self._host(self._codes), "scales": self._host(self._scales)}
+        else:
+            # sign codes and unit-norm projections round-trip through f16
+            extra = {"codes_f16": self._host(self._codes).astype(np.float16)}
+        buf, ids = self._host(self._buf).astype(np.float32), self._host(self._ids)
+        if self.mesh.rank:
+            return
+        np.savez(
+            path, buf=buf, ids=ids.astype(np.int32), size=self.size, fills=self._fill,
+            next_id=self._next_id, dim=self.dim, capacity=self.capacity, ndev=self.ndev,
+            metric=self.metric, prefilter=self.prefilter, n_bits=self.n_bits, pool=self.pool,
+            store_dtype=_DTYPE_NAMES[self.store_dtype], recall_target=self.recall_target,
+            score_dtype=_DTYPE_NAMES[self.score_dtype], seed=self.seed, stage1=self.stage1,
+            **self._stage1_snapshot(), **extra,
+        )
+
+    @classmethod
+    def load(cls, path: str, mesh: Mesh, projection=None, **kw) -> "ShardedTwoStageIndex":
+        """Restore a snapshot of either package on ``mesh``; the rows are
+        re-striped in insertion order, evenly over its shards (packed codes
+        unpack per saved shard and pack again). ``capacity`` and ``pool``
+        may be overridden; ``projection`` as in :meth:`TwoStageIndex.load`."""
+        with _load_npz(path) as z:
+            prefilter = str(z["prefilter"]) if "prefilter" in z else "binary"
+            idx = cls(
+                dim=int(z["dim"]), capacity=int(kw.pop("capacity", int(z["capacity"]))),
+                mesh=mesh, metric=str(z["metric"]), prefilter=prefilter,
+                n_bits=int(z["n_bits"]), pool=int(kw.pop("pool", int(z["pool"]))),
+                store_dtype=_named_dtype(str(z["store_dtype"])),
+                recall_target=float(z["recall_target"]),
+                score_dtype=_named_dtype(str(z["score_dtype"])), seed=int(z["seed"]),
+                stage1=str(z["stage1"]) if "stage1" in z else "matmul",
+                **_stage1_load_args(z, path, projection), **kw,
+            )
+            size = int(z["size"])
+            # ids stay issued when every row was removed
+            idx._next_id = int(z["next_id"]) if "next_id" in z else size
+            if not size:
+                return idx
+            if size % idx.ndev:
+                raise ValueError(
+                    f"snapshot holds {size} rows, not divisible across {idx.ndev} shards")
+            saved_ndev = int(z["ndev"])
+            fills = (np.asarray(z["fills"], np.int64) if "fills" in z
+                     else np.full(saved_ndev, size // saved_ndev, np.int64))
+            flat_ids = _restripe(z, "ids", saved_ndev, fills, slice(None))
+            order = np.argsort(flat_ids)  # insertion order
+            if "codes_packed_t" in z:
+                br = int(z["block_rows"])
+                s_rows = br // 32
+                words = np.asarray(z["codes_packed_t"])
+                words = words.reshape(saved_ndev, -1, words.shape[1])
+                codes = np.concatenate([
+                    hamming.unpack_bits_t_np(words[s, : -(-int(fills[s]) // br) * s_rows], br)
+                    [: fills[s]] for s in range(saved_ndev)])[order]
+            else:
+                codes = _restripe(z, "codes" if "codes" in z else "codes_f16", saved_ndev,
+                                  fills, order, idx._codes[0].shape[1])
+            rows = _restripe(z, "buf", saved_ndev, fills, order, idx.dim)
+            scales = (_restripe(z, "scales", saved_ndev, fills, order)
+                      if prefilter == "int8x8" else None)
+        ids = flat_ids[order].astype(np.int64)
+        per = size // idx.ndev
+        for j, s in enumerate(idx._local):
+            part = slice(s * per, (s + 1) * per)
+            idx._write(j, 0, torch.from_numpy(rows[part]), torch.from_numpy(codes[part]),
+                       None if scales is None else torch.from_numpy(scales[part]))
+            idx._ids[j][:per] = torch.from_numpy(ids[part]).to(idx._devices[j])
+        idx._set_even_fill(ids)
         return idx
 
 

@@ -228,15 +228,28 @@ def test_no_source_imports_the_jax_package():
 
 
 def test_no_message_names_the_ported_roadmap_items():
-    # Queue 1 items 2 (the selection modes) and 6 (the binary and two-stage
-    # tiers) are ported: no source of the port may still refuse something
-    # naming them, and no NotImplementedError may be left behind for them
+    # Queue 1 items 2 (the selection modes), 6 (the binary and two-stage
+    # tiers) and 8 / 8a (sharded serving) are ported: no source of the port
+    # may still refuse something naming them, and no NotImplementedError may
+    # be left behind for them
     files = sorted(Path(port.__path__[0]).rglob("*.py"))
     bad = [f"{f.relative_to(REPO)}:{n}" for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)
-           if re.search(r"Queue 1 items? [26]\b", line)]
+           if re.search(r"Queue 1 items? (?:[26]|8a?)\b", line)]
     assert not bad, bad
     assert port.TwoStageIndex(8, 4, device="cpu").stage1 == "matmul"  # the JAX default
+
+
+def test_a_mesh_engine_constructs():
+    # SessionSearchEngine(mesh=) serves a sharded corpus; it raised before
+    from sessionsimilaritysearch_tpu_torch.parallel import create_mesh
+
+    cfg = port.tiny_test_config()
+    eng = port.SessionSearchEngine(cfg, port.get_tokenizer(cfg.vocab_size), lambda g: g,
+                                   dim=cfg.session_emb_dim, capacity=10,
+                                   mesh=create_mesh(devices=[torch.device("cpu")] * 2))
+    assert type(eng.index).__name__ == "ShardedDenseIndex"
+    assert eng.index.capacity == 10 and eng.index.ndev == 2 and eng.device.type == "cpu"
 
 
 def test_cuda_without_a_card_raises():

@@ -43,7 +43,7 @@ def parts():
     # a generator of this module's own: the shared conftest one is stateful
     data = SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=0).dataset(40)
     fenc = flax_build(cfg)
-    params = jax.tree.map(np.asarray, fenc.init(
+    params = jax.tree.map(np.asarray, jax.jit(fenc.init)(
         jax.random.PRNGKey(0), __graft_entry__._example_batch(cfg, 8)))
     encode_fn = jax.jit(lambda g: fenc.apply(params, g))
     tenc = build_graph_encoder(cfg, "cpu")
@@ -137,14 +137,26 @@ def test_where_filter(parts):
     assert all(where(t.sessions[i]) for i in It[It >= 0])
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"quantize": "int8"},
+@pytest.mark.parametrize("kw", [{"mesh": 2}, {"quantize": "int8"},
                                 {"prefilter": "binary"}, {"center": "auto"}])
 def test_unported_engine_options_raise(parts, kw):
-    # the port's engine has no mesh yet: a call that sets one raises naming
-    # its ROADMAP item, never served by the plain dense path. quantize,
-    # center and a prefilter with the default stage1='matmul' are ported
-    # since: each builds and searches.
+    # the engine options the port once refused are all ported: quantize,
+    # center, a prefilter with the default stage1='matmul', and (since the
+    # sharded serving slice) a mesh, here of 2 CPU shards; each builds and
+    # searches (tests/test_torch_sharded_engine.py holds the mesh engine
+    # against JAX's)
     cfg, tok, data, encode_fn, tenc = parts
+    if "mesh" in kw:
+        from sessionsimilaritysearch_tpu_torch.parallel import create_mesh
+
+        mesh = create_mesh(devices=[torch.device("cpu")] * kw["mesh"])
+        t = SessionSearchEngine(*_port_side(cfg), tenc, dim=cfg.session_emb_dim,
+                                capacity=64, batch_size=8, mesh=mesh)
+        t.add_sessions(data[:20])
+        _, It = t.search(data[:5], k=3)
+        assert t.index.ndev == 2 and t.index.ntotal == 20
+        np.testing.assert_array_equal(It[:, 0], np.arange(5))
+        return
     if "quantize" in kw:
         t = SessionSearchEngine(*_port_side(cfg), tenc, dim=cfg.session_emb_dim,
                                 capacity=64, batch_size=8, device="cpu", **kw)
@@ -172,10 +184,6 @@ def test_unported_engine_options_raise(parts, kw):
         D, It = t.search(data[:5], k=3)
         assert t.index.stage1 == "matmul" and t.index.ntotal == 20
         np.testing.assert_array_equal(It[:, 0], np.arange(5))
-        return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        SessionSearchEngine(cfg, tok, tenc, dim=cfg.session_emb_dim,
-                            capacity=8, device="cpu", **kw)
 
 
 def test_twostage_itq_engine_matches_jax(parts):
