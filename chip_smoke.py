@@ -3741,6 +3741,310 @@ def phase_sharded(torch, topk_mod, dev, parts, card):
                    "nccl": nccl}, max(tier_err, engine["max_abs_err"])
 
 
+# phase 8b: data-parallel training as a world-1 NCCL group at Config() width
+DP_WARM, DP_TIMED = 3, 20  # warm-up and timed steps, each of the two steps
+DP_BATCHES = 4  # distinct batch-50 graphs the timed steps cycle through
+DP_MIN_ROWS = 8192  # shard_params: both Config() tables (391,572 and 30,522 rows) shard
+DP_PROFILED = 3  # steps of each under torch.profiler
+# the data-parallel step against the one-process step (tests/test_torch_
+# data_parallel.py's bounds): loss and metrics, each gradient leaf after the
+# clip (of the largest |gradient|), the BatchNorm statistics
+DP_METRIC_RTOL, DP_GRAD_REL, DP_GRAD_RTOL, DP_BN_RTOL, DP_BN_ATOL = 1e-5, 2e-5, 1e-4, 1e-5, 1e-6
+DP_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def dp_spy(torch):
+    """Wrap the collectives the data-parallel step calls so that each call
+    records (name, the device type of its tensor); returns the record and
+    the function that puts the originals back."""
+    import torch.distributed as dist
+
+    seen, saved = [], {name: getattr(dist, name) for name in DP_COLLECTIVES}
+
+    def wrap(name, fn):
+        def spy(*args, **kw):
+            seen.append((name, args[0].device.type))
+            return fn(*args, **kw)
+        return spy
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    return seen, lambda: [setattr(dist, n, f) for n, f in saved.items()]
+
+
+# the dry run's kernels against their plain versions on its own tensors,
+# relative to the largest plain score: K1 f32 (3xTF32) 1e-5, K2's bf16
+# scores two bf16 ulps; the +-1 codes' dots (K1 bf16, K4) are exact integers
+DRY_F32_TOL = 1e-5
+
+
+def dryrun_kernel_pairs(torch, kept, dev):
+    """Every kernel call of the dry run's searches, remade on the indexes
+    and queries it kept (``dryrun_multichip(keep=)``), beside its plain
+    version on the same inputs: (kernel, q x rows x d, (scores, bucket
+    maxes), the plain (scores, bucket maxes), the bound on their largest
+    |difference|)."""
+    from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+    from sessionsimilaritysearch_tpu_torch.parallel.collectives import _used_packed_rows
+
+    bf, out = torch.bfloat16, []
+
+    def pair(name, fn, ref, args, kw, rel):
+        got, want = fn(*args, **kw), ref(*args, **kw)
+        shape = "x".join(str(int(n)) for n in tuple(got[0].shape) + (args[0].shape[1],))
+        scores = want[0].float()
+        out.append((name, shape, got, want,
+                    rel * float(scores[torch.isfinite(scores)].abs().max())))
+
+    # ShardedDenseIndex (f32 rows, 'cos'): K1 per chunk of chunk_size rows
+    idx, rows = kept["dense"]
+    q = torch.as_tensor(rows, device=dev).to(idx.dtype)
+    q = (l2_normalize(q) if idx.metric == "cos" else q).to(idx.dtype).contiguous()
+    for j, s in enumerate(idx._local):
+        f = int(idx._fill[s])
+        for base in range(0, f, idx.chunk_size):
+            chunk = idx._buf[j][base: min(base + idx.chunk_size, f)]
+            pair("K1 f32", mips.scores_with_bucket_max, mips.scores_with_bucket_max_ref,
+                 (q, chunk), {"score_dtype": idx.score_dtype}, DRY_F32_TOL)
+    # ShardedTwoStageIndex stage 1 per shard: K1 bf16 on the binary codes,
+    # K2 on the int8x8 codes, K4 on the packed codes
+    for what in ("binary prefilter", "int8x8", "packed"):
+        ts, rows = kept[what]
+        qn = l2_normalize(torch.as_tensor(rows, device=dev, dtype=torch.float32))
+        codes, scales = ts._encode(qn)
+        for j, s in enumerate(ts._local):
+            f = int(ts._fill[s])
+            if ts.stage1 == "packed":
+                qp = torch.nn.functional.pad(codes, (0, ts.bits_pad - ts.n_bits)).to(bf)
+                pair("K4", packed.packed_scores_with_bucket_max,
+                     packed.packed_scores_with_bucket_max_ref,
+                     (qp.contiguous(), ts._codes[j][:_used_packed_rows(f)], f, None, bf), {}, 0)
+            elif ts.prefilter == "int8x8":
+                pair("K2", mips_int8.scores_with_bucket_max_int8,
+                     mips_int8.scores_with_bucket_max_int8_ref,
+                     (codes.contiguous(), ts._codes[j][:f], ts._scales[j][:f]),
+                     {"score_dtype": bf}, BF16_TOL)
+            else:
+                pair("K1 bf16", mips.scores_with_bucket_max, mips.scores_with_bucket_max_ref,
+                     (codes.to(bf).contiguous(), ts._codes[j][:f]), {"score_dtype": bf}, 0)
+    # ShardedBinaryIndex (sign): K1 bf16 on the +-1 rows
+    sb, signs = kept["binary"]
+    qs = torch.where(torch.as_tensor(signs, device=dev) > 0, 1.0, -1.0).to(bf).contiguous()
+    for j, s in enumerate(sb._local):
+        pair("K1 bf16", mips.scores_with_bucket_max, mips.scores_with_bucket_max_ref,
+             (qs, sb._buf[j][: int(sb._fill[s])]), {"score_dtype": bf}, 0)
+    return out
+
+
+def phase_data_parallel(torch, dev, card):
+    """Phase 8b: the data-parallel pretrain step (item 8b) in a world-1
+    process group over NCCL, at Config() width and batch 50, with both
+    tables row-sharded into one range (shard_params(min_rows=8192)):
+    against the one-process step on the same weights and draws, each timed;
+    the sharded train state saved and restored; then
+    dryrun_multichip(1, device='cuda'), whose retrieval runs K1, K2 and K4.
+    Returns the dry run's launch counts and a summary."""
+    import socket
+
+    import torch.distributed as dist
+
+    import sessionsimilaritysearch_tpu_torch as port
+    from sessionsimilaritysearch_tpu_torch.data import build_graph_batch
+    from sessionsimilaritysearch_tpu_torch.dryrun import dryrun_multichip
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device
+    from sessionsimilaritysearch_tpu_torch.parallel import multihost, shard_batch, shard_params
+    from sessionsimilaritysearch_tpu_torch.parallel.sharding import row_shards
+    from sessionsimilaritysearch_tpu_torch.training import pretrain as tp
+    from sessionsimilaritysearch_tpu_torch.utils.checkpoint import (
+        load_sharded_state_tree,
+        restore_sharded,
+        save_sharded,
+        sharded_state_tree,
+    )
+
+    torch.cuda.empty_cache()
+    cfg = port.Config()
+    B = cfg.batch_size
+    tok = port.get_tokenizer(cfg.vocab_size)
+    gen = port.SyntheticSessionGenerator(asin_num=cfg.asin_num, seed=3)
+    sessions = [d for d in gen.dataset(2 * B * DP_BATCHES) if has_product(d)]
+    hosts = [build_graph_batch(sessions[i * B:(i + 1) * B], tok, cfg.dims,
+                               ignore_query=cfg.ignore_query) for i in range(DP_BATCHES)]
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port_no = sock.getsockname()[1]
+    sock.close()
+    multihost.initialize_distributed(f"localhost:{port_no}", 1, 0)
+    try:
+        mesh = multihost.global_mesh(local_devices=[dev])
+        check(mesh.distributed and mesh.world == 1, f"data parallel: global mesh {mesh}")
+
+        def build():
+            return tp.create_pretrain_state(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+
+        t0 = time.perf_counter()
+        one_model, one = build()
+        dp_model, dp = build()
+        shard_params(dp, mesh, min_rows=DP_MIN_ROWS)
+        build_s = time.perf_counter() - t0
+        shards = {n: (s.start, s.stop, s.rows) for n, s in row_shards(dp_model).items()}
+        check(shards == {"target_asin_embedding.weight": (0, cfg.asin_num, cfg.asin_num),
+                         "encoder.query_node_embedder.tok_emb.weight":
+                             (0, cfg.vocab_size, cfg.vocab_size)},
+              f"data parallel: row shards {shards}")
+        one_step = tp.make_train_step(one_model)
+        dp_step = tp.make_train_step(dp_model, mesh=mesh)
+        one_graphs = [to_device(h, dev) for h in hosts]
+        dp_graphs = [shard_batch(h, mesh) for h in hosts]
+
+        # 1. one step of each on the same batch and draws
+        draws = one_model.draw(one_graphs[0], torch.Generator(device=dev).manual_seed(5))
+        _, want = one_step(one, one_graphs[0], draws=draws)
+        seen, unspy = dp_spy(torch)
+        try:
+            _, got = dp_step(dp, dp_graphs[0], draws=draws)
+            torch.cuda.synchronize()
+        finally:
+            unspy()
+        kinds = sorted({name for name, _ in seen})
+        check(kinds == sorted(DP_COLLECTIVES) and {t for _, t in seen} == {dev.type},
+              f"data parallel: the step's collectives ran as {sorted(set(seen))}, want each "
+              f"of {DP_COLLECTIVES} on {dev.type} tensors")
+        metric_rel = max(abs(float(got[k]) - float(want[k])) / abs(float(want[k])) for k in want)
+        check(set(got) == set(want) and metric_rel <= DP_METRIC_RTOL,
+              f"data parallel: metrics rel {metric_rel} (bound {DP_METRIC_RTOL})")
+        named = dict(dp_model.named_parameters())
+        bound = DP_GRAD_REL * max(float(p.grad.abs().max()) for p in one_model.parameters())
+        grad_err = 0.0
+        for n, p in one_model.named_parameters():
+            err = (named[n].grad - p.grad).abs() - DP_GRAD_RTOL * p.grad.abs()
+            grad_err = max(grad_err, float(err.max()))
+        check(grad_err <= bound, f"data parallel: a gradient leaf off by {grad_err} "
+              f"(bound {bound})")
+        bufs = dict(dp_model.named_buffers())
+        bn_err = max(float(((bufs[n] - b).abs() - DP_BN_RTOL * b.abs()).max())
+                     for n, b in one_model.named_buffers())
+        check(bn_err <= DP_BN_ATOL, f"data parallel: BatchNorm statistics off by {bn_err}")
+        print(f"data parallel (8b) [{card}]: world-1 NCCL group ({dist.get_backend()}), "
+              f"Config() batch {B}, both tables row-sharded into one range; two states "
+              f"built in {build_s:.2f} s; one step against the one-process step on the same "
+              f"weights and draws: loss {float(got['loss']):.9g} vs {float(want['loss']):.9g}, "
+              f"metrics rel {metric_rel:.3g} (bound {DP_METRIC_RTOL}), gradients within "
+              f"{grad_err:.3g} of the bound {bound:.3g}, BatchNorm within {bn_err:.3g}; "
+              f"{len(seen)} collectives a step, all on {dev.type} tensors "
+              f"({', '.join(f'{k} x{sum(1 for n, _ in seen if n == k)}' for k in kinds)})")
+
+        # 2. the cost of the data-parallel machinery at world 1
+        def run(step, state, graphs, n):
+            return pretrain_steps(torch, step, state, [(graphs[i % DP_BATCHES], {})
+                                                       for i in range(n)])
+
+        run(one_step, one, one_graphs, DP_WARM)
+        run(dp_step, dp, dp_graphs, DP_WARM)
+        ms = {"one_process": [], "data_parallel": []}
+        losses = []
+        for name in ("one_process", "data_parallel", "data_parallel", "one_process"):
+            step, state, graphs = ((one_step, one, one_graphs) if name == "one_process"
+                                   else (dp_step, dp, dp_graphs))
+            ls, t = run(step, state, graphs, DP_TIMED // 2)
+            ms[name] += t
+            losses += ls
+        check(all(np.isfinite(losses)), "data parallel: non-finite losses")
+        times = {k: {"median": percentile(v, 50), "p90": percentile(v, 90),
+                     "sessions_per_s": B / percentile(v, 50) * 1e3} for k, v in ms.items()}
+        print(f"  steps [{card}] ({DP_TIMED} each after {DP_WARM} warm-up, in rounds of "
+              f"{DP_TIMED // 2}, host clock around a synchronized step): " + "; ".join(
+                  f"{k} median {v['median']:.2f} ms, p90 {v['p90']:.2f} "
+                  f"({v['sessions_per_s']:.0f} sessions/s)" for k, v in times.items())
+              + f" {smi()}")
+        # where the difference goes: each step's record_function spans under
+        # torch.profiler (the data-parallel step adds `gradient all-reduce`)
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        names = PRE_SPANS + ("gradient all-reduce",)
+        spans = {}
+        for name, step, state, graphs in (("one_process", one_step, one, one_graphs),
+                                          ("data_parallel", dp_step, dp, dp_graphs)):
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                run(step, state, graphs, DP_PROFILED)
+            spans[name] = span_device_ms(torch, prof, names, DP_PROFILED)
+            busy = sum(spans[name]["device"].values())
+            print(f"    {name} under torch.profiler ({DP_PROFILED} steps) [{card}]: device "
+                  f"busy {busy:.2f} ms a step; " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in spans[name]["device"].items() if v))
+
+        # 3. the sharded train state: save, restore into a fresh state, a step
+        with tempfile.TemporaryDirectory() as d:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_sharded(d, sharded_state_tree(dp))
+            write_s = time.perf_counter() - t0
+            n_bytes = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+            n_files = len(os.listdir(d))
+            d1 = dp_model.draw(dp_graphs[1], torch.Generator(device=dev).manual_seed(6))
+            _, want = dp_step(dp, dp_graphs[1], draws=d1)
+            back_model, back = build()
+            shard_params(back, mesh, min_rows=DP_MIN_ROWS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            load_sharded_state_tree(back, restore_sharded(d, sharded_state_tree(back)))
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+        _, got = tp.make_train_step(back_model, mesh=mesh)(back, dp_graphs[1], draws=d1)
+        resume_rel = max(abs(float(got[k]) - float(want[k])) / abs(float(want[k])) for k in want)
+        check(back.step == dp.step and resume_rel <= 1e-6,
+              f"data parallel: the step after restore_sharded differs (rel {resume_rel})")
+        print(f"  save_sharded / restore_sharded [{card}]: {n_bytes / 1e6:.1f} MB in {n_files} "
+              f"files, write {write_s:.2f} s, read into a fresh sharded state {read_s:.2f} s; "
+              f"the next step's loss and metrics vs the uninterrupted run rel {resume_rel:.3g} "
+              f"(bound 1e-6)")
+        del one_model, one, dp_model, dp, back_model, back, one_graphs, dp_graphs
+        torch.cuda.empty_cache()
+
+        # 4. the dry run's twin in this group: its retrieval through K1, K2, K4
+        kept = {}
+        t0 = time.perf_counter()
+        out, counts = counted(torch, lambda: dryrun_multichip(1, device="cuda", keep=kept))
+        dry_s = time.perf_counter() - t0
+        check(counts["k1"] > 0 and counts["k2"] > 0 and counts["k4"] > 0,
+              f"data parallel: the dry run's launches {counts} (want K1, K2 and K4)")
+        check(counts["k1_cp"] == 0, f"data parallel: the dry run launched cp_async {counts}")
+        # each of those kernels against its plain version at the dry run's
+        # shapes, on its own tensors (outside the counted run)
+        dry_errs = {}
+        for name, shape, got, want, bound in dryrun_kernel_pairs(torch, kept, dev):
+            # slots past the fill are -inf on both sides
+            err = max(float(torch.where(g == w, 0.0, (g.float() - w.float()).abs()).max())
+                      for g, w in zip(got, want))
+            check(err <= bound, f"data parallel: the dry run's {name} [{shape}] differs from "
+                  f"its plain version by {err} (bound {bound})")
+            e = dry_errs.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "shapes": []})
+            e["calls"] += 1
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            if shape not in e["shapes"]:
+                e["shapes"].append(shape)
+        check(set(dry_errs) == {"K1 f32", "K1 bf16", "K2", "K4"},
+              f"data parallel: the dry run's kernels checked {sorted(dry_errs)}")
+        del kept
+        print(f"  dryrun_multichip(1, 'cuda') [{card}]: loss {out['loss']:.6f}, every "
+              f"retrieval check passed in {dry_s:.2f} s; launches {counts}; its kernels "
+              f"against their plain versions on its own tensors (scores and bucket maxes, "
+              f"q x rows x d): " + "; ".join(
+                  f"{k} {v['calls']} calls at {', '.join(v['shapes'])} max_abs_err "
+                  f"{v['max_abs_err']:.3g}" for k, v in dry_errs.items()))
+    finally:
+        dist.destroy_process_group()
+    summary = {"steps_ms": times, "spans_device_ms": {k: v["device"] for k, v in spans.items()},
+               "checkpoint": {"mb": n_bytes / 1e6, "files": n_files,
+                                                 "write_s": write_s, "read_s": read_s},
+               "metric_rel": metric_rel, "dryrun_s": dry_s, "dryrun_kernels": dry_errs}
+    print(f"data parallel summary: {json.dumps(summary)}")
+    return counts, summary
+
+
 def int8_case(torch, mips_int8, g, q_n, n, d, dev):
     """Seeded int8 codes and scales: unit rows quantized per row."""
     codes = torch.empty(n, d, dtype=torch.int8, device=dev)
@@ -4325,6 +4629,8 @@ def main() -> int:
                          dev, parts, card_line)
     sharded_paths, sharded, err_sharded = run_phase(torch, "sharded serving", phase_sharded,
                                                     torch, topk_mod, dev, parts, card_line)
+    dp_counts, dp_summary = run_phase(torch, "data parallel", phase_data_parallel, torch, dev,
+                                      card_line)
     k2 = run_phase(torch, "int8 kernel", phase_int8_kernel, torch, dev)
     run_phase(torch, "int8 index", phase_int8_index, torch, topk_mod, dev)
     k2_launches, k2_wgmma = run_phase(torch, "int8x8 engine", phase_int8_engine, torch,
@@ -4387,7 +4693,8 @@ def main() -> int:
     new_paths = {"twostage_tiers": {}, "binary_maintenance": bin_path,
                  "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts,
                  "session_trainer_serving": st_counts, "finetuned_sign": ft_counts["sign"],
-                 "finetuned_packed": ft_counts["packed"], **cli_counts, **sharded_paths}
+                 "finetuned_packed": ft_counts["packed"], **cli_counts, **sharded_paths,
+                 "data_parallel_dryrun": dp_counts}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path
@@ -4402,6 +4709,7 @@ def main() -> int:
         entry_["launches"] += sum(by_path.values())
     k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers, err_sharded)
     k1_entry["sharded_serving"] = sharded
+    k1_entry["data_parallel"] = dp_summary
     # K1's and K6's bf16 kernel fed by cp.async: its launches on the paths
     # whose rows TMA cannot describe (each counted from 0), its times at
     # sign mode's shape, the producer ablation and K6's ragged case beside

@@ -45,7 +45,12 @@ serving: a mesh of shards (``parallel.create_mesh``; several shards may share
 a device), ``ShardedDenseIndex``, ``ShardedBinaryIndex`` and
 ``ShardedTwoStageIndex``, each shard scanned by the kernels above and the
 candidates merged across shards and, over ``torch.distributed``, across
-processes; ``SessionSearchEngine(mesh=...)``.
+processes; ``SessionSearchEngine(mesh=...)``. Data-parallel pretraining:
+one process per device (``parallel.shard_batch``, ``shard_params`` with
+the embedding tables row-sharded, ``make_train_step(..., mesh=)``, equal
+to the one-process step on the global batch), sharded checkpoints
+(``utils.checkpoint.save_sharded`` / ``restore_sharded``, the JAX
+package's layout) and the multi-process dry run (``dryrun``).
 
 Layer map:
 
@@ -64,7 +69,7 @@ Layer map:
 - ``index``       -- ``DenseIndex``, ``BinaryIndex``, ``TwoStageIndex`` and
   their sharded twins
 - ``parallel``    -- the mesh, ``torch.distributed`` set-up, the cross-shard
-  collectives
+  collectives, the data-parallel layout and its collectives
 - ``training``    -- the pretrainer, the session trainers, the fine-tuner,
   their losses, the train state and the loop
 - ``utils``       -- precision policies (``serving_params``), profiling,
@@ -73,6 +78,7 @@ Layer map:
   encode fn, the evaluation runners, metrics
 - ``engine``      -- ``SessionSearchEngine``
 - ``cli``         -- the command-line entry points (``sss-torch``)
+- ``dryrun``      -- the multi-process dry run (``dryrun_multichip``)
 """
 
 from sessionsimilaritysearch_tpu_torch.config import Config, tiny_test_config  # noqa: F401

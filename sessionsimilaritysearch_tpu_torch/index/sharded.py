@@ -36,6 +36,7 @@ from sessionsimilaritysearch_tpu_torch.ops import mips_int8
 from sessionsimilaritysearch_tpu_torch.ops.topk import check_selection, l2_normalize
 from sessionsimilaritysearch_tpu_torch.parallel.collectives import gather_shards, sharded_topk
 from sessionsimilaritysearch_tpu_torch.parallel.mesh import Mesh
+from sessionsimilaritysearch_tpu_torch.parallel.sharding import ShardedTensor, sharded_rows
 
 
 def plan_sharded_removal(host_ids, fills, gids):
@@ -238,6 +239,9 @@ class _ShardedRows:
         full = torch.cat([t.cpu() for t in gather_shards(self.mesh, shards, self.axis)])
         return (full.float() if full.dtype == torch.bfloat16 else full).numpy()
 
+    def _sharded(self, shards: List[torch.Tensor]) -> ShardedTensor:
+        return sharded_rows(shards, self.mesh, self.axis)
+
     def _book_state(self) -> dict:
         return {"size": np.asarray(self.size), "fills": np.asarray(self._fill),
                 "next_id": np.asarray(self._next_id), "host_ids": np.asarray(self._host_ids)}
@@ -363,21 +367,25 @@ class ShardedDenseIndex(_ShardedRows):
     # --- live state: the buffers (per local shard) and the host bookkeeping
     def state_dict(self) -> dict:
         """Complete serving state: the local shards' tensors (buf, ids,
-        scales) and the host bookkeeping (fills, host id mirror, next id).
-        ``size`` alone does not say which slots are valid (per-shard fills
-        diverge after removals): restore through :meth:`load_state`."""
-        state = {"buf": list(self._buf), "ids": list(self._ids), **self._book_state()}
+        scales, each a ``ShardedTensor`` of the mesh's row boxes) and the
+        host bookkeeping (fills, host id mirror, next id); a tree that
+        ``utils.checkpoint.save_sharded`` writes shard by shard, and its
+        restore template. ``size`` alone does not say which slots are valid
+        (per-shard fills diverge after removals): restore through
+        :meth:`load_state`."""
+        state = {"buf": self._sharded(self._buf), "ids": self._sharded(self._ids),
+                 **self._book_state()}
         if self.quantize:
-            state["scales"] = list(self._scales)
+            state["scales"] = self._sharded(self._scales)
         return state
 
     def load_state(self, state: dict) -> None:
         """Adopt a :meth:`state_dict` (the inverse of it)."""
-        self._buf = list(state["buf"])
-        self._ids = list(state["ids"])
+        self._buf = state["buf"].local()
+        self._ids = state["ids"].local()
         self._load_book(state)
         if self.quantize:
-            self._scales = list(state["scales"])
+            self._scales = state["scales"].local()
 
     def search(self, queries, k: int, row_mask=None, out: str = "np"):
         """Global exact top-k: (D [q, k] float32 descending, I [q, k] int64

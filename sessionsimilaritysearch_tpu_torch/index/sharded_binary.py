@@ -172,11 +172,12 @@ class ShardedBinaryIndex(_ShardedRows):
 
     # --- live state (ShardedDenseIndex.state_dict semantics)
     def state_dict(self) -> dict:
-        return {"buf": list(self._buf), "ids": list(self._ids), **self._book_state()}
+        return {"buf": self._sharded(self._buf), "ids": self._sharded(self._ids),
+                **self._book_state()}
 
     def load_state(self, state: dict) -> None:
-        self._buf = list(state["buf"])
-        self._ids = list(state["ids"])
+        self._buf = state["buf"].local()
+        self._ids = state["ids"].local()
         self._load_book(state)
 
     # --- persistence: the JAX index's npz, key for key

@@ -1,7 +1,8 @@
 """Node embedders: text -> vector, asin id -> vector (counterparts of
 ``sessionsimilaritysearch_tpu/models/embedding.py:25`` ``AveragePooling``,
 ``:34`` ``NodeTextTransformer``, ``:64`` ``TextEncoder`` and ``:122``
-``NodeAsinEmbedding``)."""
+``NodeAsinEmbedding``), and :class:`RowShardedEmbedding`, the lookup into a
+table whose rows are split over the ranks of a data-parallel step."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sessionsimilaritysearch_tpu_torch.models.transformer import (
@@ -16,6 +18,28 @@ from sessionsimilaritysearch_tpu_torch.models.transformer import (
     PositionalEncoding,
     TransformerEncoder,
 )
+
+
+class RowShardedEmbedding(nn.Embedding):
+    """An ``nn.Embedding`` that holds rows [start, stop) of a table split
+    over the ranks of a data-parallel step (``row_shard``, a
+    ``parallel.sharding.RowShard``; ``parallel.sharding.shard_params`` turns
+    a table into one). Each rank looks up different ids, so a lookup
+    gathers every rank's ids, looks up the ones in this rank's range (zeros
+    for the rest) and reduce-scatters the rows back to the ranks that asked:
+    the sum over ranks is each id's row, exactly. Its backward all-gathers
+    the rows' gradients, and each rank adds up those of its own rows. Every
+    rank must look up an id grid of the same shape at the same time."""
+
+    row_shard = None
+
+    def forward(self, ids):
+        shard = self.row_shard
+        group = shard.group
+        local = group.gather(ids) - shard.start
+        mine = (local >= 0) & (local < shard.stop - shard.start)
+        rows = F.embedding(torch.where(mine, local, 0), self.weight)
+        return group.scatter_sum(rows * mine[..., None].to(rows.dtype))
 
 
 class AveragePooling(nn.Module):

@@ -12,6 +12,13 @@ rsqrt(var + 1e-5) * scale + bias``, and in training the running statistics
 become ``0.99 * running + 0.01 * batch``; ``deterministic`` normalizes by
 the running statistics and leaves them as they are. The running statistics
 are buffers named as Flax's ``batch_stats`` leaves, ``mean`` and ``var``.
+
+The batch statistics are those of the global batch of ``group`` (a
+``parallel.sharding.BatchGroup``; by default ``ALONE``, this process by
+itself): every rank holds as many rows, so the means of x and x^2 over
+the global batch are the average over the ranks of each rank's means
+(summed with their gradient), and in a data-parallel step every rank
+normalizes by, and updates its running statistics with, the same values.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from sessionsimilaritysearch_tpu_torch.parallel.sharding import ALONE, BatchGroup
 
 from sessionsimilaritysearch_tpu_torch.models.transformer import (
     PositionalEncoding,
@@ -42,16 +51,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, group: BatchGroup = ALONE):
         if deterministic:
-            mean, var = self.mean, self.var
-        else:
-            flat = x.reshape(-1, x.shape[-1])
-            mean = flat.mean(dim=0)
-            var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
-                self.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
+            return (x - self.mean) * (torch.rsqrt(self.var + BN_EPS) * self.weight) + self.bias
+        flat = x.reshape(-1, x.shape[-1])
+        c = flat.shape[-1]
+        means = group.sum(torch.cat([flat.mean(dim=0), (flat * flat).mean(dim=0)]) / group.world)
+        mean = means[:c]
+        var = torch.clamp(means[c:] - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.mean.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean)
+            self.var.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var)
         return (x - mean) * (torch.rsqrt(var + BN_EPS) * self.weight) + self.bias
 
 
@@ -76,9 +86,11 @@ class MLP(nn.Module):
         self.dense_out = nn.Linear(width, n_output, device=device)
 
     def forward(self, x, deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, group: BatchGroup = ALONE):
+        """``group``: the data-parallel step's ranks, for the BatchNorms'
+        global-batch statistics."""
         for i in range(self.depth):
-            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), deterministic)
+            x = getattr(self, f"bn_{i}")(getattr(self, f"dense_{i}")(x), deterministic, group)
             x = dropout(torch.relu(x), self.dropout, deterministic, generator)
         x = self.dense_out(x)
         return torch.tanh(x) if self.last_act else x

@@ -14,12 +14,18 @@ shards (:meth:`Mesh.local_shards`), and the sharded indexes merge their
 results across processes through ``dist.all_gather``
 (``parallel/collectives.py``). A mesh that :func:`create_mesh` builds
 belongs to this process alone.
+
+A layout is a plain description, JAX's ``PartitionSpec`` without the
+``NamedSharding``: :func:`batch_sharding` is ``(axis,)`` (the leading axis
+split over ``axis``), :func:`replicated` is ``()``. :func:`shard_batch`
+(JAX :44) cuts the host's global batch to this rank's rows: the
+data-parallel step runs one process per device.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,3 +123,62 @@ def create_mesh(shape: Optional[Tuple[int, ...]] = None,
     if n > len(devices) or n < 1:
         raise ValueError(f"mesh shape {tuple(shape)} needs {n} devices, got {len(devices)}")
     return Mesh(_object_array(devices[:n]).reshape(shape), tuple(axis_names))
+
+
+def batch_sharding(mesh: Mesh, axis: str = "data") -> tuple:
+    """Leading-axis (batch) sharding over ``axis``: ``(axis,)``."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}; its axes are {mesh.axis_names}")
+    return (axis,)
+
+
+def replicated(mesh: Mesh) -> tuple:
+    """Every shard holds the whole leaf: ``()``."""
+    return ()
+
+
+def map_batch(fn, batch):
+    """``fn`` over every array of a batch: a ``SessionGraph`` (or another
+    named tuple), a tuple, a list or a dict of arrays."""
+    if isinstance(batch, dict):
+        return {k: map_batch(fn, v) for k, v in batch.items()}
+    if isinstance(batch, tuple) and hasattr(batch, "_fields"):
+        return type(batch)(*(map_batch(fn, v) for v in batch))
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(map_batch(fn, v) for v in batch)
+    return fn(batch)
+
+
+def rank_device(mesh: Mesh, axis: str = "data") -> Tuple[int, torch.device]:
+    """This process's one shard along ``axis`` and its device; raises for a
+    mesh whose process holds another number of shards (data parallelism
+    runs one process per device)."""
+    local = mesh.local_shards(axis)
+    if len(local) != 1:
+        raise ValueError(
+            f"data parallelism runs one process per device, but this process holds "
+            f"{len(local)} shards of {mesh}: build the mesh with one local device per rank "
+            "(global_mesh(local_devices=[device])); meshes with several shards per process "
+            "serve the sharded indexes")
+    return local[0], mesh.shard_devices(axis)[local[0]]
+
+
+def shard_batch(batch: Any, mesh: Mesh, axis: str = "data"):
+    """This rank's rows of the host's global ``batch`` (numpy arrays or
+    tensors), as tensors on its device: shard ``s`` of ``n`` takes rows
+    [s B / n, (s + 1) B / n). The batch size must divide the axis size."""
+    shard, device = rank_device(mesh, axis)
+    n = mesh.shape[axis]
+    sizes = {int(x.shape[0]) for x in _leaves(batch)}
+    if len(sizes) != 1 or next(iter(sizes)) % n:
+        raise ValueError(f"batch sizes {sorted(sizes)} must be one size that divides "
+                         f"the mesh's {n} shards")
+    per = next(iter(sizes)) // n
+    return map_batch(lambda x: torch.as_tensor(x[shard * per: (shard + 1) * per]).to(device),
+                     batch)
+
+
+def _leaves(batch) -> list:
+    out = []
+    map_batch(out.append, batch)
+    return out

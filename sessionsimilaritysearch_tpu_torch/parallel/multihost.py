@@ -1,6 +1,7 @@
 """Multi-process helpers over ``torch.distributed`` (counterpart of
 ``sessionsimilaritysearch_tpu/parallel/multihost.py``:
-``initialize_distributed`` :22, ``global_mesh`` :37, ``process_slice`` :62).
+``initialize_distributed`` :22, ``global_mesh`` :37,
+``host_local_batch_to_global`` :46, ``process_slice`` :62).
 
 Each process holds its own shards of a global mesh and keeps only their
 rows: every rank calls a sharded index's ``add`` with the same global rows,
@@ -9,6 +10,12 @@ as JAX's global arrays have every process pass the whole batch
 merge every rank's candidates through ``dist.all_gather``
 (``parallel/collectives.py``). The collectives run on NCCL for CUDA tensors
 and on gloo for CPU ones.
+
+Data-parallel training feeds each process its own rows: where JAX
+assembles a global array from every process's slice
+(``jax.make_array_from_process_local_data``), the port keeps each rank's
+rows where they are (:func:`host_local_batch_to_global`) and the step's
+collectives make the global batch's loss (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +28,14 @@ import torch
 import torch.distributed as dist
 
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
-from sessionsimilaritysearch_tpu_torch.parallel.mesh import Mesh, _object_array, visible_cards
+from sessionsimilaritysearch_tpu_torch.parallel.mesh import (
+    Mesh,
+    _leaves,
+    _object_array,
+    map_batch,
+    rank_device,
+    visible_cards,
+)
 
 
 # how long a rank waits for the others at the rendezvous and in a collective
@@ -105,3 +119,18 @@ def process_slice(n_global: int) -> Tuple[int, int]:
     p, n_proc = process_index(), process_count()
     per = n_global // n_proc
     return p * per, (p + 1) * per if p < n_proc - 1 else n_global
+
+
+def host_local_batch_to_global(local_batch, mesh: Mesh, axis: str = "data"):
+    """This process's rows of the global batch (each rank passes its own),
+    as tensors on its device. Every rank must hold as many rows: the global
+    batch is their concatenation in rank order."""
+    _, device = rank_device(mesh, axis)
+    sizes = {int(x.shape[0]) for x in _leaves(local_batch)}
+    if len(sizes) != 1:
+        raise ValueError(f"the batch's arrays have {sorted(sizes)} rows; want one count")
+    if mesh.distributed:
+        counts = _gather_ints([sizes.pop()], device)
+        if len({c[0] for c in counts}) != 1:
+            raise ValueError(f"every rank must hold as many rows, got {counts}")
+    return map_batch(lambda x: torch.as_tensor(x).to(device), local_batch)

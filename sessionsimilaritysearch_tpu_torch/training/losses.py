@@ -3,10 +3,13 @@
 weightings and masks:
 
 - the pretrainer's: ``_clipped_norm_rows`` :32, ``cosine_similarity`` :36,
-  ``contrastive_loss`` :43, ``make_token_mask`` :65, ``electra_loss`` :80,
+  ``contrastive_loss`` :43, ``make_token_mask`` :65, ``mlm_loss`` :72,
+  ``electra_loss`` :80, ``next_text_embedding_loss`` :104,
   ``all_text_embedding_loss`` :114, ``product_target_onehot`` :144,
   ``product_asin_loss`` :154, ``product_asin_precision_recall`` :180,
-  ``node_reconstruction_loss`` :273 and ``qaea_distill_loss`` :287;
+  ``node_reconstruction_loss`` :273 and ``qaea_distill_loss`` :287
+  (``mlm_loss`` and ``next_text_embedding_loss`` serve no trainer, in
+  either package);
 - the session trainers' query generation: ``make_mlm_target`` :297,
   ``next_query_mlm_loss`` :308, ``autoregressive_query_loss`` :320 and
   ``next_query_electra_loss`` :350;
@@ -20,11 +23,25 @@ The random parts take their draws as arguments or from a
 negative token ids of ``autoregressive_query_loss``; ``product_asin_loss``
 takes its negative-sample mask), so a caller can feed the JAX package's
 draws and compare step for step.
+
+**Data parallel.** The pretrainer's batch-coupled losses take ``group``
+(a ``parallel.sharding.BatchGroup``; by default ``ALONE``, this process by
+itself, whose collectives are the identity): each rank passes its rows of
+the global batch and gets its share of the global batch's loss, so that the
+shares sum to the one-process loss on the whole batch. A masked mean
+divides this rank's sum by the count summed over the ranks (the mean of
+per-rank means is another loss when the counts differ); the in-batch
+matrices of ``contrastive_loss`` and ``all_text_embedding_loss`` score this
+rank's rows against every rank's columns, gathered with their gradient;
+``product_asin_loss`` against a row-sharded table scores every rank's rows
+against this rank's asins.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sessionsimilaritysearch_tpu_torch.parallel.sharding import ALONE, BatchGroup
 
 MASK_TOKEN_ID = 4  # the tokenizer's [MASK]
 MIN_MASKABLE_ID = 5  # ids below are special tokens
@@ -41,13 +58,22 @@ def cosine_similarity(a, b, dim: int = -1, eps: float = 1e-8):
     return (a * b).sum(dim=dim) / torch.clamp(an * bn, min=eps)
 
 
-def contrastive_loss(view1, view2):
+def _diagonal(rows: int, cols: int, group: BatchGroup, device):
+    """[rows, cols] membership of this rank's rows among the global
+    batch's columns: row i is global row ``offset + i``."""
+    offset = group.rows(rows)[0]
+    return (torch.arange(cols, device=device)[None, :]
+            == offset + torch.arange(rows, device=device)[:, None])
+
+
+def contrastive_loss(view1, view2, group: BatchGroup = ALONE):
     """JS-style contrastive estimator: normalized cosine score matrix clipped
     to [1e-4, 0.9999]; off-diagonal log(1 - s), diagonal 10 log(s);
-    normalized by B^2 + 9B."""
-    score = torch.clamp(_clipped_norm_rows(view1) @ _clipped_norm_rows(view2).T, 1e-4, 0.9999)
-    b = view1.shape[0]
-    eye = torch.eye(b, dtype=score.dtype, device=score.device)
+    normalized by B^2 + 9B (B the global batch)."""
+    other = group.gather(_clipped_norm_rows(view2))
+    score = torch.clamp(_clipped_norm_rows(view1) @ other.T, 1e-4, 0.9999)
+    b = other.shape[0]
+    eye = _diagonal(view1.shape[0], b, group, score.device).to(score.dtype)
     js = torch.log(1.0 - score) * (1.0 - eye) + 10.0 * torch.log(score) * eye
     return -js.sum() / (b * b + 9 * b)
 
@@ -64,35 +90,55 @@ def make_token_mask(generator: torch.Generator, input_ids, mask_ratio: float,
     return (r < mask_ratio) & (input_ids >= min_maskable_id)
 
 
-def electra_loss(pred, input_ids, gt_ids, valid_mask=None):
+def mlm_loss(logits, gt_ids, token_mask):
+    """Cross entropy at the masked positions: logits [..., T, V]; gt_ids and
+    token_mask [..., T]; mean over the mask, denominator clipped at 1."""
+    ce = _token_ce(logits, gt_ids)
+    m = token_mask.to(ce.dtype)
+    return (ce * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def electra_loss(pred, input_ids, gt_ids, valid_mask=None, group: BatchGroup = ALONE):
     """Replaced-token-detection BCE, pred in (0, 1) clipped to [1e-7, 1 -
     1e-7]; averaged over ``valid_mask`` when given (the JAX package's
     deliberate exclusion of padding), else over every position."""
     label = (input_ids != gt_ids).to(pred.dtype)
     p = torch.clamp(pred, 1e-7, 1.0 - 1e-7)
     bce = -(label * torch.log(p) + (1.0 - label) * torch.log(1.0 - p))
-    if valid_mask is None:
-        return bce.mean()
+    if valid_mask is None:  # every rank holds as many positions
+        return bce.mean() / group.world
     m = valid_mask.to(bce.dtype)
-    return (bce * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (bce * m).sum() / torch.clamp(group.sum(m.sum()), min=1.0)
 
 
-def all_text_embedding_loss(rep, targets, node_mask, valid_mask=None):
+def next_text_embedding_loss(rep, target, valid_mask):
+    """One target row per graph: sigmoid(rep @ target.T) [B, B] clipped to
+    [1e-7, 1 - 1e-7] against diag(valid_mask), mean BCE over the matrix."""
+    val = torch.clamp(torch.sigmoid(rep @ target.T), 1e-7, 1.0 - 1e-7)
+    y = torch.diag(valid_mask.to(val.dtype))
+    return (-(y * torch.log(val) + (1.0 - y) * torch.log(1.0 - val))).mean()
+
+
+def all_text_embedding_loss(rep, targets, node_mask, valid_mask=None,
+                            group: BatchGroup = ALONE):
     """Batch-membership BCE over a padded target store: rep [B, d]; targets
     [B, T, d]; node_mask [B, T] real rows; valid_mask [B, T] rows allowed as
     positives (default node_mask). Memberships with valid_mask 0 and padded
-    rows are left out of the mean."""
+    rows are left out of the mean. This rank's rows of ``rep`` score every
+    rank's targets."""
     if valid_mask is None:
         valid_mask = node_mask
+    targets = group.gather(targets)
+    node_mask, valid_mask = group.gather(node_mask), group.gather(valid_mask)
     B, T, d = targets.shape
+    rows = rep.shape[0]
     val = torch.clamp(torch.sigmoid(rep @ targets.reshape(B * T, d).T), 1e-7, 1.0 - 1e-7)
-    col_graph = torch.arange(B, device=rep.device).repeat_interleave(T)[None, :]
-    member = (col_graph == torch.arange(B, device=rep.device)[:, None]).to(val.dtype)
-    exists = node_mask.reshape(1, B * T).to(val.dtype).expand(B, -1)
-    valid = valid_mask.reshape(1, B * T).to(val.dtype).expand(B, -1)
+    member = _diagonal(rows, B, group, rep.device).repeat_interleave(T, dim=1).to(val.dtype)
+    exists = node_mask.reshape(1, B * T).to(val.dtype).expand(rows, -1)
+    valid = valid_mask.reshape(1, B * T).to(val.dtype).expand(rows, -1)
     include = exists * (1.0 - member * (1.0 - valid))
     loss_mat = -(member * torch.log(val) + (1.0 - member) * torch.log(1.0 - val))
-    return (loss_mat * include).sum() / torch.clamp(include.sum(), min=1.0)
+    return (loss_mat * include).sum() / torch.clamp(group.sum(include.sum()), min=1.0)
 
 
 def product_target_onehot(target_y, target_mask, asin_num: int):
@@ -104,16 +150,30 @@ def product_target_onehot(target_y, target_mask, asin_num: int):
     return y.scatter_reduce(1, target_y.long(), target_mask.to(torch.float32), "amax")
 
 
-def product_asin_loss(rep, asin_table, target_y, target_mask, neg_mask):
+def product_asin_loss(rep, asin_table, target_y, target_mask, neg_mask,
+                      group: BatchGroup = ALONE, shard=None):
     """Sigmoid logits over the whole asin vocabulary, clipped to [1e-4,
     0.9999], BCE averaged over the positives plus the sampled negatives.
     ``neg_mask`` [B, asin_num] is the negative sample: uniform draws below
-    ``neg_sample_count / asin_num`` (:func:`negative_mask`)."""
+    ``neg_sample_count / asin_num`` (:func:`negative_mask`).
+
+    This rank's share of the global batch's loss over ``group``. A
+    replicated table scores this rank's rows against every asin; a
+    row-sharded one (``shard``, its ``RowShard``: ``asin_table`` holds asins
+    [start, stop)) scores every rank's rows, gathered with their gradient,
+    against this rank's asins, and ``neg_mask`` is then [global B, stop -
+    start], the global negative sample cut to those columns."""
+    if shard is not None:
+        rep = group.gather(rep)
+        local = group.gather(target_y) - shard.start
+        mine = (local >= 0) & (local < asin_table.shape[0])
+        target_y = torch.where(mine, local, 0)
+        target_mask = group.gather(target_mask) * mine.to(target_mask.dtype)
     y = product_target_onehot(target_y, target_mask, asin_table.shape[0])
     val = torch.clamp(torch.sigmoid(rep @ asin_table.T), 1e-4, 0.9999)
     loss_mat = -(y * torch.log(val) + (1.0 - y) * torch.log(1.0 - val))
     loss_mask = (neg_mask | (y > 0)).to(loss_mat.dtype)
-    return (loss_mat * loss_mask).sum() / torch.clamp(loss_mask.sum(), min=1.0)
+    return (loss_mat * loss_mask).sum() / torch.clamp(group.sum(loss_mask.sum()), min=1.0)
 
 
 def negative_mask(generator: torch.Generator, batch: int, asin_num: int,
@@ -139,7 +199,8 @@ def product_asin_precision_recall(rep, asin_table, target_y, target_mask, k: int
     return precision, recall
 
 
-def node_reconstruction_loss(node_pred, node_feat, keep_mask, node_exists=None):
+def node_reconstruction_loss(node_pred, node_feat, keep_mask, node_exists=None,
+                             group: BatchGroup = ALONE):
     """Squared (1 - cos) on the nodes the keep mask dropped (and that exist)."""
     node_pred = node_pred.reshape(-1, node_pred.shape[-1])
     node_feat = node_feat.reshape(-1, node_feat.shape[-1])
@@ -147,12 +208,12 @@ def node_reconstruction_loss(node_pred, node_feat, keep_mask, node_exists=None):
     if node_exists is not None:
         dropped = dropped * node_exists.reshape(-1)
     err = (1.0 - cosine_similarity(node_pred, node_feat)) ** 2
-    return (dropped * err).sum() / (dropped.sum() + 1e-3)
+    return (dropped * err).sum() / (group.sum(dropped.sum()) + 1e-3)
 
 
-def qaea_distill_loss(pred, label):
+def qaea_distill_loss(pred, label, group: BatchGroup = ALONE):
     """mean(1 - cos) toward the frozen text embedding (no gradient into it)."""
-    return (1.0 - cosine_similarity(pred, label.detach())).mean()
+    return (1.0 - cosine_similarity(pred, label.detach())).mean() / group.world
 
 
 # ---------------------------------------------------------------------------

@@ -19,12 +19,19 @@ BatchNorm buffers), the optimizer, the step count and the
   output is detached) gets a zero one first. JAX's tree holds it with zero
   gradients, so ``optax.adamw`` still decays it; torch would skip a
   parameter whose ``.grad`` is None.
+
+In a data-parallel step (``parallel.sharding.shard_params``) the optimizer
+learns the ranks (``norm_group``) and which gradients are partial, those
+of the row-sharded tables (``partial_grads``): each rank holds its rows'
+part of the global norm^2, so the clip adds those parts over the ranks
+before it scales; the replicated gradients, already summed over the ranks,
+count once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List
+from typing import Iterable, List, Sequence
 
 import torch
 from torch import nn
@@ -35,12 +42,21 @@ ADAM_EPS = 1e-8
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        partial: Sequence[bool] = (), group=None) -> torch.Tensor:
     """optax ``clip_by_global_norm`` in place over ``grads``: scale by
     ``max_norm / norm`` when the global norm is at least ``max_norm``;
     returns the norm before the clip. A few fused (foreach) kernels, no host
-    synchronization."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    synchronization. ``partial[i]``: ``grads[i]`` is this rank's part of a
+    row-sharded gradient, whose squared norm ``group`` sums over the ranks."""
+    if not any(partial):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        def sq(gs):
+            return (torch.stack(torch._foreach_norm(gs)) ** 2).sum() if gs else 0.0
+
+        whole = sq([g for g, p in zip(grads, partial) if not p])
+        norm = torch.sqrt(whole + group.sum(sq([g for g, p in zip(grads, partial) if p])))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -52,6 +68,8 @@ class _ClipFirst:
     ``torch.profiler`` spans ``clip`` and ``adam``)."""
 
     clip_norm: float
+    norm_group = None
+    partial_grads: frozenset = frozenset()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -60,7 +78,8 @@ class _ClipFirst:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            clip_by_global_norm([p.grad for p in params], self.clip_norm)
+            clip_by_global_norm([p.grad for p in params], self.clip_norm,
+                                [id(p) in self.partial_grads for p in params], self.norm_group)
         with record_function("adam"):
             return super().step(closure)
 

@@ -99,6 +99,50 @@ def torch_key(path: tuple) -> str:
     return ".".join(parts)
 
 
+# the inverse of _MODULE_RENAME; a torch name that Flax also uses as it is
+# maps back only under the parent classes named here
+_MODULE_FLAX = {v: k for k, v in _MODULE_RENAME.items()}
+_RENAMED_UNDER = {"self_attn": ("EncoderLayer",),
+                  "encoder": ("CrossAttentionTransformer", "NodeTextTransformer"),
+                  "decoder": ("TransformerDecoderHead",)}
+# module class -> the Flax name of its ``weight``
+_WEIGHT_FLAX = {"Linear": "kernel", "Embedding": "embedding", "RowShardedEmbedding": "embedding",
+                "LayerNorm": "scale", "BatchNorm": "scale"}
+
+
+def flax_path(model: torch.nn.Module, name: str) -> Tuple[tuple, tuple]:
+    """The inverse of :func:`torch_key` on ``model``: the Flax path of the
+    parameter ``name`` and its shape in Flax's layout (a ``Dense.kernel``
+    is the transpose of ``Linear.weight``)."""
+    *mods, leaf = name.split(".")
+    path, mod, i = [], model, 0
+    while i < len(mods):
+        part = mods[i]
+        if part in ("layers", "convs"):  # layer_{i} / l{i}_{qp,pq,pp}: one Flax level
+            child = mod._modules[part][mods[i + 1] if part == "convs" else int(mods[i + 1])]
+            path.append(f"layer_{mods[i + 1]}" if part == "layers" else mods[i + 1])
+            i += 2
+        else:
+            child = mod._modules[part]
+            kept = part in _RENAMED_UNDER and type(mod).__name__ not in _RENAMED_UNDER[part]
+            path.append(part if kept else _MODULE_FLAX.get(part, part))
+            i += 1
+        mod = child
+    kind = type(mod).__name__
+    shape = tuple(getattr(mod, leaf).shape)
+    if leaf == "weight":
+        leaf = _WEIGHT_FLAX.get(kind, leaf)
+        if kind == "Linear":
+            shape = shape[::-1]
+        elif getattr(mod, "row_shard", None) is not None:
+            shape = (mod.row_shard.rows,) + shape[1:]
+    path = tuple(path) + (leaf,)
+    if torch_key(path) != name:
+        raise ValueError(f"{name}: its Flax path {'/'.join(path)} maps back to "
+                         f"{torch_key(path)}")
+    return path, shape
+
+
 def _to_torch(path: tuple, arr) -> torch.Tensor:
     arr = np.asarray(arr, np.float32)
     return torch.tensor(arr.T if path[-1] == "kernel" else arr)

@@ -229,13 +229,14 @@ def test_no_source_imports_the_jax_package():
 
 def test_no_message_names_the_ported_roadmap_items():
     # Queue 1 items 2 (the selection modes), 6 (the binary and two-stage
-    # tiers) and 8 / 8a (sharded serving) are ported: no source of the port
+    # tiers), 8 / 8a (sharded serving) and 8b (data-parallel training) are
+    # ported: no source of the port
     # may still refuse something naming them, and no NotImplementedError may
     # be left behind for them
     files = sorted(Path(port.__path__[0]).rglob("*.py"))
     bad = [f"{f.relative_to(REPO)}:{n}" for f in files
            for n, line in enumerate(f.read_text().splitlines(), 1)
-           if re.search(r"Queue 1 items? (?:[26]|8a?)\b", line)]
+           if re.search(r"Queue 1 items? (?:[26]|8[ab]?)\b", line)]
     assert not bad, bad
     assert port.TwoStageIndex(8, 4, device="cpu").stage1 == "matmul"  # the JAX default
 
