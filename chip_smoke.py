@@ -300,7 +300,42 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                q=1024, n=2^20, d=1600 bf16 -> f32 and f32 -> f32 (wgmma
                variants, max_abs_err <= 1e-5 on unit rows), beside one
                cuBLAS GEMM with f32 output and the tile loop at the same
-               shape.
+               shape;
+15. serving soak -- examples/serving_soak.py's run_soak at Config() width
+               (asin_num 50,000, embed batch 1,024, the flagship encoder at
+               init with bf16 serving_params and the title and keyword
+               tables, a bf16 engine): 16,384 rows, 24 mixed batches of 256
+               queries and 256 ingested sessions, k=100, remove_sessions by
+               content every 6 batches, expire every 8, save_async at the
+               midpoint while searches go on, restore after; then four
+               shards on the one card at 8,192 rows and 12 batches (expire
+               every 4). Each: the capture point's top-k back after restore,
+               every verb ran, the rows within 16 of fill + ingested -
+               removed - expired, nothing pending, kernel_path_flat (every
+               search one bf16 wgmma K1 launch, one per shard sharded),
+               memory_flat (torch.cuda.memory_allocated at the end within
+               64 MiB of the warm-up's), K1 against its plain version on
+               the engine's own queries and rows at two bf16 ulps, search()'s
+               top-k against the plain one; p50/p99 search ms, QPS, ingest
+               sessions/s, each verb's ms, save / restore s, the search
+               latency during the save. Then dryrun.entry() at full width
+               (SSS_ENTRY_FULL): 8 sessions on the card against the CPU on
+               the same weights (1e-4 of the scale, phase 4's bound);
+16. campaign -- two subprocesses of examples/flagship_campaign.py at
+               Config() width (2,048 sessions, batch 256, 2 epochs,
+               checkpoint every 4 steps, a loss logged every step): the first
+               ends with os._exit(3) at step 6, the second resumes from the
+               step-4 checkpoint and finishes (steps 5 and 6 replayed, their
+               losses within 1e-4); the median step, sessions/s, FLOPs a step
+               (FlopCounterMode) and TFLOP/s, the checkpoint's MB and its
+               write and read seconds; a third subprocess with no card
+               visible and no --device must fail;
+17. training soak -- examples/training_soak.py's main in-process at
+               Config() width with every head and the contrastive view
+               (4,096 sessions, batch 256, 16 steps): the NaN drill at step
+               10 reaches every loss term and is rolled back bit for bit, a
+               fresh state resumes from the checkpoint to step 16, exit 0;
+               step p50 / p90 ms and sessions/s.
 
 The build prints ptxas' resource lines; no kernel may spill. Each kernel
 time is printed with the SM clock and power draw that nvidia-smi reads
@@ -317,11 +352,13 @@ engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
 its C entry point;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
-and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b and 9c, counted
+and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b, 9c and 15, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
 holds phase 8's times per tier under ``twostage_tiers``, K1's phase 9c's
-numbers under ``sharded_serving``);
+numbers under ``sharded_serving``, phase 15's under ``serving_soak`` (the
+paths ``serving_soak`` and ``sharded_serving_soak``) and phases 16 and
+17's under ``training_runs``);
 its ``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
 with f32 scores, ``tile`` the tile variant's; K3: phase 13's
 bucketed_topk; K6: phase 14's scores_matmul, likewise with
@@ -4536,6 +4573,273 @@ def phase_scores_matmul_f32(torch, mips, lib, dev, g):
             "library_ms": lib_ms, "tile_ms": tile_ms, **bound}
 
 
+# phase 15: the serving soak at Config() width (asin_num 50,000, embed batch
+# 1,024), one card and four shards on it: (path, rows, mixed batches, shards,
+# expire_every); the sharded run's 12 batches would reach no expiry at 8. The
+# rows are cut to keep phases 15-17 near 150 s (generating a session takes
+# ~0.5 ms of host time); the full-size soak is the module's own default run
+SOAK_RUNS = (("serving_soak", 16384, 24, 0, 8), ("sharded_serving_soak", 8192, 12, 4, 4))
+SOAK_K, SOAK_BATCH = 100, 256  # k, and the queries and sessions of a mixed batch
+SOAK_REMOVE_EVERY = 6
+SOAK_ROW_SLACK = 16  # content-keyed removal may sweep rows that duplicate a victim
+
+
+def soak_kernel_check(torch, mips, topk_mod, keep, sharded):
+    """K1 against its plain version on the soak engine's own inputs, as
+    phase 4b: the last mixed batch's queries embedded, cast and normalized
+    in bf16 as search() takes them, and each shard's filled bf16 rows (the
+    restored corpus); then search()'s top-k against the plain top-k. The
+    bound is two bf16 ulps of the unit scale (``BF16_TOL``); the f32 sums
+    of exact bf16 products in another order differ by ~1e-5 over these
+    millions of scores. Returns the largest error."""
+    eng, queries = keep["engine"], keep["queries"]
+    idx = eng.index
+    bf = torch.bfloat16
+    qb = topk_mod.l2_normalize(eng.embed(queries, out="device").to(bf)).to(bf).contiguous()
+    bufs = ([b[: int(f)] for b, f in zip(idx._buf, idx._fill)] if sharded
+            else [idx._buf[: idx.ntotal]])
+    sd = idx.score_dtype
+    err, vals = 0.0, []
+    for corpus in bufs:
+        s, bm = mips.scores_with_bucket_max(qb.to(corpus.device), corpus, score_dtype=sd)
+        s_ref, bm_ref = mips.scores_with_bucket_max_ref(qb.to(corpus.device), corpus,
+                                                        score_dtype=sd)
+        err = max(err, (bm - bm_ref).abs().max().item(),
+                  (s.float() - s_ref.float()).abs().max().item())
+        vals.append(mips.select_topk(s_ref, bm_ref, SOAK_K)[0])
+    v_ref = torch.cat(vals, dim=1).topk(SOAK_K, dim=1).values.cpu().numpy()
+    D, _ = eng.search(queries, k=SOAK_K)
+    err = max(err, float(np.abs(D - v_ref).max()))
+    check(err <= BF16_TOL, f"serving soak: K1 vs plain on the engine's inputs max_abs_err {err}")
+    return err
+
+
+def phase_serving_soak(torch, mips, topk_mod, dev, card):
+    """Phase 15: examples/serving_soak.py's run_soak at Config() width on the
+    card, then over four shards on it; dryrun.entry() at full width."""
+    import types
+
+    from sessionsimilaritysearch_tpu_torch.examples import serving_soak
+
+    paths, summary, err = {}, {}, 0.0
+    for name, rows, batches, shards, expire_every in SOAK_RUNS:
+        with tempfile.TemporaryDirectory() as tmp:
+            args = types.SimpleNamespace(
+                rows=rows, asin_num=50_000, fill_chunk=8192, batches=batches,
+                qbatch=SOAK_BATCH, ibatch=SOAK_BATCH, k=SOAK_K, embed_batch=1024,
+                remove_every=SOAK_REMOVE_EVERY, expire_every=expire_every, mesh=shards,
+                workdir=tmp, device="cuda", tiny=False, tiny_model=False, out=None)
+            keep = {}
+            t0 = time.perf_counter()
+            r, counts = counted(torch, lambda: serving_soak.run_soak(args, keep))
+            wall = time.perf_counter() - t0
+        k1 = r["k1_launches"]
+        want_rows = rows + batches * SOAK_BATCH - r["removed_rows"] - r["expired_rows"]
+        snap = r["snapshot"] or {}
+        check(snap.get("search_identical_after_restore") is True and snap["save_s"] is not None,
+              f"{name}: snapshot {snap}")
+        check(r["removed_rows"] > 0 and r["expired_rows"] > 0
+              and set(r["ops_ms"]) >= {"ingest", "remove", "expire", "snapshot_capture"},
+              f"{name}: verbs {r['ops_ms']} removed {r['removed_rows']} expired "
+              f"{r['expired_rows']}")
+        check(abs(r["ntotal_end"] - want_rows) <= SOAK_ROW_SLACK
+              and r["engine_stats"]["pending"] == 0,
+              f"{name}: rows {r['ntotal_end']} (want {want_rows}), {r['engine_stats']}")
+        per_search = [shards or 1]
+        check(r["kernel_path_flat"] and k1["wgmma"] == k1["total"] > 0
+              and k1["per_search"] == per_search,
+              f"{name}: K1 launches {k1} (each search {per_search}, all the bf16 wgmma "
+              "variant)")
+        check(counts["k1"] == counts["k1_wgmma"] >= k1["total"]
+              and counts["k1_cp"] == counts["k2"] == counts["k4"] == 0,
+              f"{name}: launches over the run {counts}")
+        check(r["memory_flat"] is True, f"{name}: device memory {r['memory_allocated_after_warmup']}"
+              f" -> {r['memory_allocated_end']}")
+        e = soak_kernel_check(torch, mips, topk_mod, keep, bool(shards))
+        err = max(err, e)
+        del keep
+        torch.cuda.empty_cache()
+        s, dsave = r["search"], r["search_during_save"] or {}
+        ops = {k: v["mean"] for k, v in r["ops_ms"].items()}
+        print(f"  {name} ({rows} rows, {batches} mixed batches of {SOAK_BATCH}, "
+              f"{shards or 1} shard(s)) [{card}]: search p50 {s['p50_ms']} ms, p99 "
+              f"{s['p99_ms']} ms, {s['qps']} QPS; during the save p50 {dsave.get('p50_ms')} ms "
+              f"over {dsave.get('batches')} batches; sustained mixed {r['sustained_mixed_qps']} "
+              f"QPS; ingest {r['ingest_sessions_per_s']} sessions/s; ops mean ms "
+              f"{json.dumps(ops)}; save {snap['save_s']} s, restore {snap['restore_s']} s; "
+              f"removed {r['removed_rows']}, expired {r['expired_rows']}, rows "
+              f"{r['ntotal_end']}; K1 {k1}; memory {r['memory_allocated_after_warmup']} -> "
+              f"{r['memory_allocated_end']} B; K1 vs plain max_abs_err {e:.3g}; setup "
+              f"{r['setup_s']} s, fill {r['fill_s']} s, run {wall:.1f} s")
+        paths[name] = counts
+        summary[name] = {key: r[key] for key in (
+            "rows", "capacity", "ntotal_end", "setup_s", "fill_s", "ingest_sessions_per_s",
+            "mixed_batches", "mixed_wall_s", "sustained_mixed_qps", "search",
+            "search_during_save", "ops_ms", "removed_rows", "expired_rows", "snapshot",
+            "k1_launches", "memory_allocated_after_warmup", "memory_allocated_end")}
+
+    # dryrun.entry() at full width: the card against the CPU on the same weights
+    import copy
+
+    from sessionsimilaritysearch_tpu_torch import dryrun
+
+    os.environ["SSS_ENTRY_FULL"] = "1"
+    try:
+        fn, (enc, graph) = dryrun.entry()
+    finally:
+        os.environ.pop("SSS_ENTRY_FULL", None)
+    on_card = fn(enc, graph)
+    entry_ms = cuda_ms(torch, lambda: fn(enc, graph), 10)
+    cpu_enc = copy.deepcopy(enc).cpu()
+    on_cpu = fn(cpu_enc, type(graph)(*(t.cpu() for t in graph))).numpy()
+    on_card = on_card.cpu().numpy()
+    scale = float(np.abs(on_cpu).max())
+    entry_err = float(np.abs(on_card - on_cpu).max())
+    check(on_card.shape[0] == 8 and np.isfinite(on_card).all() and entry_err <= 1e-4 * scale,
+          f"entry(): card vs CPU max_abs_err {entry_err} (scale {scale})")
+    print(f"  dryrun.entry() Config(asin_num=50,000) [{card}]: 8 sessions -> {on_card.shape}, "
+          f"{entry_ms:.2f} ms a forward (CUDA events, 10 calls); card vs CPU max_abs_err "
+          f"{entry_err:.3g} of scale {scale:.3g}")
+    del enc, cpu_enc
+    torch.cuda.empty_cache()
+    summary["entry"] = {"ms": entry_ms, "card_vs_cpu": entry_err, "scale": scale}
+    return paths, summary, err
+
+
+# phase 16: the campaign's crash / resume drill at Config() width
+CAMPAIGN_MODULE = "sessionsimilaritysearch_tpu_torch.examples.flagship_campaign"
+CAMPAIGN_ARGS = ("--sessions", "2048", "--batch-size", "256", "--epochs", "2",
+                 "--ckpt-every", "4", "--log-every", "1")
+CAMPAIGN_CRASH, CAMPAIGN_SEAM = 6, 4
+CAMPAIGN_STEPS_PER_EPOCH = 8  # 2,048 sessions in batches of 256
+CAMPAIGN_REPLAY_TOL = 1e-4
+
+
+def phase_campaign(torch, dev, card):
+    """Phase 16: two subprocesses of the campaign, the first ended by its
+    crash drill, the second resuming; then one with no card visible."""
+    import shutil
+
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
+    env["PYTHONPATH"] = HERE
+    root = tempfile.mkdtemp(prefix="campaign_")
+    torch.cuda.empty_cache()  # room for the subprocesses on the card
+    try:
+        run = os.path.join(root, "run")
+
+        def campaign(crash, out):
+            argv = [sys.executable, "-m", CAMPAIGN_MODULE, *CAMPAIGN_ARGS, "--savedir", run,
+                    "--out", out, "--crash-at-step", str(crash)]
+            t0 = time.perf_counter()
+            sub = subprocess.run(argv, cwd=root, env=env, capture_output=True, text=True,
+                                 timeout=600)
+            return sub, time.perf_counter() - t0
+
+        out1, out2 = os.path.join(root, "s1.json"), os.path.join(root, "s2.json")
+        first, first_s = campaign(CAMPAIGN_CRASH, out1)
+        check(first.returncode == 3 and not os.path.exists(out1),
+              f"campaign: the crash drill exited {first.returncode}: {first.stderr[-2000:]}")
+        second, second_s = campaign(-1, out2)
+        check(second.returncode == 0, f"campaign: the resume failed: {second.stderr[-2000:]}")
+        with open(out2) as f:
+            s = json.load(f)
+        seam = {"epoch": 0, "batch_idx": CAMPAIGN_SEAM, "global_step": CAMPAIGN_SEAM}
+        check(s["steps_per_epoch"] == CAMPAIGN_STEPS_PER_EPOCH
+              and s["steps_total"] == 2 * s["steps_per_epoch"] and s["resume_seams"] == [seam],
+              f"campaign: steps {s['steps_total']}, seams {s['resume_seams']}")
+        check(s["replay_loss_max_dev"] <= CAMPAIGN_REPLAY_TOL,
+              f"campaign: replayed steps' losses differ by {s['replay_loss_max_dev']}")
+        steps = [c[0] for c in s["loss_curve"]]
+        check(steps == list(range(1, s["steps_total"] + 1))
+              and all(np.isfinite(c[1]) for c in s["loss_curve"]),
+              f"campaign: loss curve {s['loss_curve']}")
+        with open(os.path.join(run, "campaign_log.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        replayed = {e["step"]: [] for e in log if e["event"] == "loss"}
+        for e in log:
+            if e["event"] == "loss":
+                replayed[e["step"]].append(e["loss"])
+        replayed = {k: v for k, v in replayed.items() if len(v) > 1}
+        check(sorted(replayed) == [5, 6], f"campaign: replayed steps {sorted(replayed)}")
+        saves = [e["s"] for e in log if e["event"] == "checkpoint"]
+        restore_s = [e["restore_s"] for e in log if e["event"] == "start" and e["restore_s"]]
+        ckpt_mb = sum(os.path.getsize(os.path.join(run, "ckpt", f"{t}.pt"))
+                      for t in ("latest", "campaign_meta")) / 2**20
+        blind = subprocess.run(
+            [sys.executable, "-m", CAMPAIGN_MODULE, "--savedir", os.path.join(root, "blind")],
+            cwd=root, env={**env, "CUDA_VISIBLE_DEVICES": ""},
+            capture_output=True, text=True, timeout=600)
+        check(blind.returncode != 0 and "torch.cuda.is_available() is False" in blind.stderr,
+              "campaign: a subprocess with no card visible did not refuse to run")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    dev_of = {k: max(v) - min(v) for k, v in replayed.items()}
+    print(f"  campaign Config() (2,048 sessions, batch 256, 2 epochs, checkpoint every 4 steps) "
+          f"[{card}]: crash drill exit 3 at step {CAMPAIGN_CRASH} ({first_s:.1f} s), resume from "
+          f"step {CAMPAIGN_SEAM} exit 0 ({second_s:.1f} s); replayed steps' |loss difference| "
+          f"{json.dumps(dev_of)} (replay_loss_max_dev {s['replay_loss_max_dev']}); median step "
+          f"{s['step_ms_median_timed_window']} ms (p90 {s['step_ms_p90_timed_window']}), "
+          f"{s['sustained_sessions_per_s_this_run']} sessions/s over the resumed run, "
+          f"{s['flops_per_step_g']} GFLOP a step (FlopCounterMode), {s['achieved_tflops']} "
+          f"TFLOP/s achieved; first step {s['first_step_s']} s; checkpoint {ckpt_mb:.1f} MB, "
+          f"writes {' / '.join(f'{x:.2f}' for x in saves)} s, read "
+          f"{' / '.join(f'{x:.2f}' for x in restore_s)} s; with no card visible it exits "
+          f"{blind.returncode}; loss {s['loss_first10_mean']} -> {s['loss_last10_mean']}")
+    return {**{k: s[k] for k in ("steps_total", "replay_loss_max_dev",
+                                  "step_ms_median_timed_window", "step_ms_p90_timed_window",
+                                  "sustained_sessions_per_s_this_run", "flops_per_step_g",
+                                  "achieved_tflops", "first_step_s")},
+            "checkpoint_mb": ckpt_mb, "save_s": saves, "restore_s": restore_s}
+
+
+# phase 17: the all-heads training soak at Config() width
+TSOAK_ARGS = ("--sessions", "4096", "--batch-size", "256", "--nan-step", "10")
+# 16 steps an epoch, the checkpoint after step 5, the crash after 10 (the
+# drill's step, the last before it, dropped); the resume trains from step 5
+# over the loader's first 11 batches: 5 + 16 - 10 + 5
+TSOAK_STEPS = 16
+
+
+def phase_training_soak(torch, dev, card):
+    """Phase 17: examples/training_soak.py's main in-process on the card."""
+    import contextlib
+    import io
+    import shutil
+
+    from sessionsimilaritysearch_tpu_torch.examples import training_soak
+
+    root = tempfile.mkdtemp(prefix="tsoak_")
+    try:
+        out = os.path.join(root, "soak.json")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = training_soak.main([*TSOAK_ARGS, "--savedir", os.path.join(root, "run"),
+                                     "--out", out])
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            r = json.load(f)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    ev = {e["event"]: e for e in r["events"]}
+    check(rc == 0, f"training soak: exit {rc}: {buf.getvalue()[-2000:]}")
+    check(ev.get("nan_caught", {}).get("step") == 10
+          and ev["nan_caught"]["finite_terms"] == []
+          and ev.get("rollback_checked", {}).get("bit_exact") is True,
+          f"training soak: the drill {r['events']}")
+    check(r["steps_total"] == TSOAK_STEPS and all(np.isfinite(r["loss_curve_every50"])),
+          f"training soak: steps {r['steps_total']}, losses {r['loss_curve_every50']}")
+    print(f"  training soak Config() all heads + view ({TSOAK_ARGS[1]} sessions, batch 256, "
+          f"{r['params_m']} M params) [{card}]: exit {rc}; NaN drill at step 10 caught "
+          f"(every loss term non-finite) and rolled back bit for bit; resumed to step "
+          f"{r['steps_total']}; step p50 {r['step_ms_p50']} ms, p90 {r['step_ms_p90']} ms, "
+          f"{r['sessions_per_s']} sessions/s; {r['compile_steps_excluded']} warm-up steps "
+          f"excluded; loss {r['loss_first20']} -> {r['loss_last20']}; wall {wall:.1f} s")
+    return {k: r[k] for k in ("steps_total", "step_ms_p50", "step_ms_p90", "sessions_per_s",
+                              "wall_s", "params_m")}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4637,6 +4941,11 @@ def main() -> int:
                                       dev, parts)
     k3 = run_phase(torch, "bucket max kernel", phase_bucket_max, torch, topk_mod, dev)
     k6 = run_phase(torch, "scores matmul kernel", phase_scores_matmul, torch, dev)
+    soak_paths, soak, err_soak = run_phase(torch, "serving soak", phase_serving_soak, torch,
+                                           mips, topk_mod, dev, card_line)
+    campaign = run_phase(torch, "campaign", phase_campaign, torch, dev, card_line)
+    training_soak = run_phase(torch, "training soak", phase_training_soak, torch, dev,
+                              card_line)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "sessionsimilaritysearch_tpu")
                   for m in sys.modules),
@@ -4694,7 +5003,7 @@ def main() -> int:
                  "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts,
                  "session_trainer_serving": st_counts, "finetuned_sign": ft_counts["sign"],
                  "finetuned_packed": ft_counts["packed"], **cli_counts, **sharded_paths,
-                 "data_parallel_dryrun": dp_counts}
+                 "data_parallel_dryrun": dp_counts, **soak_paths}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path
@@ -4707,9 +5016,11 @@ def main() -> int:
             entry_["launches_by_path"]["cp_async"] = {path: c["k1_cp"]
                                                       for path, c in new_paths.items()}
         entry_["launches"] += sum(by_path.values())
-    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers, err_sharded)
+    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers, err_sharded, err_soak)
     k1_entry["sharded_serving"] = sharded
     k1_entry["data_parallel"] = dp_summary
+    k1_entry["serving_soak"] = soak
+    k1_entry["training_runs"] = {"campaign": campaign, "training_soak": training_soak}
     # K1's and K6's bf16 kernel fed by cp.async: its launches on the paths
     # whose rows TMA cannot describe (each counted from 0), its times at
     # sign mode's shape, the producer ablation and K6's ragged case beside

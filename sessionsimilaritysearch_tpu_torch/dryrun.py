@@ -1,7 +1,12 @@
-"""The multi-process dry run (counterpart of ``__graft_entry__.py``
-``dryrun_multichip`` :81): one data-parallel pretrain step with the asin
-and token tables row-sharded, then every sharded retrieval check of the
-JAX dry run, on one global mesh of one shard per rank.
+"""The entry points of ``__graft_entry__.py``, ported.
+
+``entry()`` (``__graft_entry__.py:34``): the flagship ``GraphLevelEncoder``
+and 8 example sessions, with the forward that embeds them.
+
+The multi-process dry run (``dryrun_multichip`` :81): one data-parallel
+pretrain step with the asin and token tables row-sharded, then every
+sharded retrieval check of the JAX dry run, on one global mesh of one
+shard per rank.
 
 ``dryrun_multichip(n)`` starts ``n`` gloo processes on the CPU (this file
 run as a script, ``python -m sessionsimilaritysearch_tpu_torch.dryrun RANK
@@ -43,6 +48,36 @@ def _example_batch(cfg, batch_size: int):
     tok = get_tokenizer(cfg.vocab_size)
     return batch_graphs([sequence_to_graph(i, s, t, tok, cfg.dims, ignore_query=cfg.ignore_query)
                          for i, (s, t) in enumerate(gen.dataset(batch_size))])
+
+
+# the reduced widths of entry(): a quick compile-and-run check
+ENTRY_REDUCED = dict(asin_num=20_000, vocab_size=8192, text_encoder_dim=256,
+                     query_embedder_nhid=512, gnn_nhid=256, gnn_nout=256, emb_len=128)
+
+
+def entry(device="cuda"):
+    """Returns ``(forward, (encoder, batch))``: ``forward(encoder, graph)``
+    is the flagship ``GraphLevelEncoder``'s embedding [8, session_emb_dim]
+    of ``batch``, 8 synthetic sessions. The widths are reduced from the
+    reference's 768 / 800 (``ENTRY_REDUCED``); with ``SSS_ENTRY_FULL`` set
+    they are ``Config(asin_num=50_000)``'s. The weights are drawn on the CPU
+    (a generator seeded with 0), then the encoder and the batch are moved
+    to ``device``: the card unless the caller asks for the CPU."""
+    from sessionsimilaritysearch_tpu_torch.config import Config
+    from sessionsimilaritysearch_tpu_torch.device import resolve_device
+    from sessionsimilaritysearch_tpu_torch.evalharness.harness import to_device
+    from sessionsimilaritysearch_tpu_torch.models import build_graph_encoder
+
+    dev = resolve_device(device)
+    cfg = Config(asin_num=50_000) if os.environ.get("SSS_ENTRY_FULL") else Config(**ENTRY_REDUCED)
+    batch = _example_batch(cfg, batch_size=8)
+    enc = build_graph_encoder(cfg, "cpu", torch.Generator().manual_seed(0)).to(dev)
+
+    def forward(encoder, graph):
+        with torch.no_grad():
+            return encoder(graph)
+
+    return forward, (enc, to_device(batch, dev))
 
 
 def _check(cond: bool, what: str) -> None:
