@@ -335,7 +335,47 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                (4,096 sessions, batch 256, 16 steps): the NaN drill at step
                10 reaches every loss term and is rolled back bit for bit, a
                fresh state resumes from the checkpoint to step 16, exit 0;
-               step p50 / p90 ms and sessions/s.
+               step p50 / p90 ms and sessions/s;
+18. flagship serving artifact -- examples/flagship_serving.py's main
+               in-process at Config() width (32,768 sessions, asin_num
+               50,000, 20 training steps, 1024 queries, k=100, 250 bits, 3
+               timed calls a mode): all 14 modes; value-recall@10 >= 0.999 in
+               exact_bf16, exact_cert_bf16, int8x8_exact and int8x8_cert,
+               1.0 against the tie-aware Hamming oracle in binary_sign,
+               binary_approx and binary_packed_itq; binary_approx returns
+               binary_sign's ids; one search of each mode launches one
+               kernel: K1's TMA wgmma variant (the exact and PCA-64 modes,
+               the whole corpus as one chunk), K2's wgmma variant (int8x8),
+               K1's cp_async variant (the 250-bit sign scans and the
+               two-stage stage 1) or K4 (the packed modes); each kernel
+               against its plain version on the script's own tensors (two
+               bf16 ulps for K1 bf16 and K2, 0 for K1 on +-1 rows and K4);
+               each mode's ms, QPS, value-recall and ave_type_score10;
+19. flagship train -- examples/flagship_train.py's main at Config(), batch
+               50, 30 steps and 10 resume steps, both phases: 31 steps (the
+               loader's count), the fresh state restores step 31 and
+               continues to 41, finite losses, no port kernel; the
+               checkpoint directory is removed afterwards;
+20. index build -- examples/index_build_100k.py's main at its own config
+               (32,768 sessions, 4,096 training sessions, 1 epoch):
+               every top-1 at the self-cosine, every query its own top-1
+               but those that find a bit-identical row first (under
+               ignore_query every search-only session embeds to one row,
+               more of them than k), every K1 launch the f32 wgmma variant,
+               K1 against its plain version on the index's rows and the
+               queries to 1e-5 of the largest plain score;
+21. maintenance bench -- examples/maintenance_bench.py's main at its full
+               size (2^20 x 1600 bf16, capacity 1,572,864, 3 timed
+               searches): each radius's range hits against a torch f64
+               oracle on the stored rows (computed 65,536 rows at a time;
+               rows within one bf16 ulp of the radius may differ), no removed
+               id from the one-shard sharded index, one K1 wgmma launch a
+               search after the removals on both indexes, K1 against its
+               plain version; --out under the temporary directory, removed;
+22. embed pipeline probe -- examples/embed_pipeline_probe.py's main at
+               Config(asin_num=50,000) on 16,384 sessions: A and B agree
+               bit for bit, C's two indexes hold the same rows, no port
+               kernel.
 
 The build prints ptxas' resource lines; no kernel may spill. Each kernel
 time is printed with the SM clock and power draw that nvidia-smi reads
@@ -352,13 +392,16 @@ engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
 its C entry point;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
-and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b, 9c and 15, counted
+and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b, 9c, 15 and 18-22, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
 holds phase 8's times per tier under ``twostage_tiers``, K1's phase 9c's
 numbers under ``sharded_serving``, phase 15's under ``serving_soak`` (the
 paths ``serving_soak`` and ``sharded_serving_soak``) and phases 16 and
-17's under ``training_runs``);
+17's under ``training_runs``, phases 18-22's under
+``operational_scripts``; the paths ``example_flagship_serving``,
+``example_flagship_train``, ``example_index_build_100k``,
+``example_maintenance_bench`` and ``example_embed_pipeline_probe``);
 its ``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
 with f32 scores, ``tile`` the tile variant's; K3: phase 13's
 bucketed_topk; K6: phase 14's scores_matmul, likewise with
@@ -366,7 +409,8 @@ bucketed_topk; K6: phase 14's scores_matmul, likewise with
 case on the cp_async variant; and ``scores_bmax_cp``, K1's and K6's bf16
 kernel fed by cp.async for rows TMA cannot describe: its launches those of
 phase 7's sign-mode search, phase 8's 'itq' + 'matmul' tier, phase 9b's
-'itq' + 'matmul' engine and phase 4i's fine-tuned sign codes, each path's
+'itq' + 'matmul' engine, phase 4i's fine-tuned sign codes and phase 18's
+sign and two-stage modes, each path's
 under ``launches_by_path``, its times
 at sign mode's shape, ``producer_ablation_d256`` beside the TMA variant),
 its largest error
@@ -4840,6 +4884,333 @@ def phase_training_soak(torch, dev, card):
                               "wall_s", "params_m")}
 
 
+# phases 18-22: the serving-side operational scripts, each run through
+# its module's main() on the card, its stdout kept apart from this log
+FS_ARGS = ("--sessions", "32768", "--asin-num", "50000", "--train-steps", "20",
+           "--queries", "1024", "--k", "100", "--bits", "250", "--iters", "3")
+FS_MODES = ("exact_bf16", "exact_cert_bf16", "int8x8_exact", "int8x8_cert", "int8x8_approx",
+            "pca64_exact", "binary_sign", "binary_approx", "twostage_pool256",
+            "twostage_pool512", "twostage_itq_pool128", "twostage_itq_pool256",
+            "binary_packed_itq", "twostage_packeditq_pool128")
+FS_GATED = ("exact_bf16", "exact_cert_bf16", "int8x8_exact", "int8x8_cert")  # >= 0.999
+FS_HAMMING = ("binary_sign", "binary_approx", "binary_packed_itq")  # 1.0, tie-aware
+FS_GATE = 0.999
+# one search of each mode: its kernel launches by variant (read_counts keys)
+FS_TMA = {**NO_LAUNCHES, "k1": 1, "k1_wgmma": 1}
+FS_CP = {**NO_LAUNCHES, "k1": 1, "k1_cp": 1}
+FS_K2 = {**NO_LAUNCHES, "k2": 1, "k2_wgmma": 1}
+FS_K4 = {**NO_LAUNCHES, "k4": 1}
+FS_PER_SEARCH = {"exact_bf16": FS_TMA, "exact_cert_bf16": FS_TMA, "pca64_exact": FS_TMA,
+                 "int8x8_exact": FS_K2, "int8x8_cert": FS_K2, "int8x8_approx": FS_K2,
+                 "binary_sign": FS_CP, "binary_approx": FS_CP, "twostage_pool256": FS_CP,
+                 "twostage_pool512": FS_CP, "twostage_itq_pool128": FS_CP,
+                 "twostage_itq_pool256": FS_CP, "binary_packed_itq": FS_K4,
+                 "twostage_packeditq_pool128": FS_K4}
+FT_ARGS = ("--batch-size", "50", "--steps", "30", "--resume-steps", "10")
+IB_ARGS = ("--sessions", "32768", "--train-sessions", "4096", "--epochs", "1")
+IB_F32_REL = 1e-5  # K1 f32 against its plain version, of the largest plain score
+MB_ARGS = ("--iters", "3")
+EP_ARGS = ("--sessions", "16384")
+
+
+def quiet(fn, *args, **kw):
+    """``fn(*args, **kw)`` with its stdout kept in a buffer (the scripts
+    print their own reports); returns (result, the buffer's text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    return out, buf.getvalue()
+
+
+def pair_err(torch, got, want) -> float:
+    """The largest |difference| of two kernel outputs (scores, bucket maxes)
+    against the plain version's, in f32; equal values (-inf past a valid
+    count included) differ by 0."""
+    err = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = max(err, torch.where(g == w, 0.0, (g - w).abs()).max().item())
+    return err
+
+
+def phase_flagship_serving_artifact(torch, dev, card):
+    """Phase 18: examples/flagship_serving.py at Config() width, then each
+    mode's one search counted by variant and each kernel held against its
+    plain version on the script's own tensors."""
+    from sessionsimilaritysearch_tpu_torch.examples import flagship_serving
+    from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8, packed
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    (r, log), counts = counted(torch, lambda: quiet(flagship_serving.main, list(FS_ARGS),
+                                                    keep=keep))
+    wall = time.perf_counter() - t0
+    modes = r["modes"]
+    check(tuple(modes) == FS_MODES, f"flagship serving: modes {list(modes)}")
+    for name in FS_GATED:
+        check(modes[name]["value_recall10"] >= FS_GATE,
+              f"flagship serving: {name} value_recall10 {modes[name]['value_recall10']}")
+    for name in FS_HAMMING:
+        check(modes[name]["value_recall10"] == 1.0,
+              f"flagship serving: {name} Hamming value_recall10 {modes[name]['value_recall10']}")
+    check(counts["k1"] == counts["k1_wgmma"] + counts["k1_cp"] and counts["k1_wgmma"] > 0
+          and counts["k1_cp"] > 0 and counts["k2"] == counts["k2_wgmma"] > 0
+          and counts["k4"] > 0, f"flagship serving: launches over the run {counts}")
+    per_search = {}
+    for name, (fn, q0) in keep["modes"].items():
+        _, c = counted(torch, lambda: fn(q0))
+        per_search[name] = c
+        check(c == FS_PER_SEARCH[name],
+              f"flagship serving: one {name} search launched {c}, want {FS_PER_SEARCH[name]}")
+    ids = keep["ids"]
+    check(np.array_equal(ids["binary_approx"], ids["binary_sign"]),
+          "flagship serving: binary_approx did not return binary_sign's ids")
+    f = keep["forms"]
+    bf = torch.bfloat16
+    n, ci_packed = f["n"], f["ci_packed"]
+    pairs = {
+        "k1_bf16": (mips.scores_with_bucket_max(f["queries"], f["corpus"], score_dtype=bf),
+                    mips.scores_with_bucket_max_ref(f["queries"], f["corpus"], score_dtype=bf)),
+        "k1_pca64": (mips.scores_with_bucket_max(f["qp"], f["cp"], score_dtype=bf),
+                     mips.scores_with_bucket_max_ref(f["qp"], f["cp"], score_dtype=bf)),
+        "k1_cp_simhash": (mips.scores_with_bucket_max(f["q_signs"], f["c_signs"], score_dtype=bf),
+                          mips.scores_with_bucket_max_ref(f["q_signs"], f["c_signs"],
+                                                          score_dtype=bf)),
+        "k1_cp_itq": (mips.scores_with_bucket_max(f["qi_signs"], f["ci_signs"], score_dtype=bf),
+                      mips.scores_with_bucket_max_ref(f["qi_signs"], f["ci_signs"],
+                                                      score_dtype=bf)),
+        "k2": (mips_int8.scores_with_bucket_max_int8(f["q8"], f["c8"], f["c_scales"],
+                                                     score_dtype=bf),
+               mips_int8.scores_with_bucket_max_int8_ref(f["q8"], f["c8"], f["c_scales"],
+                                                         score_dtype=bf)),
+        "k4": (packed.packed_scores_with_bucket_max(f["qi_pad"], ci_packed, n,
+                                                    score_dtype=bf),
+               packed.packed_scores_with_bucket_max_ref(f["qi_pad"], ci_packed, n,
+                                                        score_dtype=bf)),
+    }
+    errs = {key: pair_err(torch, *pair) for key, pair in pairs.items()}
+    del pairs
+    bounds = {"k1_bf16": BF16_TOL, "k1_pca64": BF16_TOL, "k1_cp_simhash": 0.0,
+              "k1_cp_itq": 0.0, "k2": BF16_TOL, "k4": 0.0}
+    for key, err in errs.items():
+        check(err <= bounds[key],
+              f"flagship serving: {key} against its plain version max_abs_err {err}")
+    del keep, f
+    torch.cuda.empty_cache()
+    for name in FS_MODES:
+        m = modes[name]
+        vr = {k: v for k, v in m.items() if k.startswith("value_recall10")}
+        print(f"  {name:>26} [{card}]: {m['ms_per_batch']} ms, {m['qps']} QPS, "
+              f"{json.dumps(vr)}, type@10 {m['ave_type_score10']}; one search "
+              f"{json.dumps({k: v for k, v in per_search[name].items() if v})}")
+    print(f"  flagship_serving {' '.join(FS_ARGS)} [{card}]: generate {r['gen_s']} s, train "
+          f"{r['train_steps']} steps {r['train_s']} s, title table {r['title_table_s']} s, "
+          f"keyword table {r['kw_table_s']} s, embed {r['embed_s']} s "
+          f"({r['embed_sessions_per_s']} sessions/s), ITQ fit {r['itq_fit_s']} s; launches "
+          f"{counts}; against the plain versions {json.dumps(errs)}; wall {wall:.1f} s")
+    return counts, errs, {"report": r, "per_search": per_search, "errs": errs, "wall_s": wall}
+
+
+def phase_flagship_train(torch, dev, card):
+    """Phase 19: examples/flagship_train.py at Config(), batch 50, both
+    phases, each with its resume proof; no port kernel runs."""
+    import shutil
+
+    from sessionsimilaritysearch_tpu_torch.examples import flagship_train
+
+    root = tempfile.mkdtemp(prefix="flagship_train_")
+    out, total = {}, dict(NO_LAUNCHES)
+    try:
+        for phase in ("pretrain", "subsession"):
+            t0 = time.perf_counter()
+            (s, _), counts = counted(torch, lambda: quiet(
+                flagship_train.main, [*FT_ARGS, "--phase", phase, "--savedir", root]))
+            wall = time.perf_counter() - t0
+            steps, resume = int(FT_ARGS[3]), int(FT_ARGS[5])
+            # steps * batch + batch sessions in batches of 50, the last not
+            # dropped: steps + 1 batches, the loader's count
+            check(s["steps"] == steps + 1,
+                  f"flagship train {phase}: {s['steps']} steps, the loader yields {steps + 1}")
+            check(s["resume_check"] == f"restored step {steps + 1}, continued to "
+                                       f"{steps + 1 + resume}",
+                  f"flagship train {phase}: {s['resume_check']}")
+            check(all(np.isfinite(s[k]) for k in ("loss_first10_mean", "loss_last10_mean",
+                                                   "loss_resumed10_mean")),
+                  f"flagship train {phase}: losses {s}")
+            check(counts == NO_LAUNCHES, f"flagship train {phase}: port kernels {counts}")
+            ckpt_mb = os.path.getsize(os.path.join(root, phase, "ckpt", "latest.pt")) / 2**20
+            print(f"  flagship_train --phase {phase} {' '.join(FT_ARGS)} [{card}]: "
+                  f"{s['params_m']} M params, first step {s['first_step_s']} s, step p50 "
+                  f"{s['step_ms_median']} ms, p90 {s['step_ms_p90']}, {s['sessions_per_s']} "
+                  f"sessions/s; loss {s['loss_first10_mean']} -> {s['loss_last10_mean']}, "
+                  f"resumed {s['loss_resumed10_mean']}; {s['resume_check']}; checkpoint "
+                  f"{ckpt_mb:.1f} MB; wall {wall:.1f} s")
+            out[phase] = {**s, "checkpoint_mb": ckpt_mb, "wall_s": wall}
+            total = add_counts(total, counts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return total, out
+
+
+def phase_index_build(torch, dev, card):
+    """Phase 20: examples/index_build_100k.py at its own config; every K1
+    launch the f32 wgmma variant, held against its plain version on the
+    index's rows and the queries."""
+    from sessionsimilaritysearch_tpu_torch.examples import index_build_100k
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    (s, _), counts = counted(torch, lambda: quiet(index_build_100k.main, list(IB_ARGS),
+                                                  keep=keep))
+    wall = time.perf_counter() - t0
+    check(counts["k1"] == counts["k1_wgmma"] > 0 and counts["k1_cp"] == counts["k2"]
+          == counts["k4"] == 0, f"index build: launches {counts}")
+    idx, ids = keep["index"], keep["ids"]
+    check(idx.dtype == torch.float32, f"index build: a {idx.dtype} index")
+    # with ignore_query every search-only session embeds to one row (more
+    # rows than k), so such a query can find an identical row first: every
+    # query whose top-1 is not itself must find a bit-identical stored row
+    misses = np.nonzero(ids[:, 0] != np.arange(len(ids)))[0]
+    bad = [int(i) for i in misses if not (ids[i, 0] >= 0 and torch.equal(
+        idx._buf[int(ids[i, 0])], idx._buf[int(i)]))]
+    check(not bad and s["top1_score_at_self_cos"] == 1.0
+          and abs(s["self_recall_at_1"] - (1.0 - len(misses) / len(ids))) < 1e-9,
+          f"index build: self recall {s['self_recall_at_1']}, top-1 at the self-cosine "
+          f"{s['top1_score_at_self_cos']}, top-1s that are neither the query nor an identical "
+          f"row: {bad[:10]}")
+    q = l2_normalize(keep["queries"].float()).contiguous()
+    rows = idx._buf[: min(idx.ntotal, idx.chunk_size)]
+    got = mips.scores_with_bucket_max(q, rows)
+    want = mips.scores_with_bucket_max_ref(q, rows)
+    err = pair_err(torch, got, want)
+    scale = want[0].abs().max().item()
+    check(err <= IB_F32_REL * scale,
+          f"index build: K1 f32 against its plain version max_abs_err {err} (scale {scale})")
+    del keep, idx, rows, got, want
+    torch.cuda.empty_cache()
+    print(f"  index_build_100k {' '.join(IB_ARGS)} [{card}]: self recall@1 "
+          f"{s['self_recall_at_1']} ({len(misses)} queries find an identical row first), "
+          f"top-1 at the self-cosine {s['top1_score_at_self_cos']}; "
+          f"train {s['train_s']} s, embed {s['embed_s']} s ({s['embed_sessions_per_s']} "
+          f"sessions/s, first batch {s['embed_first_batch_s']} s), build {s['index_build_s']} "
+          f"s, search {s['search_s']} s ({s['qps']} QPS); launches {counts}; K1 f32 against "
+          f"its plain version {err:.3g} of {scale:.3g}; wall {wall:.1f} s")
+    return counts, err, {**s, "self_misses_identical_row": len(misses),
+                         "k1_f32_rel_err": err / scale, "wall_s": wall}
+
+
+def phase_maintenance_bench(torch, dev, card):
+    """Phase 21: examples/maintenance_bench.py at its full size; every
+    radius's hits against a torch f64 oracle on the stored rows, no removed
+    id from the sharded index, one K1 bf16 launch a search before and after
+    the removals, K1 against its plain version."""
+    from sessionsimilaritysearch_tpu_torch.examples import maintenance_bench
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+
+    keep: dict = {}
+    out_path = os.path.join(tempfile.gettempdir(), "maintenance_bench_smoke.json")
+    t0 = time.perf_counter()
+    try:
+        (rec, _), counts = counted(torch, lambda: quiet(
+            maintenance_bench.main, [*MB_ARGS, "--out", out_path], keep=keep))
+    finally:
+        if os.path.exists(out_path):
+            os.remove(out_path)
+    wall = time.perf_counter() - t0
+    check(counts["k1"] == counts["k1_wgmma"] > 0 and counts["k1_cp"] == counts["k2"]
+          == counts["k4"] == 0, f"maintenance bench: launches {counts}")
+    bf = torch.bfloat16
+    # the range queries as search() takes them: bf16, normalized in bf16
+    rq = l2_normalize(keep["range_queries"].to(bf)).to(bf).double()
+    rows = keep.pop("range_rows")
+    n = rows.shape[0]
+    s64 = torch.empty(rq.shape[0], n, dtype=torch.float64, device=dev)
+    for s in range(0, n, 1 << 16):
+        s64[:, s: s + (1 << 16)] = rq @ rows[s: s + (1 << 16)].double().T
+    range_check = {}
+    for name, (radius, lims, _, ids) in keep["ranges"].items():
+        got = torch.zeros(rq.shape[0], n, dtype=torch.bool, device=dev)
+        rows_of = np.repeat(np.arange(rq.shape[0]), np.diff(lims))
+        got[torch.from_numpy(rows_of).to(dev), torch.from_numpy(ids).to(dev)] = True
+        differ = got ^ (s64 >= radius)
+        # scores are bf16: a row within one bf16 ulp of the radius may fall
+        # on either side
+        tol = 2.0**-7 * abs(radius) + 1e-5
+        far = differ & ((s64 - radius).abs() > tol)
+        range_check[name] = {"hits": int(got.sum()), "differ_near_radius": int(differ.sum()),
+                             "differ_far": int(far.sum())}
+        check(not far.any(), f"maintenance bench: range {name} hits against the f64 oracle "
+                             f"{range_check[name]}")
+    del s64, rows, got, differ, far
+    idx, sidx, victims = keep["index"], keep["sharded"], keep["victims"]
+    q = keep["queries"]
+    per_search = {}
+    for label, ix in (("index_after_remove", idx), ("sharded_after_remove", sidx)):
+        (_, I), c = counted(torch, lambda: ix.search(q, 100))
+        per_search[label] = c
+        check(c == {**NO_LAUNCHES, "k1": 1, "k1_wgmma": 1},
+              f"maintenance bench: one {label} search launched {c}")
+    _, I = sidx.search(q, 100)
+    check(not np.isin(I, victims).any(), "maintenance bench: the sharded index returned a "
+                                         "removed id")
+    qb = l2_normalize(q.to(bf)).to(bf).contiguous()
+    err = pair_err(torch, mips.scores_with_bucket_max(qb, idx._buf[: idx.ntotal], score_dtype=bf),
+                   mips.scores_with_bucket_max_ref(qb, idx._buf[: idx.ntotal], score_dtype=bf))
+    check(err <= BF16_TOL, f"maintenance bench: K1 against its plain version max_abs_err {err}")
+    del keep, idx, sidx
+    torch.cuda.empty_cache()
+    print(f"  maintenance_bench {' '.join(MB_ARGS)} (N={rec['N']}, D={rec['D']}, capacity "
+          f"{rec['capacity']}) [{card}]: " + "; ".join(
+              f"{k} {v['ms_per_batch']} ms ({v['qps']} QPS)" for k, v in rec.items()
+              if isinstance(v, dict) and "ms_per_batch" in v))
+    for name in ("easy", "moderate", "hostile"):
+        v = rec[f"range_{name}"]
+        print(f"    range_{name}: radius {v['radius']}, {v['mean_hits_per_query']} hits a "
+              f"query, depths {v['depths']}, first {v['cold_s']} s, second {v['warm_s']} s; "
+              f"against the f64 oracle {range_check[name]}")
+    for key in ("merge_from", "remove_ids", "sharded_remove_ids"):
+        v = rec[key]
+        print(f"    {key}: {v['rows']} rows, first {v['cold_s']} s, second {v['warm_s']} s")
+    print(f"    launches {counts}; one search after the removals {per_search}; K1 against its "
+          f"plain version {err:.3g}; wall {wall:.1f} s")
+    return counts, err, {**rec, "range_check": range_check, "wall_s": wall}
+
+
+def phase_embed_probe(torch, dev, card):
+    """Phase 22: examples/embed_pipeline_probe.py at Config(asin_num=50,000);
+    A and B agree bit for bit, C's two indexes hold the same rows; no port
+    kernel runs."""
+    from sessionsimilaritysearch_tpu_torch.examples import embed_pipeline_probe
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    (r, _), counts = counted(torch, lambda: quiet(embed_pipeline_probe.main, list(EP_ARGS),
+                                                  keep=keep))
+    wall = time.perf_counter() - t0
+    check(r["parity_max_abs_diff"] == 0.0,
+          f"embed probe: parity_max_abs_diff {r['parity_max_abs_diff']}")
+    a, b = keep["index_device"], keep["index_np"]
+    check(a.ntotal == b.ntotal == r["sessions"]
+          and torch.equal(a._buf[: a.ntotal], b._buf[: b.ntotal]),
+          "embed probe: C's two indexes hold different rows")
+    check(counts == NO_LAUNCHES, f"embed probe: port kernels {counts}")
+    del keep, a, b
+    torch.cuda.empty_cache()
+    print(f"  embed_pipeline_probe {' '.join(EP_ARGS)} [{card}]: A (out='np') {r['A_np_s']} s "
+          f"({r['A_np_sessions_per_s']} sessions/s), B (out='device') {r['B_device_s']} s "
+          f"({r['B_device_sessions_per_s']} sessions/s, {r['B_speedup_vs_A']}x), parity "
+          f"{r['parity_max_abs_diff']}; C add from the device {r['C_add_device_s']} s, from "
+          f"the host {r['C_add_np_s']} s; wall {wall:.1f} s")
+    return counts, {**r, "wall_s": wall}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -4946,6 +5317,16 @@ def main() -> int:
     campaign = run_phase(torch, "campaign", phase_campaign, torch, dev, card_line)
     training_soak = run_phase(torch, "training soak", phase_training_soak, torch, dev,
                               card_line)
+    fs_counts, fs_errs, fs_summary = run_phase(
+        torch, "flagship serving artifact", phase_flagship_serving_artifact, torch, dev, card_line)
+    train_counts, train_summary = run_phase(torch, "flagship train", phase_flagship_train,
+                                            torch, dev, card_line)
+    ib_counts, ib_err, ib_summary = run_phase(torch, "index build", phase_index_build, torch,
+                                              dev, card_line)
+    mb_counts, mb_err, mb_summary = run_phase(torch, "maintenance bench",
+                                              phase_maintenance_bench, torch, dev, card_line)
+    ep_counts, ep_summary = run_phase(torch, "embed pipeline probe", phase_embed_probe, torch,
+                                      dev, card_line)
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "sessionsimilaritysearch_tpu")
                   for m in sys.modules),
@@ -5003,7 +5384,10 @@ def main() -> int:
                  "twostage_engine_verbs": ts_verbs, "pretrain_serving": pretrain_counts,
                  "session_trainer_serving": st_counts, "finetuned_sign": ft_counts["sign"],
                  "finetuned_packed": ft_counts["packed"], **cli_counts, **sharded_paths,
-                 "data_parallel_dryrun": dp_counts, **soak_paths}
+                 "data_parallel_dryrun": dp_counts, **soak_paths,
+                 "example_flagship_serving": fs_counts, "example_flagship_train": train_counts,
+                 "example_index_build_100k": ib_counts, "example_maintenance_bench": mb_counts,
+                 "example_embed_pipeline_probe": ep_counts}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path
@@ -5016,30 +5400,40 @@ def main() -> int:
             entry_["launches_by_path"]["cp_async"] = {path: c["k1_cp"]
                                                       for path, c in new_paths.items()}
         entry_["launches"] += sum(by_path.values())
-    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers, err_sharded, err_soak)
+    k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers, err_sharded, err_soak,
+                                  fs_errs["k1_bf16"], fs_errs["k1_pca64"], mb_err)
+    f32_entry["max_abs_err"] = max(f32_entry["max_abs_err"], ib_err)
+    k2_entry["max_abs_err"] = max(k2_entry["max_abs_err"], fs_errs["k2"])
     k1_entry["sharded_serving"] = sharded
     k1_entry["data_parallel"] = dp_summary
     k1_entry["serving_soak"] = soak
     k1_entry["training_runs"] = {"campaign": campaign, "training_soak": training_soak}
+    k1_entry["operational_scripts"] = {
+        "flagship_serving": fs_summary, "flagship_train": train_summary,
+        "index_build_100k": ib_summary, "maintenance_bench": mb_summary,
+        "embed_pipeline_probe": ep_summary}
     # K1's and K6's bf16 kernel fed by cp.async: its launches on the paths
     # whose rows TMA cannot describe (each counted from 0), its times at
     # sign mode's shape, the producer ablation and K6's ragged case beside
     cp_by_path = {path: new_paths[path]["k1_cp"]
                   for path in ("binary_sign", "twostage_tiers", "twostage_engine_verbs",
-                               "finetuned_sign", "sharded_twostage", "sharded_binary")}
+                               "finetuned_sign", "sharded_twostage", "sharded_binary",
+                               "example_flagship_serving")}
     check(all(cp_by_path.values()),
           f"the cp_async variant was not launched on every path of 250-bit rows: {cp_by_path}")
     check(sum(c["k1_cp"] for c in new_paths.values()) == sum(cp_by_path.values()),
           "the cp_async variant was launched on a path of TMA rows")
     cp_entry = entry("scores_bmax_cp", "144", sum(cp_by_path.values()),
-                     max(err_ragged_cp, err_tiers, max(c["max_abs_err"]
-                                                       for c in k6["cp_async"].values())),
+                     max(err_ragged_cp, err_tiers, fs_errs["k1_cp_simhash"],
+                         fs_errs["k1_cp_itq"], max(c["max_abs_err"]
+                                                   for c in k6["cp_async"].values())),
                      sign_cp, "scores_bmax_sm90.cu")
     cp_entry.update(producer_source=f"{src}sm90_cp_async.cuh", launches_by_path=cp_by_path,
                     shape="q1024_n1048576_d250", also_replaces=tpu + "247",
                     producer_ablation_d256=sign_cp["producer_ablation_d256"],
                     scores_matmul=k6["cp_async"])
-    k4_entry = entry("packed_scores_bmax", "863", k4_launches, k4["err"], k4)
+    k4_entry = entry("packed_scores_bmax", "863", k4_launches, max(k4["err"], fs_errs["k4"]),
+                     k4)
     k4_by_path = {path: c["k4"] for path, c in new_paths.items()}
     k4_entry["launches_by_path"] = {"twostage_engine": k4_launches, **k4_by_path}
     k4_entry["launches"] += sum(k4_by_path.values())

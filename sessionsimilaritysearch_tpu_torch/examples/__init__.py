@@ -10,5 +10,18 @@ card unless ``--device cpu`` is given.
 - ``flagship_campaign``: a multi-epoch pretrain at the reference's widths
   with step-granular checkpoints and a crash / resume drill;
 - ``training_soak``: every pretrain head and the contrastive view through
-  ``run_training``, with a forced NaN rollback and a checkpoint resume.
+  ``run_training``, with a forced NaN rollback and a checkpoint resume;
+- ``flagship_serving``: train the flagship encoder, embed a corpus through
+  the fully cached bf16 forward and serve it through all 14 search modes
+  (QPS, value-recall@10, ``ave_type_score10``), resumable from a
+  ``--cache`` that either package writes;
+- ``flagship_train``: pretrain or subsession training at the reference's
+  widths with a checkpoint resume proof;
+- ``index_build_100k``: train, embed, build and serve a 100k-session f32
+  index (its serve half is ``serve``);
+- ``maintenance_bench``: ``range_search`` across radii, filtered search,
+  ``merge_from`` and ``remove_ids`` at 2^20 x 1600, unsharded and on a
+  one-shard mesh;
+- ``embed_pipeline_probe``: ``EmbeddingPipeline``'s host and device
+  outputs, their parity, and an index build from each.
 """

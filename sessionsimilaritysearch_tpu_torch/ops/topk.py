@@ -58,6 +58,17 @@ def merge_topk(
     return top_vals, torch.gather(idx, -1, top_pos)
 
 
+def ties_by_id(vals: torch.Tensor, idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A descending top-k [q, k] with equal values put in ascending id
+    order, as ``lax.top_k`` orders them (``torch.topk`` leaves the order of
+    ties undefined); missing slots (-inf, -1) stay last. Which of more than
+    k equal values make the top k is not changed."""
+    order = torch.argsort(idx, dim=1)
+    vals, idx = torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+    order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    return torch.gather(vals, 1, order), torch.gather(idx, 1, order)
+
+
 def check_selection(mode: str, recall_target: float) -> None:
     """Refuse a selection mode the JAX package does not have, and a recall
     target outside (0, 1]."""
@@ -136,7 +147,8 @@ def chunked_topk(
     additive per-row term (the kernels' penalty), which ``DenseIndex``
     uses for its stored -|c|^2. ``mode`` and ``recall_target``: see the
     module docstring. Returns (values [q, k] f32 descending, ids [q, k]
-    int64); missing slots are (-inf, -1)."""
+    int64), equal values in ascending id order (:func:`ties_by_id`);
+    missing slots are (-inf, -1)."""
     check_selection(mode, recall_target)
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
@@ -181,6 +193,7 @@ def chunked_topk(
             c_vals = c_vals * query_scales.float()[:, None]
         c_idx = torch.where(c_idx >= 0, c_idx + base, c_idx)
         vals, idx = merge_topk(vals, idx, c_vals, c_idx, k)
+    vals, idx = ties_by_id(vals, idx)
     if sq_queries is not None:
         vals = vals - sq_queries  # -|q - c|^2; missing slots stay -inf
     return vals, idx
