@@ -375,7 +375,38 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
 22. embed pipeline probe -- examples/embed_pipeline_probe.py's main at
                Config(asin_num=50,000) on 16,384 sessions: A and B agree
                bit for bit, C's two indexes hold the same rows, no port
-               kernel.
+               kernel;
+23. quality protocol -- examples/quality_protocol.py's main with the
+               flagship encoder at 800 / 800 / 768 / 200 (1600-d sessions,
+               bf16 serving_params), 2 seeds of 8,192 corpus sessions, 1,024
+               training sessions, 200 queries, 1 epoch, --alpha-sweep
+               0.3,0.7: one f32 wgmma K1 launch a seed, K1 against its plain
+               version on each seed's index rows and queries (1e-5 of the
+               largest plain score), every system's mean and std finite,
+               SKNN and STAN in [0, 1];
+24. binary quality -- examples/binary_quality.py's main with --flagship
+               (1600-d sessions, 250 bits), 8,192 corpus sessions, 1,024
+               training sessions, 200 queries, 1 epoch, 2 fine-tune epochs:
+               one f32 wgmma K1 launch (the dense row) and four cp_async
+               launches (the untrained, SimHash, ITQ and trained sign rows,
+               each 250 bits), each against its plain version on the
+               script's rows and queries (f32: 1e-5 of the largest plain
+               score; the +-1 rows: 0), every row's score in [0, 1];
+25. knn pairings -- examples/knn_pairings.py's main on the clustered
+               regime with joint towers at 800 / 800 / 768 / 200, 4,096
+               corpus sessions, 1,024 training sessions, 200 queries, 1
+               epoch: three f32 wgmma K1 launches (one a pairing), each
+               against its plain version on the pairing's embeddings, every
+               recall in [0, 1];
+26. generalization benchmark -- examples/generalization_benchmark.py's
+               main at its own config and sizes, 2 epochs: two f32 wgmma K1
+               launches at d=128 (untrained, trained), each against its
+               plain version, SKNN and STAN in [0, 1];
+27. incatalog benchmark -- examples/incatalog_benchmark.py's main at its
+               own config and sizes, 2 epochs: two f32 wgmma K1 launches at
+               d=128 (evaluate_hybrid fuses on the host and launches none),
+               each against its plain version, SKNN, STAN and the hybrid in
+               [0, 1].
 
 The build prints ptxas' resource lines; no kernel may spill. Each kernel
 time is printed with the SM clock and power draw that nvidia-smi reads
@@ -392,16 +423,19 @@ engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
 its C entry point;
 K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
-and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b, 9c, 15 and 18-22, counted
+and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b, 9c, 15 and 18-27, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
 holds phase 8's times per tier under ``twostage_tiers``, K1's phase 9c's
 numbers under ``sharded_serving``, phase 15's under ``serving_soak`` (the
 paths ``serving_soak`` and ``sharded_serving_soak``) and phases 16 and
-17's under ``training_runs``, phases 18-22's under
+17's under ``training_runs``, phases 18-27's under
 ``operational_scripts``; the paths ``example_flagship_serving``,
 ``example_flagship_train``, ``example_index_build_100k``,
-``example_maintenance_bench`` and ``example_embed_pipeline_probe``);
+``example_maintenance_bench``, ``example_embed_pipeline_probe``,
+``example_quality_protocol``, ``example_binary_quality``,
+``example_knn_pairings``, ``example_generalization_benchmark`` and
+``example_incatalog_benchmark``);
 its ``wgmma_launches`` the Hopper variant's, its times the wgmma variant's
 with f32 scores, ``tile`` the tile variant's; K3: phase 13's
 bucketed_topk; K6: phase 14's scores_matmul, likewise with
@@ -409,8 +443,8 @@ bucketed_topk; K6: phase 14's scores_matmul, likewise with
 case on the cp_async variant; and ``scores_bmax_cp``, K1's and K6's bf16
 kernel fed by cp.async for rows TMA cannot describe: its launches those of
 phase 7's sign-mode search, phase 8's 'itq' + 'matmul' tier, phase 9b's
-'itq' + 'matmul' engine, phase 4i's fine-tuned sign codes and phase 18's
-sign and two-stage modes, each path's
+'itq' + 'matmul' engine, phase 4i's fine-tuned sign codes, phase 18's
+sign and two-stage modes and phase 24's four sign rows, each path's
 under ``launches_by_path``, its times
 at sign mode's shape, ``producer_ablation_d256`` beside the TMA variant),
 its largest error
@@ -5211,6 +5245,196 @@ def phase_embed_probe(torch, dev, card):
     return counts, {**r, "wall_s": wall}
 
 
+# phases 23-27: the quality scripts, each run through its module's main()
+# on the card at the flagship width where it has width flags
+FLAGSHIP_WIDTH = ("--gnn-nout", "800", "--gnn-nhid", "800", "--text-dim", "768",
+                  "--emb-len", "200")
+QP_ARGS = ("--encoder", "flagship", *FLAGSHIP_WIDTH, "--seeds", "2", "--corpus", "8192",
+           "--train", "1024", "--queries", "200", "--epochs", "1", "--alpha-sweep", "0.3,0.7")
+BQ_ARGS = ("--flagship", "--corpus", "8192", "--train", "1024", "--queries", "200",
+           "--epochs", "1", "--ft-epochs", "2")
+KP_ARGS = ("--regimes", "clustered", "--towers", "joint", *FLAGSHIP_WIDTH, "--corpus", "4096",
+           "--train", "1024", "--queries", "200", "--epochs", "1")
+GB_ARGS = ("--epochs", "2")
+IC_ARGS = ("--epochs", "2")
+QUALITY_F32 = {**NO_LAUNCHES, "k1": 1, "k1_wgmma": 1}  # one f32 dense search
+
+
+def f32_search_err(torch, mips, queries, rows) -> tuple:
+    """K1's f32 kernel against its plain version on a dense search's rows
+    and queries (normalized as the index normalizes them): (max |diff|,
+    the largest |plain score|)."""
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+
+    q = l2_normalize(torch.as_tensor(queries).to(rows.device).float()).contiguous()
+    want = mips.scores_with_bucket_max_ref(q, rows)
+    err = pair_err(torch, mips.scores_with_bucket_max(q, rows), want)
+    return err, want[0].abs().max().item()
+
+
+def check_f32_err(err, scale, what) -> None:
+    check(err <= IB_F32_REL * scale,
+          f"{what}: K1 f32 against its plain version max_abs_err {err} (scale {scale})")
+
+
+def in_unit(values) -> bool:
+    return all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in values)
+
+
+def phase_quality_protocol(torch, dev, card):
+    """Phase 23: examples/quality_protocol.py, the flagship encoder at its
+    published width; one f32 wgmma K1 launch a seed, each held against its
+    plain version on the seed's index rows and queries."""
+    from sessionsimilaritysearch_tpu_torch.examples import quality_protocol
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    (r, log), counts = counted(torch, lambda: quiet(quality_protocol.main, list(QP_ARGS),
+                                                    keep=keep))
+    wall = time.perf_counter() - t0
+    seeds = int(QP_ARGS[QP_ARGS.index("--seeds") + 1])
+    check(counts == scaled(QUALITY_F32, seeds), f"quality protocol: launches {counts}")
+    errs = []
+    for i, kept in enumerate(keep["seeds"]):
+        idx = kept["index"]
+        check(idx.dtype == torch.float32 and idx.dim == 1600,
+              f"quality protocol: seed {i} searched a {idx.dtype} index of d={idx.dim}")
+        err, scale = f32_search_err(torch, mips, kept["queries"], idx._buf[: idx.ntotal])
+        check_f32_err(err, scale, f"quality protocol seed {i}")
+        errs.append(err)
+    systems = r["systems"]
+    check(all(np.isfinite(s["mean"]) and np.isfinite(s["std"]) for s in systems.values()),
+          f"quality protocol: non-finite scores {systems}")
+    check(in_unit(systems["SKNN"]["per_seed"] + systems["STAN"]["per_seed"]),
+          "quality protocol: SKNN or STAN outside [0, 1]")
+    del keep
+    torch.cuda.empty_cache()
+    seed_lines = [line for line in log.splitlines() if line.startswith("seed ")]
+    print(f"  quality_protocol {' '.join(QP_ARGS)} [{card}]: " + "; ".join(
+        f"{name} {s['mean']:.4f} +- {s['std']:.4f}" for name, s in systems.items()))
+    for line in seed_lines:
+        print(f"    {line}")
+    print(f"    launches {counts}; K1 f32 against its plain version {max(errs):.3g}; wall "
+          f"{wall:.1f} s")
+    return counts, max(errs), {"systems": systems, "seed_lines": seed_lines, "wall_s": wall}
+
+
+def phase_binary_quality(torch, dev, card):
+    """Phase 24: examples/binary_quality.py --flagship; the dense row one
+    f32 wgmma K1 launch, each 250-bit sign row one cp_async launch, each
+    held against its plain version on the script's rows and queries."""
+    from sessionsimilaritysearch_tpu_torch.examples import binary_quality
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    (r, log), counts = counted(torch, lambda: quiet(binary_quality.main, list(BQ_ARGS),
+                                                    keep=keep))
+    wall = time.perf_counter() - t0
+    rows = r["rows"]
+    check(counts == {**NO_LAUNCHES, "k1": 1 + 4, "k1_wgmma": 1, "k1_cp": 4},
+          f"binary quality: launches {counts}")
+    idx = keep["index"]
+    check(r["session_emb_dim"] == 1600 and r["bits"] == 250 and idx.dtype == torch.float32,
+          f"binary quality: {r['session_emb_dim']}-d sessions, {r['bits']} bits, {idx.dtype}")
+    err, scale = f32_search_err(torch, mips, keep["queries"], idx._buf[: idx.ntotal])
+    check_f32_err(err, scale, "binary quality")
+    bf = torch.bfloat16
+    cp_errs = {}
+    for tag, (db_c, q_c, _, _) in keep["codes"].items():
+        c = torch.where(torch.as_tensor(db_c, device=dev) >= 0, 1.0, -1.0).to(bf)
+        q = torch.where(torch.as_tensor(q_c, device=dev) >= 0, 1.0, -1.0).to(bf)
+        check(c.shape[1] == 250 and mips.k1_variant(
+            "cuda", bf, 250, (q.data_ptr(), c.data_ptr())) == "cp_async",
+            f"binary quality: {tag} codes of width {c.shape[1]} do not take the cp_async variant")
+        cp_errs[tag] = pair_err(torch, mips.scores_with_bucket_max(q, c, score_dtype=bf),
+                                mips.scores_with_bucket_max_ref(q, c, score_dtype=bf))
+        check(cp_errs[tag] == 0.0,
+              f"binary quality: {tag} K1 cp_async against its plain version {cp_errs[tag]}")
+    check(in_unit([v["score"] for v in rows.values()]),
+          f"binary quality: a score outside [0, 1] {rows}")
+    del keep, idx
+    torch.cuda.empty_cache()
+    print(f"  binary_quality {' '.join(BQ_ARGS)} [{card}]: spectrum participation ratio "
+          f"{r['participation_ratio']:.1f}, var top10 {r['var_top10']:.3f}, top250 "
+          f"{r['var_top250']:.4f}; {r['triplets']} triplets; encoder {r['encoder_train_s']:.1f}"
+          f" s, hash heads {r['ft_train_s']:.1f} s (loss {r['ft_loss']:.4f}); " + "; ".join(
+              f"{tag} {v['score']:.4f}" + (f" ({v['qps']:,.0f} QPS)" if v["qps"] else "")
+              for tag, v in rows.items()))
+    print(f"    launches {counts}; K1 f32 against its plain version {err:.3g}, cp_async "
+          f"{json.dumps(cp_errs)}; wall {wall:.1f} s")
+    return counts, err, max(cp_errs.values()), {**r, "wall_s": wall}
+
+
+def phase_knn_pairings(torch, dev, card):
+    """Phase 25: examples/knn_pairings.py, joint towers at the flagship
+    width; one f32 wgmma K1 launch a pairing, each held against its plain
+    version on the pairing's embeddings."""
+    from sessionsimilaritysearch_tpu_torch.examples import knn_pairings
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+    from sessionsimilaritysearch_tpu_torch.ops.topk import l2_normalize
+
+    keep: dict = {}
+    t0 = time.perf_counter()
+    (r, _), counts = counted(torch, lambda: quiet(knn_pairings.main, list(KP_ARGS), keep=keep))
+    wall = time.perf_counter() - t0
+    out = r["clustered"]
+    check(counts == scaled(QUALITY_F32, 3), f"knn pairings: launches {counts}")
+    errs = {}
+    for name, kept in keep["clustered"].items():
+        rows = l2_normalize(kept["db"].float()).contiguous()
+        check(rows.shape[1] == 1600, f"knn pairings: {name} rows of width {rows.shape[1]}")
+        err, scale = f32_search_err(torch, mips, kept["queries"], rows)
+        check_f32_err(err, scale, f"knn pairings {name}")
+        errs[name] = err
+    recalls = {k: v for k, v in out.items() if k.startswith("recall_")}
+    check(len(recalls) == 3 and in_unit(recalls.values()), f"knn pairings: recalls {recalls}")
+    check(all(np.isfinite(out[k]) for k in ("final_loss_subsession", "final_ctv_loss")),
+          f"knn pairings: losses {out}")
+    del keep
+    torch.cuda.empty_cache()
+    print(f"  knn_pairings {' '.join(KP_ARGS)} [{card}]: {json.dumps(recalls)}; joint "
+          f"training {out['train_s_subsession'] * 2:.1f} s, loss "
+          f"{out['final_loss_subsession']}, ctv {out['final_ctv_loss']}; eval "
+          f"{out['eval_s']} s; launches {counts}; K1 f32 against its plain version "
+          f"{max(errs.values()):.3g}; wall {wall:.1f} s")
+    return counts, max(errs.values()), {**out, "wall_s": wall}
+
+
+def phase_catalog_benchmark(torch, dev, card, module, args, tags):
+    """Phases 26 and 27: examples/generalization_benchmark.py and
+    incatalog_benchmark.py at their own config; two f32 wgmma K1 launches
+    (untrained, trained) at d=128, each held against its plain version."""
+    import importlib
+
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+
+    mod = importlib.import_module(f"sessionsimilaritysearch_tpu_torch.examples.{module}")
+    keep: dict = {}
+    t0 = time.perf_counter()
+    (r, _), counts = counted(torch, lambda: quiet(mod.main, list(args), keep=keep))
+    wall = time.perf_counter() - t0
+    check(counts == scaled(QUALITY_F32, 2), f"{module}: launches {counts}")
+    errs = []
+    for kept in keep["dense"]:
+        idx = kept["index"]
+        check(idx.dtype == torch.float32 and idx.dim == 128,
+              f"{module}: a {idx.dtype} index of d={idx.dim}")
+        err, scale = f32_search_err(torch, mips, kept["queries"], idx._buf[: idx.ntotal])
+        check_f32_err(err, scale, module)
+        errs.append(err)
+    check(in_unit(r[t] for t in tags), f"{module}: a score outside [0, 1] {r}")
+    check(np.isfinite(r["loss"]), f"{module}: loss {r['loss']}")
+    del keep
+    torch.cuda.empty_cache()
+    print(f"  {module} {' '.join(args)} [{card}]: " + ", ".join(
+        f"{t} {r[t]:.3f}" for t in tags) + f"; train {r['epochs']} epochs {r['train_s']:.1f} s,"
+        f" loss {r['loss']:.3f}; launches {counts}; K1 f32 against its plain version "
+        f"{max(errs):.3g}; wall {wall:.1f} s")
+    return counts, max(errs), {**r, "wall_s": wall}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -5327,6 +5551,19 @@ def main() -> int:
                                               phase_maintenance_bench, torch, dev, card_line)
     ep_counts, ep_summary = run_phase(torch, "embed pipeline probe", phase_embed_probe, torch,
                                       dev, card_line)
+    qp_counts, qp_err, qp_summary = run_phase(torch, "quality protocol", phase_quality_protocol,
+                                              torch, dev, card_line)
+    bq_counts, bq_err, bq_cp_err, bq_summary = run_phase(
+        torch, "binary quality", phase_binary_quality, torch, dev, card_line)
+    kp_counts, kp_err, kp_summary = run_phase(torch, "knn pairings", phase_knn_pairings, torch,
+                                              dev, card_line)
+    gb_counts, gb_err, gb_summary = run_phase(
+        torch, "generalization benchmark", phase_catalog_benchmark, torch, dev, card_line,
+        "generalization_benchmark", GB_ARGS, ("untrained", "trained", "SKNN", "STAN"))
+    ic_counts, ic_err, ic_summary = run_phase(
+        torch, "incatalog benchmark", phase_catalog_benchmark, torch, dev, card_line,
+        "incatalog_benchmark", IC_ARGS,
+        ("encoder untrained", "encoder trained", "SKNN", "STAN", "hybrid"))
 
     check(not any(m.split(".")[0] in ("jax", "jaxlib", "flax", "sessionsimilaritysearch_tpu")
                   for m in sys.modules),
@@ -5387,7 +5624,11 @@ def main() -> int:
                  "data_parallel_dryrun": dp_counts, **soak_paths,
                  "example_flagship_serving": fs_counts, "example_flagship_train": train_counts,
                  "example_index_build_100k": ib_counts, "example_maintenance_bench": mb_counts,
-                 "example_embed_pipeline_probe": ep_counts}
+                 "example_embed_pipeline_probe": ep_counts,
+                 "example_quality_protocol": qp_counts, "example_binary_quality": bq_counts,
+                 "example_knn_pairings": kp_counts,
+                 "example_generalization_benchmark": gb_counts,
+                 "example_incatalog_benchmark": ic_counts}
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path
@@ -5402,7 +5643,8 @@ def main() -> int:
         entry_["launches"] += sum(by_path.values())
     k1_entry["max_abs_err"] = max(k1_entry["max_abs_err"], err_tiers, err_sharded, err_soak,
                                   fs_errs["k1_bf16"], fs_errs["k1_pca64"], mb_err)
-    f32_entry["max_abs_err"] = max(f32_entry["max_abs_err"], ib_err)
+    f32_entry["max_abs_err"] = max(f32_entry["max_abs_err"], ib_err, qp_err, bq_err, kp_err,
+                                   gb_err, ic_err)
     k2_entry["max_abs_err"] = max(k2_entry["max_abs_err"], fs_errs["k2"])
     k1_entry["sharded_serving"] = sharded
     k1_entry["data_parallel"] = dp_summary
@@ -5411,21 +5653,23 @@ def main() -> int:
     k1_entry["operational_scripts"] = {
         "flagship_serving": fs_summary, "flagship_train": train_summary,
         "index_build_100k": ib_summary, "maintenance_bench": mb_summary,
-        "embed_pipeline_probe": ep_summary}
+        "embed_pipeline_probe": ep_summary, "quality_protocol": qp_summary,
+        "binary_quality": bq_summary, "knn_pairings": kp_summary,
+        "generalization_benchmark": gb_summary, "incatalog_benchmark": ic_summary}
     # K1's and K6's bf16 kernel fed by cp.async: its launches on the paths
     # whose rows TMA cannot describe (each counted from 0), its times at
     # sign mode's shape, the producer ablation and K6's ragged case beside
     cp_by_path = {path: new_paths[path]["k1_cp"]
                   for path in ("binary_sign", "twostage_tiers", "twostage_engine_verbs",
                                "finetuned_sign", "sharded_twostage", "sharded_binary",
-                               "example_flagship_serving")}
+                               "example_flagship_serving", "example_binary_quality")}
     check(all(cp_by_path.values()),
           f"the cp_async variant was not launched on every path of 250-bit rows: {cp_by_path}")
     check(sum(c["k1_cp"] for c in new_paths.values()) == sum(cp_by_path.values()),
           "the cp_async variant was launched on a path of TMA rows")
     cp_entry = entry("scores_bmax_cp", "144", sum(cp_by_path.values()),
                      max(err_ragged_cp, err_tiers, fs_errs["k1_cp_simhash"],
-                         fs_errs["k1_cp_itq"], max(c["max_abs_err"]
+                         fs_errs["k1_cp_itq"], bq_cp_err, max(c["max_abs_err"]
                                                    for c in k6["cp_async"].values())),
                      sign_cp, "scores_bmax_sm90.cu")
     cp_entry.update(producer_source=f"{src}sm90_cp_async.cuh", launches_by_path=cp_by_path,

@@ -262,12 +262,15 @@ def evaluate_knn_pairings(
     batch_size: int = 256,
     *,
     device,
+    keep: Optional[dict] = None,
 ) -> dict:
     """The three-way pairing protocol: a subsession encoder (prefix
     objective) and a session encoder (whole-session objective) embed the
     same corpus into two indexes and the test prefixes through each; kNN
     next-item recall@K for the pairings ``subsession_session``,
-    ``subsession_subsession`` and ``session_session`` (query, corpus)."""
+    ``subsession_subsession`` and ``session_session`` (query, corpus).
+    ``keep``: a dict that receives, per pairing, the corpus and query
+    embeddings (``db``, ``queries``) and the search's ``D`` / ``I``."""
     dev = resolve_device(device)
     pipe_sub = EmbeddingPipeline(cfg, tokenizer, subsession_encode_fn, device=dev,
                                  batch_size=batch_size)
@@ -287,6 +290,8 @@ def evaluate_knn_pairings(
     ):
         k_search = min(sample_size, db.shape[0])
         D, I, _, _ = run_dense_search(db, q, k_search, device=dev)
+        if keep is not None:
+            keep[name] = {"db": db, "queries": q, "D": D, "I": I}
         out[f"recall_{name}"] = knn_recommendation_recall(
             D, I, test_data, corpus_sessions, K=K, sample_size=sample_size
         )

@@ -23,5 +23,16 @@ card unless ``--device cpu`` is given.
   ``merge_from`` and ``remove_ids`` at 2^20 x 1600, unsharded and on a
   one-shard mesh;
 - ``embed_pipeline_probe``: ``EmbeddingPipeline``'s host and device
-  outputs, their parity, and an index build from each.
+  outputs, their parity, and an index build from each;
+- ``quality_protocol``: encoder vs SKNN, STAN and their score and
+  reciprocal-rank fusions over independent seeds (mean +- std), with the
+  pretrain or the flagship encoder;
+- ``binary_quality``: dense cosine against 250-bit Hamming serving of
+  untrained, SimHash, ITQ and fine-tuned codes on the same embeddings;
+- ``knn_pairings``: next-item recall@K of the three query / corpus
+  pairings of a subsession and a session tower, joint or independent;
+- ``generalization_benchmark``: the out-of-catalog regime (corpus and
+  queries from disjoint catalog halves), encoder vs SKNN and STAN;
+- ``incatalog_benchmark``: the in-catalog regime, encoder vs SKNN, STAN
+  and their hybrid fusion.
 """
