@@ -189,10 +189,20 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                250 and 384 bits, valid_count 5003, 10% masked) and the bench
                point (q=1024, n=2^20, 256 bits, bf16 scores); scores and
                bucket maxes equal, top-k distances equal; CUDA-event times;
-6. hamming kernel -- K5 (csrc/hamming_bucket_min.cu) against its plain
-               version on the same codes packed row-major, its time beside
-               K4's at the same shape, and ops.hamming.hamming_topk (K5's
-               path) giving the same top-100 distances as K4;
+6. hamming kernel -- K5's two variants, wgmma (csrc/hamming_bucket_min_sm90.cu)
+               and popc (csrc/hamming_bucket_min.cu, through its C entry
+               point), each equal bit for bit (torch.equal) to the plain
+               version at widths W of 1, 3, 8, 13 and 53 words, q of 1, 37
+               and 200, n of 1, 127, 5003 and 6144, without and with a
+               penalty (10% of rows masked, a dead tail, one bucket wholly
+               dead; at n=5003 also random int32 penalties, whose add
+               wraps); misaligned views (c[5:], penalty[1:]) run popc
+               through the wrapper; hamming_topk on a ragged, masked
+               corpus against the CPU's; at the bench point (the same codes
+               packed row-major, q=1024, n=2^20, 256 bits) both variants
+               equal, wgmma, popc and K4 timed in three rounds in turns,
+               and ops.hamming.hamming_topk (K5's path) launching the
+               wgmma variant and giving the same top-100 distances as K4;
 7. binary index -- BinaryIndex(250 bits, 2^20 rows), packed (K4) and sign
                (K1's cp_async variant: 250-wide rows are no TMA stride; its
                one K1 launch a search counted) modes, 1024 queries at k=100:
@@ -408,7 +418,8 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                each against its plain version, SKNN, STAN and the hybrid in
                [0, 1].
 
-The build prints ptxas' resource lines; no kernel may spill. Each kernel
+The build prints ptxas' resource lines; no kernel may spill, and ptxas
+may report no "Potential Performance Loss" (such as serialized wgmma). Each kernel
 time is printed with the SM clock and power draw that nvidia-smi reads
 right after it. Before phase 4 the shared native graph builder must load
 (built without OpenMP where the compiler has no OpenMP runtime; the build
@@ -422,7 +433,11 @@ variant's (launches on phase 4's engine, times at the bench point and the
 engine's shape, the accuracy gate), ``tile_f32`` the tile loop's on f32,
 ``tile_bf16`` the tile loop's at phase 7's sign-mode shape, timed through
 its C entry point;
-K4: phase 9's engine; K5: phase 6's hamming_topk; K2: phase 12's engine,
+K4: phase 9's engine; K5: phase 6's hamming_topk (its times and bound the
+wgmma variant's, ``wgmma_launches`` that variant's launches on the path,
+``popc`` the popc variant's time in the same rounds and its design bound,
+``k4_ms_same_rounds`` K4's, ``hamming_topk_ms`` the op's best of three,
+``cases`` the cases held to the plain version); K2: phase 12's engine,
 and for K1, K2 and K4 also the searches of phases 4g, 4h, 4i, 4k, 7b, 8, 9b, 9c, 15 and 18-27, counted
 with the counters set to 0 just before each (``launches`` sums them, and
 ``launches_by_path`` holds each path's count, per variant; K4's entry
@@ -451,10 +466,12 @@ its largest error
 against its plain version, its time, the plain version's, the bound (the
 larger of bytes over 3.35 TB/s and operations over the published peak of
 their type: an f32 product's 2*q*n*d at 495 TFLOP/s, the card's fastest
-rate for f32 operands (tf32); K5's popcounts at 16 per clock per SM at the
-card's maximum SM clock; the f32 entries add ``design_bound_ms``, the bound
-of the design that runs them: three tf32 passes at 495 TFLOP/s for the
-wgmma variants, f32 FMAs at 67 TFLOP/s for the tile loop) and the time of one library call
+rate for f32 operands (tf32); K5's distances as 2*q*n*32W +-1 products at
+the int8 rate of 1,979 TOP/s; ``design_bound_ms`` beside it is the bound
+of the design that runs it: for the f32 entries three tf32 passes at 495
+TFLOP/s for the wgmma variants, f32 FMAs at 67 TFLOP/s for the tile loop,
+for K5's ``popc`` entry one popcount per (query, row, word) at 16 per clock
+per SM at the card's maximum SM clock) and the time of one library call
 computing the same product (null where there is none). The last line is
 ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero.
@@ -2817,60 +2834,138 @@ def phase_packed_kernel(torch, dev):
     out.update(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                **bound_ms(q_n * n_bits * 2 + n * n_bits // 8 + q_n * n * 2
                           + q_n * (n // 128) * 4, 2 * q_n * n * n_bits, PEAK_BF16))
-    return out, (q_rows, c_rows, d)
+    return out, (q_rows, c_rows, d, q, words)
 
 
-def phase_hamming_kernel(torch, dev, bench, k4_ms):
-    from sessionsimilaritysearch_tpu_torch.ops import hamming, popcount
+K5_WIDTHS = (1, 3, 8, 13, 17, 32, 53)  # words: every K-slice remainder, each tile shape
+K5_QUERIES = (1, 37, 200)
+K5_ROWS = (1, 127, 5003, 6144)  # a lone row, one ragged bucket, a ragged tail, whole buckets
 
+
+def popc_call(torch, lib, popcount, q, c, pen, dev):
+    """One launch of K5's popc variant straight through its C entry point,
+    to hold it to the plain version on codes the wrapper sends to wgmma."""
+    from sessionsimilaritysearch_tpu_torch.ops import mips
+
+    bmin = torch.empty(q.shape[0], -(-c.shape[0] // 128), dtype=torch.int32, device=dev)
+    mips._cuda_call(lib.sss_hamming_bucket_min, "hamming_bucket_min (popc)", dev,
+                    q.data_ptr(), c.data_ptr(), None if pen is None else pen.data_ptr(),
+                    bmin.data_ptr(), q.shape[0], c.shape[0], q.shape[1])
+    return bmin
+
+
+def k5_penalty(torch, popcount, g, n, dev):
+    """A penalty over n rows: 10% of rows masked, a dead tail past 90% of
+    the rows, and bucket 1 (rows 128..255) wholly dead where n reaches it."""
+    live = torch.rand(n, generator=g, device=dev) >= 0.1
+    live[int(0.9 * n) + 1:] = False
+    live[128:256] = False
+    return torch.where(live, 0, popcount.PENALTY).to(torch.int32)
+
+
+def phase_hamming_kernel(torch, dev, bench):
+    from sessionsimilaritysearch_tpu_torch.ops import _build, hamming, packed, popcount
+
+    lib = _build.load_library()
     g = torch.Generator(device=dev).manual_seed(3)
+
+    def words(rows, w):
+        return torch.randint(-2**31, 2**31 - 1, (rows, w), generator=g, device=dev,
+                             dtype=torch.int32)
+
+    # both variants against the plain version, bit for bit, on every case
+    cases = 0
+    for w in K5_WIDTHS:
+        q_all, c_all = words(max(K5_QUERIES), w), words(max(K5_ROWS), w)
+        for n in K5_ROWS:
+            c = c_all[:n]
+            pens = (None, k5_penalty(torch, popcount, g, n, dev))
+            if n == 5003:  # any int32 penalty: the add wraps as the plain version's does
+                pens += (torch.randint(-2**31, 2**31 - 1, (n,), generator=g, device=dev,
+                                       dtype=torch.int32),)
+            for q_n in K5_QUERIES:
+                q = q_all[:q_n]
+                for pen in pens:
+                    what = (f"hamming W={w} q={q_n} n={n} "
+                            f"{'no' if pen is None else 'a'} penalty")
+                    check(popcount.k5_variant("cuda", w, True) == "wgmma", what)
+                    w0 = popcount.wgmma_launch_count
+                    got = popcount.hamming_bucket_min(q, c, pen)
+                    check(popcount.wgmma_launch_count == w0 + 1, f"{what}: wgmma not launched")
+                    want = popcount.hamming_bucket_min_ref(q, c, pen)
+                    check(torch.equal(got, want), f"{what}: wgmma bmin differs")
+                    check(torch.equal(popc_call(torch, lib, popcount, q, c, pen, dev), want),
+                          f"{what}: popc bmin differs")
+                    cases += 1
+    # misaligned views run popc through the wrapper
+    q, c = words(37, 3), words(5008, 3)
+    pen = k5_penalty(torch, popcount, g, 5008, dev)
+    for what, args in (("c[5:]", (q, c[5:], None)), ("penalty[1:]", (q, c[4:], pen[1:5005]))):
+        check(popcount.k5_variant("cuda", 3, False) == "popc", what)
+        n0, w0 = popcount.launch_count, popcount.wgmma_launch_count
+        got = popcount.hamming_bucket_min(*args)
+        check(popcount.launch_count == n0 + 1 and popcount.wgmma_launch_count == w0,
+              f"hamming misaligned {what}: not the popc variant")
+        check(torch.equal(got, popcount.hamming_bucket_min_ref(*args)),
+              f"hamming misaligned {what}: bmin differs")
+        cases += 1
+    print(f"hamming kernel: {cases} cases (W {K5_WIDTHS}, q {K5_QUERIES}, n {K5_ROWS}, "
+          f"with and without a penalty; misaligned views on popc), wgmma and popc bmin "
+          f"equal the plain version")
+
+    # hamming_topk on a ragged, masked corpus against the CPU's
     _, _, q, c = packed_case(torch, hamming, g, 37, 6144, 250, dev)
     live = torch.rand(6144, generator=g, device=dev) >= 0.1
     live[5003:] = False
-    pen = torch.where(live, 0, popcount.PENALTY).to(torch.int32)
-    ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min(q, c, pen), 20)
-    plain_ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min_ref(q, c, pen), 5)
-    check(torch.equal(popcount.hamming_bucket_min(q, c, pen),
-                      popcount.hamming_bucket_min_ref(q, c, pen)),
-          "hamming ragged: bmin differs")
-    check(torch.equal(popcount.hamming_bucket_min(q, c[:5003]),
-                      popcount.hamming_bucket_min_ref(q, c[:5003])),
-          "hamming ragged n=5003: bmin differs")
     d, i = hamming.hamming_topk(q, c, 10, valid_count=5003, row_mask=live)
     d_ref, _ = hamming.hamming_topk(q.cpu(), c.cpu(), 10, valid_count=5003,
                                     row_mask=live.cpu())
     check(torch.equal(d.cpu(), d_ref), "hamming ragged: top-10 distances differ")
     check(bool(live[i].all()), "hamming ragged: a dead row ranked")
-    print(f"hamming kernel ragged q=37 n=6144 250 bits (valid_count 5003, 10% masked): "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bmin and top-10 distances equal")
 
-    q, c, d_k4 = bench  # the bench point's codes, row-major
-    ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min(q, c), 5)
+    q, c, d_k4, k4_q, k4_words = bench  # the bench point's codes, row-major and K4's
+    q_n, n, w = q.shape[0], c.shape[0], c.shape[1]
+    want = popcount.hamming_bucket_min_ref(q, c)
+    check(torch.equal(popcount.hamming_bucket_min(q, c), want), "hamming bench point: "
+          "wgmma bmin differs")
+    check(torch.equal(popc_call(torch, lib, popcount, q, c, None, dev), want),
+          "hamming bench point: popc bmin differs")
+    del want
     plain_ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min_ref(q, c), 1)
-    err = (popcount.hamming_bucket_min(q, c)
-           - popcount.hamming_bucket_min_ref(q, c)).abs().max().item()
-    check(err == 0, f"hamming bench point: bmin max_abs_err {err}")
-    popcount.launch_count = 0  # K5's path: the public op hamming_topk
+    med, rounds, state = rounds_in_turns(torch, {
+        "wgmma": (lambda: popcount.hamming_bucket_min(q, c), 20),
+        "popc": (lambda: popc_call(torch, lib, popcount, q, c, None, dev), 5),
+        "k4": (lambda: packed.packed_scores_with_bucket_max(k4_q, k4_words), 5)})
+    popcount.launch_count = popcount.wgmma_launch_count = 0  # K5's path: hamming_topk
     t0 = time.perf_counter()
     d, _ = hamming.hamming_topk(q, c, 100)
     torch.cuda.synchronize()
-    topk_s = time.perf_counter() - t0
-    launches = popcount.launch_count
-    check(launches >= 1, "hamming_topk never launched the kernel")
+    topk_ms = (time.perf_counter() - t0) * 1e3
+    launches, wgmma_launches = popcount.launch_count, popcount.wgmma_launch_count
+    check(launches >= 1, "hamming_topk never launched K5")
+    check(wgmma_launches == launches, "hamming_topk did not run K5's wgmma variant")
     check(sorted_equal(torch, d, d_k4), "hamming_topk and K4 top-100 distances differ")
-    print(f"hamming kernel bench point q={q.shape[0]} n={c.shape[0]} 256 bits: kernel "
-          f"{ms:.3f} ms {smi()}, plain {plain_ms:.3f} ms, K4 at the same shape {k4_ms:.3f} ms; "
-          f"bmin equal; hamming_topk k=100 {topk_s * 1e3:.1f} ms, {launches} launch, "
-          f"distances equal K4's")
-    q_n, n, words = q.shape[0], c.shape[0], c.shape[1]
+    topk_best = min(cuda_ms(torch, lambda: hamming.hamming_topk(q, c, 100), 1)
+                    for _ in range(3))
+    ops = 2 * q_n * n * 32 * w  # +-1 products
+    tops = ops / (med["wgmma"] * 1e-3) / 1e12
+    print(f"hamming kernel bench point q={q_n} n={n} {32 * w} bits, in turns (3 rounds): "
+          f"wgmma {rounds['wgmma']} ms, popc {rounds['popc']} ms, K4 {rounds['k4']} ms "
+          f"{state}; wgmma {tops:.1f} TOP/s of +-1 products; plain {plain_ms:.3f} ms; bmin "
+          f"equal; hamming_topk k=100 {topk_ms:.1f} ms first call, {topk_best:.1f} ms best "
+          f"of 3, {launches} launch (wgmma), distances equal K4's")
     del bench, c
     torch.cuda.empty_cache()
-    # bound: one XOR + popcount per word pair, at 16 popcounts per clock per SM
-    popc_rate = 16 * SMS * sm_clock_hz()
-    return {"err": err, "ms": ms, "plain_ms": plain_ms, "launches": launches,
-            "library_ms": None,
-            **bound_ms((q_n + n) * words * 4 + q_n * (n // 128) * 4,
-                       q_n * n * words, popc_rate)}
+    n_bytes = (q_n + n) * w * 4 + q_n * -(-n // 128) * 4
+    popc_rate = 16 * SMS * sm_clock_hz()  # one XOR + popcount per word pair
+    design = bound_ms(n_bytes, q_n * n * w, popc_rate)
+    return {"err": 0, "ms": med["wgmma"], "plain_ms": plain_ms, "launches": launches,
+            "wgmma_launches": wgmma_launches, "library_ms": None, "cases": cases,
+            "k4_ms_same_rounds": med["k4"], "hamming_topk_ms": topk_best,
+            "rounds": rounds, **bound_ms(n_bytes, ops, PEAK_INT8),
+            "popc": {"source": "sessionsimilaritysearch_tpu_torch/csrc/hamming_bucket_min.cu",
+                     "ms": med["popc"], "design_bound_ms": design["bound_ms"],
+                     "design_bound_by": design["bound_by"], "launches": 0}}
 
 
 def phase_binary_index(torch, dev):
@@ -5474,6 +5569,9 @@ def main() -> int:
         print(f"  {line}")
     spilled = {k: v for k, v in (info or {}).get("spills", {}).items() if v}
     check(not spilled, f"ptxas spilled registers: {spilled}")
+    # e.g. every wgmma of a kernel serialized (a wgmma on a divergent path)
+    check(not (info or {}).get("perf_notes"),
+          f"ptxas reported a performance loss: {(info or {}).get('perf_notes')}")
 
     from sessionsimilaritysearch_tpu_torch import native, native_build
 
@@ -5513,8 +5611,7 @@ def main() -> int:
     err_f32, f32_bench, tile_bench = run_phase(torch, "f32 kernel", phase_f32_kernel, torch,
                                                mips, dev)
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
-    k5 = run_phase(torch, "hamming kernel", phase_hamming_kernel, torch, dev,
-                   bench, k4["ms"])
+    k5 = run_phase(torch, "hamming kernel", phase_hamming_kernel, torch, dev, bench)
     del bench
     sign_tile, sign_cp, sign_path = run_phase(torch, "binary index", phase_binary_index,
                                               torch, dev)
@@ -5682,12 +5779,19 @@ def main() -> int:
     k4_entry["launches_by_path"] = {"twostage_engine": k4_launches, **k4_by_path}
     k4_entry["launches"] += sum(k4_by_path.values())
     k4_entry["twostage_tiers"] = tiers
+    # K5: the numbers are the wgmma variant's; `popc` holds the popc
+    # variant's time in the same rounds and its design's bound
+    k5_entry = entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5,
+                     "hamming_bucket_min_sm90.cu")
+    k5_entry.update({key: k5[key] for key in ("wgmma_launches", "popc", "cases",
+                                              "k4_ms_same_rounds", "hamming_topk_ms")},
+                    also_replaces=tpu + "651")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         k1_entry,
         cp_entry,
         k4_entry,
-        entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5),
+        k5_entry,
         k2_entry,
         entry("bucket_max", "56", k3["launches"], k3["err"], k3),
         k6_entry,

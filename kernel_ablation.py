@@ -3,16 +3,22 @@
 (``csrc/scores_bmax_sm90.cu``), the same kernel fed by cp.async for rows
 TMA cannot describe (``csrc/sm90_cp_async.cuh``), K1's f32 wgmma variant
 (``csrc/scores_bmax_f32_sm90.cu``, the 3xTF32 split), K4
-(``csrc/packed_scores_bmax.cu``) and K2's wgmma variant
-(``csrc/scores_bmax_int8_sm90.cu``), each timed beside copies of itself with
-one part changed, at the bench points of ``chip_smoke.py`` (q=1024, n=2^20;
-K1 d=1600 bf16 -> bf16, K1's cp_async variant d=250 +-1 codes -> bf16 (the
-sign-mode shape), K1 f32 d=1600 f32 -> f32 on f32 unit rows, K4 256 bits ->
-bf16, K2 d=1600 int8 -> f32, the int8x8 index's score dtype).
+(``csrc/packed_scores_bmax.cu``), K2's wgmma variant
+(``csrc/scores_bmax_int8_sm90.cu``) and K5's wgmma variant
+(``csrc/hamming_bucket_min_sm90.cu``), each timed beside copies of itself
+with one part changed, at the bench points of ``chip_smoke.py`` (q=1024,
+n=2^20; K1 d=1600 bf16 -> bf16, K1's cp_async variant d=250 +-1 codes ->
+bf16 (the sign-mode shape), K1 f32 d=1600 f32 -> f32 on f32 unit rows, K4
+256 bits -> bf16, K2 d=1600 int8 -> f32, the int8x8 index's score dtype,
+K5 256 bits (8 words) row-major, no penalty; ``--k5-words`` times K5 at
+other widths too).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 kernel_ablation.py [--parent DIR]
+    python3 kernel_ablation.py [--parent DIR] [--only k5 ...] [--k5-words 4 8 ...]
+
+``--only`` builds and times the named kernels alone (k1, k1cp, k1f32, k4,
+k2, k5; all by default).
 
 Each copy is the source in ``csrc/`` with one text substitution, built with
 the package's nvcc flags into its own library under the git-ignored
@@ -63,17 +69,34 @@ copies:
   memory (wgmma's SS form), not from the registers the split already
   loaded (the first design);
 - K1 f32 ``tile``: not a copy, the tile loop (``csrc/scores_bmax.cu``, exact
-  FMA) through its C entry point, timed in the same rounds.
+  FMA) through its C entry point, timed in the same rounds;
+- K5 ``no_unpack``: the producer unpacks nothing (the ring holds stale
+  bytes; the bulk copies, fences and arrivals stay): the products, loads
+  and epilogue alone;
+- K5 ``no_min``: the epilogue stores nothing (so the compiler drops the
+  minimum too): the products and the unpack alone;
+- K5 ``no_mma``: the consumers issue no wgmma (groups, waits and the
+  epilogue stay): the producer's and the epilogue's share;
+- K5 ``skeleton``: no unpack and no wgmma: the barriers, the bulk copies,
+  the loop and the epilogue on stale accumulators;
+- K5 ``mma_only``: no unpack, no epilogue, no bulk copy: the products and
+  the barriers alone;
+- K5 ``stages8``: a ring of up to 8 slots, not 4;
+- K5 ``one_acc``: one accumulator per consumer warpgroup (128 queries a
+  tile), not two (256);
+- K5 ``popc``: not a copy, K5's popc variant (``csrc/hamming_bucket_min.cu``)
+  through its C entry point, timed in the same rounds.
 
 Copies that keep the output (``mask_always``, ``wait_group_1``, ``parent``,
 ``scales_in_epilogue``, ``no_l2_prefetch``, ``no_consumer_fence``,
-``wait_group_lag2``, ``wait_group_lag1``; K1 cp_async's ``tile``) must equal
-the kernel's output; the others are
+``wait_group_lag2``, ``wait_group_lag1``; K1 cp_async's ``tile``; K5's
+``stages8``, ``one_acc`` and ``popc``) must equal the kernel's output; the
+others are
 diagnostics only. For K1 f32 each copy's largest |score - f64| on the two
 cases of the accuracy gate is printed beside cuBLAS SGEMM's. Every kernel
 runs three rounds in turns, each the mean of 10 launches between CUDA
 events, beside one library call (cuBLAS bf16 GEMM; for K4 on the unpacked +-1 rows; for
-K2 ``torch._int_mm``; for K1 f32 cuBLAS SGEMM, TF32 off), with the SM
+K2 ``torch._int_mm``; for K1 f32 cuBLAS SGEMM, TF32 off; none for K5), with the SM
 clock and power that ``nvidia-smi`` reads after each round. The last line
 is a JSON object of all times.
 """
@@ -239,20 +262,49 @@ VARIANTS = {
                       {}),
     },
 }
+K5_WGMMA = "wgmma_m64n128k32_s8(acc[h], a_desc + 512 * h + 2 * kk, b_desc + 2 * kk,"
+K5_PART = {
+    "no_unpack": {"for (int m = 0; m < BUCKET / 32; ++m) {": "for (int m = 0; m < 0; ++m) {"},
+    "no_min": {"if (lane % 4 == 0) {": "if (lane % 4 == 0 && b < 0) {"},
+    "no_mma": {K5_WGMMA: "if (kk < 0) " + K5_WGMMA},
+    "no_fetch": {"      if (b >= full_buckets) return;": "      return;",
+                 "        mbar_wait(&raw_full[buf * 4 + pw], (raw_phase >> buf) & 1u);\n": ""},
+}
+
+
+def k5_copy(*parts):
+    """A K5 copy with the substitutions of each named part."""
+    return ({old: new for part in parts for old, new in K5_PART[part].items()}, {})
+
+
+VARIANTS["k5"] = {
+    "base": ({}, {}),
+    "no_unpack": k5_copy("no_unpack"),
+    "no_min": k5_copy("no_min"),
+    "no_mma": k5_copy("no_mma"),
+    "skeleton": k5_copy("no_unpack", "no_mma"),
+    "mma_only": k5_copy("no_unpack", "no_min", "no_fetch"),
+    "stages8": ({"constexpr int MAX_STAGES = 4;": "constexpr int MAX_STAGES = 8;"}, {}),
+    "one_acc": ({"    if (layout(256, words, st).bytes <= MAX_SMEM)": "    if (false)"}, {}),
+}
 SOURCES = {"k1": "scores_bmax_sm90.cu", "k1cp": "scores_bmax_sm90.cu",
            "k4": "packed_scores_bmax.cu",
-           "k2": "scores_bmax_int8_sm90.cu", "k1f32": "scores_bmax_f32_sm90.cu"}
+           "k2": "scores_bmax_int8_sm90.cu", "k1f32": "scores_bmax_f32_sm90.cu",
+           "k5": "hamming_bucket_min_sm90.cu"}
 # each kernel's C entry point: queries, corpus or words, (K2: scales,)
 # penalty, scores, bmax (pointers); q, n, d or bits, valid_count, out_bf16;
 # stream
 ENTRY = {"k1": "sss_scores_bmax_sm90", "k1cp": "sss_scores_bmax_cp_sm90",
          "k4": "sss_packed_scores_bmax",
-         "k2": "sss_scores_bmax_int8_sm90", "k1f32": "sss_scores_bmax_f32_sm90"}
+         "k2": "sss_scores_bmax_int8_sm90", "k1f32": "sss_scores_bmax_f32_sm90",
+         "k5": "sss_hamming_bucket_min_sm90"}
 ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 ARGTYPES_K2 = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# K5: q codes, corpus codes, penalty, bmin; q, n, words; stream
+ARGTYPES_K5 = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
-def build(_build, parent=None):
+def build(_build, parent=None, only=tuple(VARIANTS)):
     """Write and compile every copy side by side, each beside copies of the
     headers of csrc/ (each header substitution applied to the header that
     holds its target);
@@ -284,6 +336,8 @@ def build(_build, parent=None):
                      str(libs[kernel, name]), str(d / "kernel.cu")])
 
     for kernel, variants in VARIANTS.items():
+        if kernel not in only:
+            continue
         for name, (subs, hsubs) in variants.items():
             copy(kernel, name, _build.CSRC, subs, hsubs)
         if parent is not None and kernel in ("k1", "k4"):
@@ -292,7 +346,7 @@ def build(_build, parent=None):
     entries = {}
     for (kernel, name), path in libs.items():
         fn = getattr(ctypes.CDLL(str(path)), ENTRY[kernel])
-        fn.argtypes = ARGTYPES_K2 if kernel == "k2" else ARGTYPES
+        fn.argtypes = {"k2": ARGTYPES_K2, "k5": ARGTYPES_K5}.get(kernel, ARGTYPES)
         fn.restype = ctypes.c_int
         entries[kernel, name] = fn
     return entries
@@ -302,6 +356,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout whose K1 and K4 are timed beside this tree's")
+    ap.add_argument("--only", nargs="+", choices=sorted(VARIANTS), default=sorted(VARIANTS),
+                    help="the kernels to build and time (default: all)")
+    ap.add_argument("--k5-words", nargs="+", type=int, default=[8],
+                    help="K5's code widths in int32 words (default: 8, the bench point)")
     args = ap.parse_args()
     import torch
 
@@ -320,7 +378,7 @@ def main() -> int:
         parent = args.parent / "sessionsimilaritysearch_tpu_torch" / "csrc"
         if not parent.is_dir():
             raise SystemExit(f"--parent: {parent} is not a directory")
-    entries = build(_build, parent)
+    entries = build(_build, parent, args.only)
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -372,105 +430,145 @@ def main() -> int:
         print(f"{kernel} SM clock, power after each round: " + " / ".join(state))
         times[kernel] = {**res, "smi": state}
 
-    corpus = torch.randn(n, d, generator=g, device=dev)
-    corpus = (corpus / corpus.norm(dim=1, keepdim=True)).bfloat16()
-    queries = torch.randn(q_n, d, generator=g, device=dev)
-    queries = (queries / queries.norm(dim=1, keepdim=True)).bfloat16()
-    run("k1", lambda fn, s, bm: lambda: fn(
-        queries.data_ptr(), corpus.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
-        q_n, n, d, n, 1, stream),
-        lambda: torch.matmul(queries, corpus.T))
-    del corpus, queries
-    torch.cuda.empty_cache()
+    if "k1" in args.only:
+        corpus = torch.randn(n, d, generator=g, device=dev)
+        corpus = (corpus / corpus.norm(dim=1, keepdim=True)).bfloat16()
+        queries = torch.randn(q_n, d, generator=g, device=dev)
+        queries = (queries / queries.norm(dim=1, keepdim=True)).bfloat16()
+        run("k1", lambda fn, s, bm: lambda: fn(
+            queries.data_ptr(), corpus.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+            q_n, n, d, n, 1, stream),
+            lambda: torch.matmul(queries, corpus.T))
+        del corpus, queries
+        torch.cuda.empty_cache()
 
     lib = _build.load_library()
 
-    def tile_bf16(qp, cp, pen, sp, bp, q_, n_, d_, vc, out_bf16, st):
-        return lib.sss_scores_bmax(qp, cp, pen, sp, bp, q_, n_, d_, vc, 1, out_bf16, st)
+    if "k1cp" in args.only:
+        def tile_bf16(qp, cp, pen, sp, bp, q_, n_, d_, vc, out_bf16, st):
+            return lib.sss_scores_bmax(qp, cp, pen, sp, bp, q_, n_, d_, vc, 1, out_bf16, st)
 
-    # K1's cp_async variant at the sign-mode shape: +-1 codes of 250 bits
-    # (rows 500 bytes apart), bf16 scores; the tile loop in the same rounds
-    entries["k1cp", "tile"] = tile_bf16
-    codes = torch.where(torch.rand(n, 250, generator=g, device=dev) < 0.5, 1.0, -1.0).bfloat16()
-    signs = torch.where(torch.rand(q_n, 250, generator=g, device=dev) < 0.5,
-                        1.0, -1.0).bfloat16()
-    run("k1cp", lambda fn, s, bm: lambda: fn(
-        signs.data_ptr(), codes.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
-        q_n, n, 250, n, 1, stream),
-        lambda: torch.matmul(signs, codes.T))
-    del codes, signs
-    torch.cuda.empty_cache()
+        # K1's cp_async variant at the sign-mode shape: +-1 codes of 250 bits
+        # (rows 500 bytes apart), bf16 scores; the tile loop in the same rounds
+        entries["k1cp", "tile"] = tile_bf16
+        codes = torch.where(torch.rand(n, 250, generator=g, device=dev) < 0.5, 1.0, -1.0).bfloat16()
+        signs = torch.where(torch.rand(q_n, 250, generator=g, device=dev) < 0.5,
+                            1.0, -1.0).bfloat16()
+        run("k1cp", lambda fn, s, bm: lambda: fn(
+            signs.data_ptr(), codes.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+            q_n, n, 250, n, 1, stream),
+            lambda: torch.matmul(signs, codes.T))
+        del codes, signs
+        torch.cuda.empty_cache()
 
-    # K1 f32: f32 unit rows (every mantissa bit in use); the tile loop in the
-    # same rounds through its own entry point
-    corpus32 = torch.empty(n, d, device=dev)
-    for s0 in range(0, n, 1 << 16):
-        r = torch.randn(1 << 16, d, generator=g, device=dev)
-        corpus32[s0: s0 + (1 << 16)] = r / r.norm(dim=1, keepdim=True)
-    queries32 = torch.randn(q_n, d, generator=g, device=dev)
-    queries32 = queries32 / queries32.norm(dim=1, keepdim=True)
+    if "k1f32" in args.only:
+        # K1 f32: f32 unit rows (every mantissa bit in use); the tile loop in the
+        # same rounds through its own entry point
+        corpus32 = torch.empty(n, d, device=dev)
+        for s0 in range(0, n, 1 << 16):
+            r = torch.randn(1 << 16, d, generator=g, device=dev)
+            corpus32[s0: s0 + (1 << 16)] = r / r.norm(dim=1, keepdim=True)
+        queries32 = torch.randn(q_n, d, generator=g, device=dev)
+        queries32 = queries32 / queries32.norm(dim=1, keepdim=True)
 
-    def tile(qp, cp, pen, sp, bp, q_, n_, d_, vc, out_bf16, st):
-        return lib.sss_scores_bmax(qp, cp, pen, sp, bp, q_, n_, d_, vc, 0, out_bf16, st)
+        def tile(qp, cp, pen, sp, bp, q_, n_, d_, vc, out_bf16, st):
+            return lib.sss_scores_bmax(qp, cp, pen, sp, bp, q_, n_, d_, vc, 0, out_bf16, st)
 
-    entries["k1f32", "tile"] = tile
-    run("k1f32", lambda fn, s, bm: lambda: fn(
-        queries32.data_ptr(), corpus32.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
-        q_n, n, d, n, 0, stream),
-        lambda: torch.matmul(queries32, corpus32.T), torch.float32)
-    del corpus32, queries32
-    torch.cuda.empty_cache()
+        entries["k1f32", "tile"] = tile
+        run("k1f32", lambda fn, s, bm: lambda: fn(
+            queries32.data_ptr(), corpus32.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+            q_n, n, d, n, 0, stream),
+            lambda: torch.matmul(queries32, corpus32.T), torch.float32)
+        del corpus32, queries32
+        torch.cuda.empty_cache()
 
-    # each f32 copy's largest |score - f64| on the two cases of the accuracy
-    # gate (chip_smoke.py phase 4c): 1024 x 65,536 unit rows at d=1600 and
-    # standard-normal rows at d=200, beside cuBLAS SGEMM's
-    errs, m = {}, 1 << 16
-    for d_g, unit in ((d, True), (200, False)):
-        qg = torch.randn(q_n, d_g, generator=g, device=dev)
-        cg = torch.randn(m, d_g, generator=g, device=dev)
-        if unit:
-            qg, cg = qg / qg.norm(dim=1, keepdim=True), cg / cg.norm(dim=1, keepdim=True)
-        exact = qg.double() @ cg.double().T
-        row = {}
-        for (kernel, name), fn in entries.items():
-            if kernel != "k1f32" or name in ("no_split", "no_store"):
-                continue  # copies that write no valid scores
-            s = torch.empty(q_n, m, device=dev)
-            bm = torch.empty(q_n, m // 128, device=dev)
-            if fn(qg.data_ptr(), cg.data_ptr(), None, s.data_ptr(), bm.data_ptr(), q_n, m,
-                  d_g, m, 0, stream) != 0:
-                raise SystemExit(f"k1f32 {name}: launch failed at d={d_g}")
-            row[name] = (s.double() - exact).abs().max().item()
-        row["library"] = (torch.matmul(qg, cg.T).double() - exact).abs().max().item()
-        errs[f"d{d_g}"] = row
-        print(f"k1f32 largest |score - f64| at d={d_g}: "
-              + ", ".join(f"{k} {v:.3g}" for k, v in row.items()))
-        del exact
-    times["k1f32_err"] = errs
+        # each f32 copy's largest |score - f64| on the two cases of the accuracy
+        # gate (chip_smoke.py phase 4c): 1024 x 65,536 unit rows at d=1600 and
+        # standard-normal rows at d=200, beside cuBLAS SGEMM's
+        errs, m = {}, 1 << 16
+        for d_g, unit in ((d, True), (200, False)):
+            qg = torch.randn(q_n, d_g, generator=g, device=dev)
+            cg = torch.randn(m, d_g, generator=g, device=dev)
+            if unit:
+                qg, cg = qg / qg.norm(dim=1, keepdim=True), cg / cg.norm(dim=1, keepdim=True)
+            exact = qg.double() @ cg.double().T
+            row = {}
+            for (kernel, name), fn in entries.items():
+                if kernel != "k1f32" or name in ("no_split", "no_store"):
+                    continue  # copies that write no valid scores
+                s = torch.empty(q_n, m, device=dev)
+                bm = torch.empty(q_n, m // 128, device=dev)
+                if fn(qg.data_ptr(), cg.data_ptr(), None, s.data_ptr(), bm.data_ptr(), q_n, m,
+                      d_g, m, 0, stream) != 0:
+                    raise SystemExit(f"k1f32 {name}: launch failed at d={d_g}")
+                row[name] = (s.double() - exact).abs().max().item()
+            row["library"] = (torch.matmul(qg, cg.T).double() - exact).abs().max().item()
+            errs[f"d{d_g}"] = row
+            print(f"k1f32 largest |score - f64| at d={d_g}: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in row.items()))
+            del exact
+        times["k1f32_err"] = errs
 
-    words = torch.randint(-2**31, 2**31 - 1, (n // 32, bits), generator=g, device=dev,
-                          dtype=torch.int32)
-    codes = torch.where(torch.rand(q_n, bits, generator=g, device=dev) < 0.5,
-                        1.0, -1.0).bfloat16()
-    rows = packed.unpack_bits_t(words)
-    run("k4", lambda fn, s, bm: lambda: fn(
-        codes.data_ptr(), words.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
-        q_n, n, bits, n, 1, stream),
-        lambda: torch.matmul(codes, rows.T))
-    del words, codes, rows
-    torch.cuda.empty_cache()
+    if "k4" in args.only:
+        words = torch.randint(-2**31, 2**31 - 1, (n // 32, bits), generator=g, device=dev,
+                              dtype=torch.int32)
+        codes = torch.where(torch.rand(q_n, bits, generator=g, device=dev) < 0.5,
+                            1.0, -1.0).bfloat16()
+        rows = packed.unpack_bits_t(words)
+        run("k4", lambda fn, s, bm: lambda: fn(
+            codes.data_ptr(), words.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+            q_n, n, bits, n, 1, stream),
+            lambda: torch.matmul(codes, rows.T))
+        del words, codes, rows
+        torch.cuda.empty_cache()
 
-    # K2: unit rows quantized per row, as the int8x8 index stores them
-    qc, _ = mips_int8.quantize_rows_int8(torch.randn(q_n, d, generator=g, device=dev))
-    cc = torch.empty(n, d, dtype=torch.int8, device=dev)
-    sc = torch.empty(n, device=dev)
-    for s0 in range(0, n, 1 << 16):
-        cc[s0: s0 + (1 << 16)], sc[s0: s0 + (1 << 16)] = mips_int8.quantize_rows_int8(
-            torch.randn(1 << 16, d, generator=g, device=dev))
-    run("k2", lambda fn, s, bm: lambda: fn(
-        qc.data_ptr(), cc.data_ptr(), sc.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
-        q_n, n, d, n, 0, stream),
-        lambda: torch._int_mm(qc, cc.T), torch.float32)
+    if "k2" in args.only:
+        # K2: unit rows quantized per row, as the int8x8 index stores them
+        qc, _ = mips_int8.quantize_rows_int8(torch.randn(q_n, d, generator=g, device=dev))
+        cc = torch.empty(n, d, dtype=torch.int8, device=dev)
+        sc = torch.empty(n, device=dev)
+        for s0 in range(0, n, 1 << 16):
+            cc[s0: s0 + (1 << 16)], sc[s0: s0 + (1 << 16)] = mips_int8.quantize_rows_int8(
+                torch.randn(1 << 16, d, generator=g, device=dev))
+        run("k2", lambda fn, s, bm: lambda: fn(
+            qc.data_ptr(), cc.data_ptr(), sc.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
+            q_n, n, d, n, 0, stream),
+            lambda: torch._int_mm(qc, cc.T), torch.float32)
+    if "k5" in args.only:
+        # K5: random row-major codes (every bit in use), no penalty; the popc
+        # variant through its C entry point in the same rounds
+        k5 = {name: fn for (k, name), fn in entries.items() if k == "k5"}
+        k5["popc"] = lib.sss_hamming_bucket_min
+        for words in args.k5_words:
+            key = "k5" if words == 8 else f"k5_w{words}"
+            k5_q = torch.randint(-2**31, 2**31 - 1, (q_n, words), generator=g, device=dev,
+                                 dtype=torch.int32)
+            k5_c = torch.randint(-2**31, 2**31 - 1, (n, words), generator=g, device=dev,
+                                 dtype=torch.int32)
+            outs, res, state = {}, {}, []
+            for _ in range(3):
+                for name, fn in k5.items():
+                    bmin = torch.empty(q_n, n // 128, dtype=torch.int32, device=dev)
+
+                    def call(fn=fn, bmin=bmin, k5_q=k5_q, k5_c=k5_c, words=words):
+                        return fn(k5_q.data_ptr(), k5_c.data_ptr(), None, bmin.data_ptr(), q_n,
+                                  n, words, stream)
+
+                    if call() != 0:
+                        raise SystemExit(f"{key} {name}: launch failed")
+                    res.setdefault(name, []).append(ms(call))
+                    outs[name] = bmin
+                state.append(smi())
+            for name in ("stages8", "one_acc", "popc"):
+                if not torch.equal(outs[name], outs["base"]):
+                    raise SystemExit(f"{key} {name}: output differs from the kernel's")
+            bound = 2 * q_n * n * 32 * words / 1979e12 * 1e3  # +-1 products at the s8 rate
+            print(f"{key}: {words} words, bound {bound:.3f} ms")
+            for name, t in res.items():
+                print(f"{key} {name}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+            print(f"{key} SM clock, power after each round: " + " / ".join(state))
+            times[key] = {**res, "smi": state, "bound_ms": bound}
+            del k5_q, k5_c, outs
     print(json.dumps({"card": card, "ms": times}))
     return 0
 

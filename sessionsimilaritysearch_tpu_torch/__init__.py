@@ -26,7 +26,9 @@ by K1's sign matmul or packed through ``csrc/packed_scores_bmax.cu``,
 width), ``BinaryIndex`` in both modes, both with the JAX indexes'
 maintenance verbs and snapshots, the two-stage engine's removal, expiry
 and save / restore, and ``ops.hamming.hamming_topk``
-(``csrc/hamming_bucket_min.cu``); and ``ops.mips.bucketed_topk``
+(``csrc/hamming_bucket_min_sm90.cu``, +-1 s8 ``wgmma``, for codes at
+16-byte-aligned bases; ``csrc/hamming_bucket_min.cu``, popcounts, for the
+others); and ``ops.mips.bucketed_topk``
 (``csrc/bucket_max.cu``) and ``ops.mips.scores_matmul``
 (``csrc/scores_matmul.cu``). The flagship serving forward: bf16 serving
 parameters (``utils.precision.serving_params``), catalog title and keyword

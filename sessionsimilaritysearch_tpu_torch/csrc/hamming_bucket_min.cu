@@ -1,4 +1,5 @@
-// XOR + popcount Hamming distances folded to 128-row bucket minima (sm_90a).
+// XOR + popcount Hamming distances folded to 128-row bucket minima (sm_90a):
+// the `popc` variant of K5.
 //
 // Replaces the TPU kernels sessionsimilaritysearch_tpu/ops/pallas_mips.py:619
 // (_hamming_bucket_min_kernel) and :651 (_hamming_bucket_min_pen_kernel),
@@ -9,7 +10,9 @@
 //                n) of  sum_w popc(q[i, w] ^ c[r, w])  +  penalty[r]
 // where the optional int32 penalty is 0 for a live row and 2^20 for a row
 // past the corpus fill or filtered out. The selection (ops/popcount.py)
-// re-ranks the rows of the best buckets exactly.
+// re-ranks the rows of the best buckets exactly. ops/popcount.py k5_variant
+// runs it for codes whose bases are not 16-byte aligned (a view such as
+// c[5:]); aligned codes run the wgmma variant, hamming_bucket_min_sm90.cu.
 //
 // Buckets are contiguous 128-row runs; the TPU kernel's strided buckets were
 // a Mosaic store constraint. One thread block owns 64 queries and 8 buckets
@@ -19,9 +22,11 @@
 // queries row-major (read as broadcasts). A warp takes the minimum
 // over its bucket with one __reduce_min_sync per query.
 //
-// What bounds it on an H100: one popcount per (query, row, word), 8.6e9 at
-// q=1024, n=2^20, 256 bits; at 16 popcounts per clock per SM that is about
-// 2.2 ms. The corpus (32 MB at that shape) stays in L2.
+// Bounds on an H100. The work's: the same distances are 2 q n 32 W +-1
+// products (hamming_bucket_min_sm90.cu), 0.278 ms at the s8 rate at q=1024,
+// n=2^20, 256 bits. This design's own: one popcount per (query, row, word),
+// 8.6e9 at that shape; at 16 popcounts per clock per SM that is about 2.2
+// ms. The corpus (32 MB at that shape) stays in L2.
 
 #include <climits>
 #include <cuda_runtime.h>

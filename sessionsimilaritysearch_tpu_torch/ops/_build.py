@@ -40,8 +40,9 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 # what the last build in this process reported: seconds, ptxas' resource
-# lines (registers, shared memory, stack and spills) and the spill bytes
-# (stores + loads) of each kernel; None when the library was reused
+# lines (registers, shared memory, stack and spills), the spill bytes
+# (stores + loads) of each kernel and ptxas' "Potential Performance Loss"
+# notes (such as wgmma serialized); None when the library was reused
 build_info: Optional[dict] = None
 
 
@@ -111,12 +112,15 @@ def _compile(so: Path) -> None:
 
 
 def parse_ptxas(out: str) -> dict:
-    """``-Xptxas -v`` output -> its resource lines and the spill bytes
-    (stores + loads) of each function, by mangled name."""
-    lines, spills, fn = [], {}, None
+    """``-Xptxas -v`` output -> its resource lines, the spill bytes (stores
+    + loads) of each function, by mangled name, and its performance notes."""
+    lines, spills, notes, fn = [], {}, [], None
     for ln in out.splitlines():
         ln = ln.strip()
-        if "Function properties for" in ln:
+        if "Potential Performance Loss" in ln:
+            notes.append(ln)
+            lines.append(ln)
+        elif "Function properties for" in ln:
             fn = ln.split("Function properties for", 1)[1].strip()
             lines.append(ln)
         elif "spill stores" in ln:
@@ -127,7 +131,7 @@ def parse_ptxas(out: str) -> dict:
             lines.append(ln)
         elif "ptxas info" in ln and "Used" in ln:
             lines.append(ln)
-    return {"ptxas": lines, "spills": spills}
+    return {"ptxas": lines, "spills": spills, "perf_notes": notes}
 
 
 def load_library() -> ctypes.CDLL:
@@ -164,6 +168,7 @@ def load_library() -> ctypes.CDLL:
                 i32, i32, i32,             # q, n, words
                 ptr,                       # stream
             ]
+            lib.sss_hamming_bucket_min_sm90.argtypes = lib.sss_hamming_bucket_min.argtypes
             lib.sss_scores_bmax_int8_sm90.argtypes = [
                 ptr, ptr, ptr, ptr,        # q codes, corpus codes, scales, penalty
                 ptr, ptr,                  # scores, bmax
@@ -205,7 +210,8 @@ def load_library() -> ctypes.CDLL:
             ]
             for fn in (lib.sss_scores_bmax, lib.sss_scores_bmax_sm90,
                        lib.sss_packed_scores_bmax,
-                       lib.sss_hamming_bucket_min, lib.sss_scores_bmax_int8,
+                       lib.sss_hamming_bucket_min, lib.sss_hamming_bucket_min_sm90,
+                       lib.sss_scores_bmax_int8,
                        lib.sss_bucket_max, lib.sss_scores_matmul,
                        lib.sss_scores_bmax_int8_sm90, lib.sss_scores_matmul_sm90,
                        lib.sss_scores_bmax_f32_sm90, lib.sss_scores_matmul_f32_sm90,

@@ -3,16 +3,20 @@
 Port of the TPU kernel K5 (``sessionsimilaritysearch_tpu/ops/pallas_mips.py``
 :619 ``_hamming_bucket_min_kernel`` and :651
 ``_hamming_bucket_min_pen_kernel`` -> :683 ``hamming_bucket_min`` -> :761
-``pallas_hamming_topk``). The kernel is ``csrc/hamming_bucket_min.cu``;
-:func:`hamming_bucket_min_ref` is its plain PyTorch version. Codes are
-row-major packed int32 (``ops/hamming.py`` ``pack_bits``), buckets 128
-contiguous corpus rows. :func:`bucket_min_topk` re-ranks the rows of the
-best buckets by exact popcount (``pallas_mips.py:811-844``, XLA on the TPU,
-torch ops here). torch has no popcount op: :func:`popcount32` counts bits
-with the SWAR sums on int64.
+``pallas_hamming_topk``). Two kernels, chosen up front by
+:func:`k5_variant`: ``csrc/hamming_bucket_min_sm90.cu`` (``'wgmma'``: the
+distances as +-1 s8 ``wgmma`` products, for codes whose bases are 16-byte
+aligned) and ``csrc/hamming_bucket_min.cu`` (``'popc'``: one ``__popc`` per
+(query, row, word), for the others); :func:`hamming_bucket_min_ref` is
+their plain PyTorch version. Codes are row-major packed int32
+(``ops/hamming.py`` ``pack_bits``), buckets 128 contiguous corpus rows.
+:func:`bucket_min_topk` re-ranks the rows of the best buckets by exact
+popcount (``pallas_mips.py:811-844``, XLA on the TPU, torch ops here).
+torch has no popcount op: :func:`popcount32` counts bits with the SWAR
+sums on int64.
 
 :func:`hamming_bucket_min` takes the plain version for CPU tensors only. For
-a CUDA tensor it launches the kernel or raises: no path falls back.
+a CUDA tensor it launches the chosen kernel or raises: no path falls back.
 """
 
 from __future__ import annotations
@@ -26,13 +30,15 @@ from sessionsimilaritysearch_tpu_torch.ops import _build
 
 BUCKET = 128
 PENALTY = 1 << 20  # added to a dead row's distance: above any code's distance
-MAX_WORDS = 53     # widest code (in int32 words) the kernel's shared memory holds
+MAX_WORDS = 53     # widest code (in int32 words) the kernels' shared memory holds
 INT32_MAX = 2**31 - 1
 _REF_ELEMS = 1 << 25  # plain version: (query, row, word) triples per chunk
 
-# Kernel launches made by hamming_bucket_min, counted where the kernel is
-# launched and nowhere else (CPU tensors never count).
+# Kernel launches made by hamming_bucket_min, counted where a kernel is
+# launched and nowhere else (CPU tensors never count): all of them, and
+# those of the wgmma variant.
 launch_count = 0
+wgmma_launch_count = 0
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -105,40 +111,61 @@ def hamming_bucket_min_ref(
     return bmin
 
 
+def k5_variant(device_type: str, words: int, aligned: bool) -> str:
+    """Which K5 kernel a call runs: 'plain' for CPU tensors; on CUDA
+    'wgmma' (``csrc/hamming_bucket_min_sm90.cu``) when every base pointer
+    (query codes, corpus codes and the penalty, if any) is 16-byte aligned,
+    at any width of 1 to ``MAX_WORDS`` words; else 'popc'
+    (``csrc/hamming_bucket_min.cu``: a misaligned view such as ``c[5:]``).
+    A width outside 1 to ``MAX_WORDS`` raises. A dispatch, not a fallback:
+    the chosen kernel launches or raises."""
+    if not 0 < words <= MAX_WORDS:
+        raise ValueError(f"codes must be 1 to {MAX_WORDS} words wide, got {words}")
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"unsupported device type {device_type}")
+    return "wgmma" if aligned else "popc"
+
+
 def hamming_bucket_min(
     q_codes: torch.Tensor,
     c_codes: torch.Tensor,
     penalty: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The kernel (``csrc/hamming_bucket_min.cu``) for CUDA tensors; its
-    plain version for CPU tensors. Same contract as
+    """The kernel that :func:`k5_variant` names for CUDA tensors; the plain
+    version for CPU tensors. Same contract as
     :func:`hamming_bucket_min_ref`."""
-    global launch_count
+    global launch_count, wgmma_launch_count
     _check(q_codes, c_codes, penalty)
     dev = q_codes.device
-    if dev.type == "cpu":
-        return hamming_bucket_min_ref(q_codes, c_codes, penalty)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
     q, w = q_codes.shape
     n = c_codes.shape[0]
+    ptrs = [t.data_ptr() for t in (q_codes, c_codes, penalty) if t is not None]
+    variant = k5_variant(dev.type, w, all(p % 16 == 0 for p in ptrs))
+    if variant == "plain":
+        return hamming_bucket_min_ref(q_codes, c_codes, penalty)
     if max(q, n) >= 2**31:
         raise ValueError(f"shape too large for int32 indexing: q={q} n={n}")
     lib = _build.load_library()
+    fn = (lib.sss_hamming_bucket_min_sm90 if variant == "wgmma"
+          else lib.sss_hamming_bucket_min)
     bmin = torch.empty((q, -(-n // BUCKET)), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sss_hamming_bucket_min(
+        err = fn(
             q_codes.data_ptr(), c_codes.data_ptr(),
             None if penalty is None else penalty.data_ptr(),
             bmin.data_ptr(), q, n, w, ctypes.c_void_p(stream),
         )
     if err != 0:
         raise RuntimeError(
-            f"hamming_bucket_min kernel launch failed: CUDA error {err} "
-            f"(q={q} n={n} words={w})"
+            f"hamming_bucket_min ({variant}) kernel launch failed: CUDA error "
+            f"{err} (q={q} n={n} words={w})"
         )
     launch_count += 1
+    if variant == "wgmma":
+        wgmma_launch_count += 1
     return bmin
 
 

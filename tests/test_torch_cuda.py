@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA kernels (K1 scores_bmax
 and its Hopper variants scores_bmax_sm90 for bf16, TMA- or cp.async-fed,
 and scores_bmax_f32_sm90 for f32, K2 scores_bmax_int8 and its Hopper variant scores_bmax_int8_sm90,
-K3 bucket_max, K4 packed_scores_bmax, K5 hamming_bucket_min, K6
+K3 bucket_max, K4 packed_scores_bmax, K5 hamming_bucket_min and its
+wgmma variant hamming_bucket_min_sm90, K6
 scores_matmul and its Hopper variants) against their
 plain PyTorch versions, and the indexes and engine on the card against the
 CPU: among them DenseIndex's l2 search through K1's penalty, remove_ids,
@@ -478,6 +479,52 @@ def test_hamming_kernel_matches_plain(dev):
                                         row_mask=live.cpu())
     np.testing.assert_array_equal(d.cpu().numpy(), d_ref.numpy())
     assert live[i].all()
+
+
+@pytest.mark.parametrize("with_penalty", [False, True])
+@pytest.mark.parametrize("n", [1, 127, 5003, 6144])
+@pytest.mark.parametrize("words", [1, 3, 8, 13, 53])
+def test_hamming_wgmma_kernel_matches_plain(dev, words, n, with_penalty):
+    g = torch.Generator(device=dev).manual_seed(words * 7 + n)
+    c = torch.randint(-2**31, 2**31 - 1, (n, words), generator=g, device=dev,
+                      dtype=torch.int32)
+    q = torch.randint(-2**31, 2**31 - 1, (200, words), generator=g, device=dev,
+                      dtype=torch.int32)
+    pen = None
+    if with_penalty:
+        live = torch.rand(n, generator=g, device=dev) >= 0.1
+        live[int(0.9 * n) + 1:] = False
+        live[128:256] = False  # one bucket wholly dead
+        pen = torch.where(live, 0, popcount.PENALTY).to(torch.int32)
+    before = (popcount.launch_count, popcount.wgmma_launch_count)
+    for q_n in (1, 37, 200):
+        bmin = popcount.hamming_bucket_min(q[:q_n], c, pen)
+        torch.cuda.synchronize()
+        assert torch.equal(bmin, popcount.hamming_bucket_min_ref(q[:q_n], c, pen))
+    assert (popcount.launch_count, popcount.wgmma_launch_count) == (before[0] + 3,
+                                                                    before[1] + 3)
+
+
+def test_hamming_wgmma_kernel_wraps_the_penalty_add(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    c = torch.randint(-2**31, 2**31 - 1, (5003, 8), generator=g, device=dev, dtype=torch.int32)
+    q = torch.randint(-2**31, 2**31 - 1, (37, 8), generator=g, device=dev, dtype=torch.int32)
+    pen = torch.randint(-2**31, 2**31 - 1, (5003,), generator=g, device=dev, dtype=torch.int32)
+    assert torch.equal(popcount.hamming_bucket_min(q, c, pen),
+                       popcount.hamming_bucket_min_ref(q, c, pen))
+
+
+@pytest.mark.parametrize("view", ["corpus", "penalty"])
+def test_hamming_misaligned_view_runs_popc(dev, view):
+    g = torch.Generator(device=dev).manual_seed(3)
+    c = torch.randint(-2**31, 2**31 - 1, (5008, 3), generator=g, device=dev, dtype=torch.int32)
+    q = torch.randint(-2**31, 2**31 - 1, (37, 3), generator=g, device=dev, dtype=torch.int32)
+    pen = torch.zeros(5008, dtype=torch.int32, device=dev)
+    args = (q, c[5:], None) if view == "corpus" else (q, c[4:], pen[1:5005])
+    before = (popcount.launch_count, popcount.wgmma_launch_count)
+    bmin = popcount.hamming_bucket_min(*args)
+    assert (popcount.launch_count, popcount.wgmma_launch_count) == (before[0] + 1, before[1])
+    assert torch.equal(bmin, popcount.hamming_bucket_min_ref(*args))
 
 
 @pytest.mark.parametrize("mode", ["packed", "sign"])

@@ -227,6 +227,21 @@ def test_no_source_imports_the_jax_package():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("package", ["ops", "evalharness"])
+def test_package_surface_matches_the_jax_package(package):
+    # every name the JAX package's __init__ imports (read as source: no JAX
+    # module is imported) resolves in the port's package of the same path
+    import importlib
+
+    init = REPO / "sessionsimilaritysearch_tpu" / package / "__init__.py"
+    names = [a.asname or a.name for node in ast.walk(ast.parse(init.read_text(), str(init)))
+             if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert names, init
+    mod = importlib.import_module(f"sessionsimilaritysearch_tpu_torch.{package}")
+    missing = [n for n in names if not hasattr(mod, n)]
+    assert not missing, missing
+
+
 def test_no_message_names_the_ported_roadmap_items():
     # Queue 1 items 2 (the selection modes), 6 (the binary and two-stage
     # tiers), 8 / 8a (sharded serving) and 8b (data-parallel training) are
