@@ -2785,7 +2785,9 @@ def phase_packed_kernel(torch, dev):
 
     errs, out = [], {}
     g = torch.Generator(device=dev).manual_seed(3)
-    for n_bits in (250, 384):  # bf16 scores, then f32 (codes over 256 bits)
+    # bf16 scores (the resident layout), then f32 (codes over 256 bits: the
+    # streamed layout); 1,600 bits pad to 1,664
+    for n_bits in (250, 384, 1600, 2048, 4096):
         q, words, _, _ = packed_case(torch, hamming, g, 37, 6144, n_bits, dev)
         pen = torch.where(torch.rand(6144, generator=g, device=dev) < 0.1,
                           float("-inf"), 0.0)
@@ -2804,9 +2806,9 @@ def phase_packed_kernel(torch, dev):
         check(torch.equal(d, d_ref), f"packed ragged {n_bits} bits: top-10 distances differ")
         fin = torch.isfinite(s_ref)
         errs.append((s.float()[fin] - s_ref.float()[fin]).abs().max().item())
-        print(f"packed kernel ragged q=37 n=6144 {n_bits} bits ({str(sd)[6:]} scores, "
-              f"valid_count 5003, 10% masked): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms; scores, bmax and top-10 distances equal")
+        print(f"packed kernel ragged q=37 n=6144 {n_bits} bits (padded {q.shape[1]}; "
+              f"{str(sd)[6:]} scores, valid_count 5003, 10% masked): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; scores, bmax and top-10 distances equal")
 
     q_n, n, n_bits = 1024, 1 << 20, 256
     q, words, q_rows, c_rows = packed_case(torch, hamming, g, q_n, n, n_bits, dev)
@@ -2837,7 +2839,9 @@ def phase_packed_kernel(torch, dev):
     return out, (q_rows, c_rows, d, q, words)
 
 
-K5_WIDTHS = (1, 3, 8, 13, 17, 32, 53)  # words: every K-slice remainder, each tile shape
+# words: every K-slice remainder, both resident query tiles (256 queries up
+# to 16 words, 128 up to 32) and the streamed layout (53 and wider)
+K5_WIDTHS = (1, 3, 8, 13, 17, 32, 53, 54, 64, 128)
 K5_QUERIES = (1, 37, 200)
 K5_ROWS = (1, 127, 5003, 6144)  # a lone row, one ragged bucket, a ragged tail, whole buckets
 
@@ -2861,6 +2865,79 @@ def k5_penalty(torch, popcount, g, n, dev):
     live[int(0.9 * n) + 1:] = False
     live[128:256] = False
     return torch.where(live, 0, popcount.PENALTY).to(torch.int32)
+
+
+WIDE_WORDS, WIDE_BITS = 64, 2048  # K5 and K4 at the bench shape beyond PR 20's caps
+
+
+def wide_points(torch, lib, g, q_n, n, dev):
+    """K5 at 64 words and K4 at 2,048 bits (f32 scores) at the bench shape:
+    random codes (every bit in use), each kernel held bit for bit to its
+    plain version (timed once, CUDA events), the launches of one counted
+    top-k each, and the calls to time in turns with the bench point."""
+    from sessionsimilaritysearch_tpu_torch.ops import hamming, mips, packed, popcount
+
+    def timed(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    w, bits, f32 = WIDE_WORDS, WIDE_BITS, torch.float32
+    q5 = torch.randint(-2**31, 2**31 - 1, (q_n, w), generator=g, device=dev, dtype=torch.int32)
+    c5 = torch.randint(-2**31, 2**31 - 1, (n, w), generator=g, device=dev, dtype=torch.int32)
+    want, k5_plain_ms = timed(lambda: popcount.hamming_bucket_min_ref(q5, c5))
+    check(torch.equal(popcount.hamming_bucket_min(q5, c5), want),
+          f"hamming {w} words at the bench shape: wgmma bmin differs")
+    check(torch.equal(popc_call(torch, lib, popcount, q5, c5, None, dev), want),
+          f"hamming {w} words at the bench shape: popc bmin differs")
+    del want
+    # the path: one hamming_topk of 256 queries (its popcount re-rank of
+    # 12,800 rows a query holds ~7 GB of int64 at 64 words), counted from 0
+    popcount.launch_count = popcount.wgmma_launch_count = 0
+    d5, _ = hamming.hamming_topk(q5[:256], c5, 100)
+    torch.cuda.synchronize()
+    k5_launches = (popcount.launch_count, popcount.wgmma_launch_count)
+    check(k5_launches == (1, 1), f"hamming_topk at {w} words: launches {k5_launches}, not "
+          "one of the wgmma variant")
+    d_ref = torch.sort(popcount.hamming_distances(q5[:4, None, :], c5[None]), dim=1).values
+    check(torch.equal(d5[:4], d_ref[:, :100]), f"hamming_topk at {w} words: top-100 "
+          "distances differ from the plain popcount's")
+    del d_ref
+
+    q4 = torch.where(torch.rand(q_n, bits, generator=g, device=dev) < 0.5, 1.0, -1.0).bfloat16()
+    w4 = torch.randint(-2**31, 2**31 - 1, (n // 32, bits), generator=g, device=dev,
+                       dtype=torch.int32)
+    (s_ref, bm_ref), k4_plain_ms = timed(
+        lambda: packed.packed_scores_with_bucket_max_ref(q4, w4, score_dtype=f32))
+    s, bm = packed.packed_scores_with_bucket_max(q4, w4, score_dtype=f32)
+    check(torch.equal(s, s_ref) and torch.equal(bm, bm_ref),
+          f"packed {bits} bits at the bench shape: scores or bmax differ")
+    del s, bm
+    d_ref, _ = packed.dots_to_hamming(*mips.select_topk(s_ref, bm_ref, 100), bits)
+    del s_ref, bm_ref
+    k4_0 = packed.launch_count
+    d4, _ = packed.packed_topk(q4, w4, 100, bits)
+    torch.cuda.synchronize()
+    k4_launches = packed.launch_count - k4_0
+    check(k4_launches == 1 and torch.equal(d4, d_ref),
+          f"packed_topk at {bits} bits: {k4_launches} launches, or top-100 distances differ")
+    del d4, d_ref
+    torch.cuda.empty_cache()
+    rows = packed.unpack_bits_t(w4)  # the library call's operand: 4 GiB of +-1 bf16
+    fns = {"wgmma_w64": (lambda: popcount.hamming_bucket_min(q5, c5), 5),
+           "popc_w64": (lambda: popc_call(torch, lib, popcount, q5, c5, None, dev), 1),
+           "k4_b2048": (lambda: packed.packed_scores_with_bucket_max(q4, w4, score_dtype=f32), 5),
+           "cublas_b2048": (lambda: torch.matmul(q4, rows.T), 3)}
+    k5 = {"words": w, "plain_ms": k5_plain_ms, "launches": k5_launches[1],
+          **bound_ms((q_n + n) * w * 4 + q_n * (n // 128) * 4, 2 * q_n * n * 32 * w, PEAK_INT8)}
+    k4 = {"bits": bits, "score_dtype": "float32", "plain_ms": k4_plain_ms,
+          "launches": k4_launches,
+          **bound_ms(q_n * bits * 2 + n * bits // 8 + q_n * n * 4 + q_n * (n // 128) * 4,
+                     2 * q_n * n * bits, PEAK_INT8)}
+    return fns, k5, k4
 
 
 def phase_hamming_kernel(torch, dev, bench):
@@ -2932,10 +3009,25 @@ def phase_hamming_kernel(torch, dev, bench):
           "hamming bench point: popc bmin differs")
     del want
     plain_ms = cuda_ms(torch, lambda: popcount.hamming_bucket_min_ref(q, c), 1)
+    wide_fns, wide_k5, wide_k4 = wide_points(torch, lib, g, q_n, n, dev)
+    # the bench point and the wide shapes in the same rounds, in turns
     med, rounds, state = rounds_in_turns(torch, {
         "wgmma": (lambda: popcount.hamming_bucket_min(q, c), 20),
         "popc": (lambda: popc_call(torch, lib, popcount, q, c, None, dev), 5),
-        "k4": (lambda: packed.packed_scores_with_bucket_max(k4_q, k4_words), 5)})
+        "k4": (lambda: packed.packed_scores_with_bucket_max(k4_q, k4_words), 5),
+        **wide_fns})
+    del wide_fns
+    torch.cuda.empty_cache()
+    wide_k5.update(ms=med["wgmma_w64"], popc_ms=med["popc_w64"], library_ms=None)
+    wide_k4.update(ms=med["k4_b2048"], library_ms=med["cublas_b2048"])
+    print(f"wide codes at q={q_n} n={n}, in the same rounds {state}: K5 {WIDE_WORDS} words "
+          f"wgmma {rounds['wgmma_w64']} ms (bound {wide_k5['bound_ms']:.3f}, "
+          f"{wide_k5['bound_by']}), popc {rounds['popc_w64']} ms, plain "
+          f"{wide_k5['plain_ms']:.1f} ms, hamming_topk {wide_k5['launches']} wgmma launch; "
+          f"K4 {WIDE_BITS} bits f32 scores {rounds['k4_b2048']} ms (bound "
+          f"{wide_k4['bound_ms']:.3f}, {wide_k4['bound_by']}), cuBLAS bf16 GEMM on the "
+          f"unpacked rows {rounds['cublas_b2048']} ms, plain {wide_k4['plain_ms']:.1f} ms, "
+          f"packed_topk {wide_k4['launches']} launch; each bit for bit its plain version's")
     popcount.launch_count = popcount.wgmma_launch_count = 0  # K5's path: hamming_topk
     t0 = time.perf_counter()
     d, _ = hamming.hamming_topk(q, c, 100)
@@ -2962,10 +3054,38 @@ def phase_hamming_kernel(torch, dev, bench):
     return {"err": 0, "ms": med["wgmma"], "plain_ms": plain_ms, "launches": launches,
             "wgmma_launches": wgmma_launches, "library_ms": None, "cases": cases,
             "k4_ms_same_rounds": med["k4"], "hamming_topk_ms": topk_best,
+            f"w{WIDE_WORDS}": wide_k5, f"k4_b{WIDE_BITS}": wide_k4,
             "rounds": rounds, **bound_ms(n_bytes, ops, PEAK_INT8),
             "popc": {"source": "sessionsimilaritysearch_tpu_torch/csrc/hamming_bucket_min.cu",
                      "ms": med["popc"], "design_bound_ms": design["bound_ms"],
                      "design_bound_by": design["bound_by"], "launches": 0}}
+
+
+def packed_index_1600(torch, BinaryIndex, g, k, dev):
+    """One ``BinaryIndex(1600, mode='packed')`` search on the card (a code as
+    wide as the flagship embedding, padded to 1,664 bits), 256 queries over
+    2^18 rows, counted from 0 and held to the plain version: the f32 product
+    of the +-1 codes, exact for integers. Returns the search's launches."""
+    n, n_bits, q_n = 1 << 18, 1600, 256
+    codes = random_signs(torch, g, n, n_bits, dev)
+    queries = random_signs(torch, g, q_n, n_bits, dev)
+    idx = BinaryIndex(n_bits, n, "packed", device=dev)
+    for s in range(0, n, 1 << 16):
+        idx.add(codes[s: s + (1 << 16)])
+    t0 = time.perf_counter()
+    (d, i), launches = counted(torch, lambda: idx.search_device(queries, k))
+    search_ms = (time.perf_counter() - t0) * 1e3
+    check(launches == {**NO_LAUNCHES, "k4": 1},
+          f"binary index packed {n_bits} bits: launches {launches}, not one of K4")
+    want = ((n_bits - torch.topk(queries @ codes.T, k, dim=1).values) * 0.5).to(torch.int32)
+    check(sorted_equal(torch, d, want), f"binary index packed {n_bits} bits: distances differ")
+    true = ((n_bits - (queries[:, None, :] * codes[i[:, :5]]).sum(-1)) * 0.5).to(torch.int32)
+    check(torch.equal(true, d[:, :5]), f"binary index packed {n_bits} bits: ids do not have "
+          "their distances")
+    print(f"binary index packed 2^18 x {n_bits} bits (padded {idx._buf.shape[1]}): search "
+          f"{q_n} queries k={k} {search_ms:.1f} ms first call, launches {launches}; sorted "
+          f"distances equal the plain product's")
+    return launches
 
 
 def phase_binary_index(torch, dev):
@@ -3011,6 +3131,7 @@ def phase_binary_index(torch, dev):
               f"k={k} {best * 1e3:.1f} ms best of 3 ({q_n / best:.0f} QPS); sorted "
               f"distances equal the plain product's")
         del idx
+    wide_path = packed_index_1600(torch, BinaryIndex, g, k, dev)
     # K1 alone at sign mode's shape: +-1 bf16 rows of 250 bits (no TMA
     # stride), bf16 scores; the cp_async variant through the wrapper, the
     # tile loop through its C entry point, a cuBLAS bf16 GEMM and the plain
@@ -3047,7 +3168,7 @@ def phase_binary_index(torch, dev):
           f"{rounds['plain']} ms; bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}); "
           f"scores and bmax of both kernels equal the plain version's")
     cp["producer_ablation_d256"] = producer_ablation(torch, mips, lib, g, q_n, n, dev)
-    return tile, cp, sign_path
+    return tile, cp, sign_path, wide_path
 
 
 def producer_ablation(torch, mips, lib, g, q_n, n, dev, bits=256):
@@ -5613,8 +5734,8 @@ def main() -> int:
     k4, bench = run_phase(torch, "packed kernel", phase_packed_kernel, torch, dev)
     k5 = run_phase(torch, "hamming kernel", phase_hamming_kernel, torch, dev, bench)
     del bench
-    sign_tile, sign_cp, sign_path = run_phase(torch, "binary index", phase_binary_index,
-                                              torch, dev)
+    sign_tile, sign_cp, sign_path, packed_1600_path = run_phase(
+        torch, "binary index", phase_binary_index, torch, dev)
     bin_path = run_phase(torch, "binary maintenance", phase_binary_maintenance, torch, dev,
                          card_line)
     err_tiers, tiers = run_phase(torch, "two-stage index", phase_twostage_index, torch, dev,
@@ -5729,6 +5850,7 @@ def main() -> int:
     for counts in tier_counts.values():
         new_paths["twostage_tiers"] = add_counts(new_paths["twostage_tiers"], counts)
     new_paths["binary_sign"] = sign_path
+    new_paths["binary_packed_1600"] = packed_1600_path
     for key, entry_ in (("k1", k1_entry), ("k2", k2_entry)):
         by_path = {path: c.get(key, 0) for path, c in new_paths.items()}
         entry_["launches_by_path"] = {"earlier_paths": entry_["launches"], **by_path,
@@ -5784,8 +5906,10 @@ def main() -> int:
     k5_entry = entry("hamming_bucket_min", "619", k5["launches"], k5["err"], k5,
                      "hamming_bucket_min_sm90.cu")
     k5_entry.update({key: k5[key] for key in ("wgmma_launches", "popc", "cases",
-                                              "k4_ms_same_rounds", "hamming_topk_ms")},
+                                              "k4_ms_same_rounds", "hamming_topk_ms",
+                                              f"w{WIDE_WORDS}")},
                     also_replaces=tpu + "651")
+    k4_entry[f"b{WIDE_BITS}"] = k5[f"k4_b{WIDE_BITS}"]  # timed in K5's rounds
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         k1_entry,

@@ -11,11 +11,12 @@ n=2^20; K1 d=1600 bf16 -> bf16, K1's cp_async variant d=250 +-1 codes ->
 bf16 (the sign-mode shape), K1 f32 d=1600 f32 -> f32 on f32 unit rows, K4
 256 bits -> bf16, K2 d=1600 int8 -> f32, the int8x8 index's score dtype,
 K5 256 bits (8 words) row-major, no penalty; ``--k5-words`` times K5 at
-other widths too).
+other widths too, ``--k4-bits`` K4, with f32 scores above 256 bits).
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 kernel_ablation.py [--parent DIR] [--only k5 ...] [--k5-words 4 8 ...]
+                               [--k4-bits 256 2048 ...]
 
 ``--only`` builds and times the named kernels alone (k1, k1cp, k1f32, k4,
 k2, k5; all by default).
@@ -52,6 +53,15 @@ copies:
 - K4 ``no_epilogue``: the consumers skip the epilogue;
 - K4 ``no_unpack``: the producer skips the unpack (the ring holds stale
   bytes);
+- K4 ``stream``: the streamed layout (row-major corpus, query slices
+  through the ring) at every width, not only where the resident layout
+  cannot stage the pack block's words; ``stream_no_qcopy``: the same
+  without the query slices' bulk copies (stale A slots);
+  ``stream_no_load``: its producer copying no corpus words (it unpacks
+  stale raw slots); ``stream_no_relayout``: the corpus
+  not written row-major first (the scan reads stale scratch);
+  ``stream_no_unpack``: its producer storing no corpus slice (unless a
+  word is 0x12345678);
 - K2 ``no_epilogue``: the consumers skip the epilogue (products only);
 - K2 ``scales_in_epilogue``: each bucket's scales are read in the
   epilogue, behind branches on n, not at the tile's start (the first
@@ -84,15 +94,20 @@ copies:
 - K5 ``stages8``: a ring of up to 8 slots, not 4;
 - K5 ``one_acc``: one accumulator per consumer warpgroup (128 queries a
   tile), not two (256);
+- K5 ``stream``: the query slices streamed (the kernel of codes no
+  resident tile holds) at every width; ``stream_no_load``: the same, its
+  producer making each word from its row and column instead of loading
+  it; ``stream_no_qunpack``: the same, its consumers storing no query
+  slice (stale A buffers; the loads and barriers stay);
 - K5 ``popc``: not a copy, K5's popc variant (``csrc/hamming_bucket_min.cu``)
   through its C entry point, timed in the same rounds.
 
 Copies that keep the output (``mask_always``, ``wait_group_1``, ``parent``,
 ``scales_in_epilogue``, ``no_l2_prefetch``, ``no_consumer_fence``,
-``wait_group_lag2``, ``wait_group_lag1``; K1 cp_async's ``tile``; K5's
-``stages8``, ``one_acc`` and ``popc``) must equal the kernel's output; the
-others are
-diagnostics only. For K1 f32 each copy's largest |score - f64| on the two
+``wait_group_lag2``, ``wait_group_lag1``; K1 cp_async's ``tile``; K4's
+``stream``; K5's ``stages8``, ``one_acc``, ``stream``
+and ``popc``) must equal the kernel's output; the others are diagnostics
+only. For K1 f32 each copy's largest |score - f64| on the two
 cases of the accuracy gate is printed beside cuBLAS SGEMM's. Every kernel
 runs three rounds in turns, each the mean of 10 launches between CUDA
 events, beside one library call (cuBLAS bf16 GEMM; for K4 on the unpacked +-1 rows; for
@@ -192,6 +207,31 @@ def cp_wait_group(lag):
 
 # kernel -> copy -> ({old: new} in the kernel's source, {old: new} in the one
 # header of csrc/ that holds `old`)
+# K4's streamed layout at every width, with the substitutions of each named
+# part: the dispatch's test for the resident layout, then one part off
+K4_STREAM = {
+    "force": {"  if (bits <= MAX_SMEM / (PACK_ROWS * 4) && layout<S>(2, bits).bytes <= MAX_SMEM)":
+              "  if (false)"},
+    "no_qcopy": {"        mbar_arrive_expect_tx(&full[ring.slot], BQ * KS);\n"
+                 "        bulk_load(qa + ring.slot * BQ * KS, src, BQ * KS, &full[ring.slot]);":
+                 "        mbar_arrive(&full[ring.slot]);\n        (void)src;"},
+    "no_load": {"        cp_async16(raw + slot * BUCKET * 16, rm + row * k_slices + c.ks);":
+                "        (void)row;"},
+    "no_relayout": {"  relayout_rows_kernel<<<n / 32, 256, 0, stream>>>(": "  if (false)\n"
+                    "  relayout_rows_kernel<<<n / 32, 256, 0, stream>>>("},
+    "no_unpack": {"      store_unpacked(dst, pt, 0, v0.x);": "      if (v0.x == 0x12345678u) {\n"
+                  "      store_unpacked(dst, pt, 0, v0.x);",
+                  "      store_unpacked(dst, pt, 3, v0.w);": "      store_unpacked(dst, pt, 3, v0.w);\n"
+                  "      }"},
+}
+
+
+def k4_stream(*parts):
+    """A K4 copy on the streamed layout with each named part switched off."""
+    return ({old: new for part in ("force", *parts) for old, new in K4_STREAM[part].items()},
+            {})
+
+
 VARIANTS = {
     "k1": {
         "base": ({}, {}),
@@ -234,6 +274,11 @@ VARIANTS = {
                          "        if (active && b < 0) {\n          float v[64];"}, {}),
         "no_unpack": ({"for (int i = 0; i < 16; ++i) {":
                        "for (int i = 0; i < (j > 99u ? 16 : 0); ++i) {"}, {}),
+        "stream": k4_stream(),
+        "stream_no_qcopy": k4_stream("no_qcopy"),
+        "stream_no_load": k4_stream("no_load"),
+        "stream_no_relayout": k4_stream("no_relayout"),
+        "stream_no_unpack": k4_stream("no_unpack"),
     },
     "k2": {
         "base": ({}, {}),
@@ -265,8 +310,13 @@ VARIANTS = {
 K5_WGMMA = "wgmma_m64n128k32_s8(acc[h], a_desc + 512 * h + 2 * kk, b_desc + 2 * kk,"
 K5_PART = {
     "no_unpack": {"for (int m = 0; m < BUCKET / 32; ++m) {": "for (int m = 0; m < 0; ++m) {"},
-    "no_min": {"if (lane % 4 == 0) {": "if (lane % 4 == 0 && b < 0) {"},
+    "no_min": {"if (lane % 4 == 0) {": "if (lane % 4 == 0 && n_buckets < 0) {"},
     "no_mma": {K5_WGMMA: "if (kk < 0) " + K5_WGMMA},
+    "force_stream": {"  if (words <= MAX_SMEM / (128 * KS) * SLICE_WORDS) {": "  if (false) {"},
+    "no_load": {"v[m] = w < words && row < n ? __ldg(c_codes + (size_t)row * words + w) : 0u;":
+                "v[m] = w < words && row < n ? (uint32_t)row * 0x9E3779B9u + w : 0u;"},
+    "no_qunpack": {"        if (real)\n          store_unpacked(row, r, qwi, p[j]);\n"
+                   "        else\n          store_zero(row, r, qwi);": "        (void)row;"},
     "no_fetch": {"      if (b >= full_buckets) return;": "      return;",
                  "        mbar_wait(&raw_full[buf * 4 + pw], (raw_phase >> buf) & 1u);\n": ""},
 }
@@ -286,6 +336,9 @@ VARIANTS["k5"] = {
     "mma_only": k5_copy("no_unpack", "no_min", "no_fetch"),
     "stages8": ({"constexpr int MAX_STAGES = 4;": "constexpr int MAX_STAGES = 8;"}, {}),
     "one_acc": ({"    if (layout(256, words, st).bytes <= MAX_SMEM)": "    if (false)"}, {}),
+    "stream": k5_copy("force_stream"),
+    "stream_no_load": k5_copy("force_stream", "no_load"),
+    "stream_no_qunpack": k5_copy("force_stream", "no_qunpack"),
 }
 SOURCES = {"k1": "scores_bmax_sm90.cu", "k1cp": "scores_bmax_sm90.cu",
            "k4": "packed_scores_bmax.cu",
@@ -360,6 +413,8 @@ def main() -> int:
                     help="the kernels to build and time (default: all)")
     ap.add_argument("--k5-words", nargs="+", type=int, default=[8],
                     help="K5's code widths in int32 words (default: 8, the bench point)")
+    ap.add_argument("--k4-bits", nargs="+", type=int, default=[256],
+                    help="K4's code widths in bits (default: 256, the bench point)")
     args = ap.parse_args()
     import torch
 
@@ -402,7 +457,8 @@ def main() -> int:
     q_n, n, d, bits = 1024, 1 << 20, 1600, 256
     times = {}
 
-    def run(kernel, launch, library, score_dtype=torch.bfloat16):
+    def run(kernel, launch, library, score_dtype=torch.bfloat16, key=None):
+        key = key or kernel
         names = [name for (k, name) in entries if k == kernel]
         outs, res, state = {}, {}, []
         for rnd in range(3):
@@ -421,14 +477,15 @@ def main() -> int:
         base = outs["base"]
         same = ("mask_always", "wait_group_1", "parent", "scales_in_epilogue",
                 "no_l2_prefetch", "no_consumer_fence", "wait_group_lag2", "wait_group_lag1")
+        same += ("stream",) if kernel == "k4" else ()
         for name in same + (("tile",) if kernel == "k1cp" else ()):
             if name in outs and not (torch.equal(outs[name][0], base[0])
                                      and torch.equal(outs[name][1], base[1])):
-                raise SystemExit(f"{kernel} {name}: output differs from the kernel's")
+                raise SystemExit(f"{key} {name}: output differs from the kernel's")
         for name, t in res.items():
-            print(f"{kernel} {name}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
-        print(f"{kernel} SM clock, power after each round: " + " / ".join(state))
-        times[kernel] = {**res, "smi": state}
+            print(f"{key} {name}: " + " / ".join(f"{x:.3f}" for x in t) + " ms")
+        print(f"{key} SM clock, power after each round: " + " / ".join(state))
+        times[key] = {**res, "smi": state}
 
     if "k1" in args.only:
         corpus = torch.randn(n, d, generator=g, device=dev)
@@ -509,16 +566,20 @@ def main() -> int:
             del exact
         times["k1f32_err"] = errs
 
-    if "k4" in args.only:
-        words = torch.randint(-2**31, 2**31 - 1, (n // 32, bits), generator=g, device=dev,
+    for k4_bits in args.k4_bits if "k4" in args.only else ():
+        # bf16 scores up to 256 bits, f32 above (as packed.packed_topk asks)
+        out_bf16 = int(k4_bits <= 256)
+        words = torch.randint(-2**31, 2**31 - 1, (n // 32, k4_bits), generator=g, device=dev,
                               dtype=torch.int32)
-        codes = torch.where(torch.rand(q_n, bits, generator=g, device=dev) < 0.5,
+        codes = torch.where(torch.rand(q_n, k4_bits, generator=g, device=dev) < 0.5,
                             1.0, -1.0).bfloat16()
         rows = packed.unpack_bits_t(words)
         run("k4", lambda fn, s, bm: lambda: fn(
             codes.data_ptr(), words.data_ptr(), None, s.data_ptr(), bm.data_ptr(),
-            q_n, n, bits, n, 1, stream),
-            lambda: torch.matmul(codes, rows.T))
+            q_n, n, k4_bits, n, out_bf16, stream),
+            lambda: torch.matmul(codes, rows.T),
+            torch.bfloat16 if out_bf16 else torch.float32,
+            key="k4" if k4_bits == bits else f"k4_b{k4_bits}")
         del words, codes, rows
         torch.cuda.empty_cache()
 
@@ -559,7 +620,7 @@ def main() -> int:
                     res.setdefault(name, []).append(ms(call))
                     outs[name] = bmin
                 state.append(smi())
-            for name in ("stages8", "one_acc", "popc"):
+            for name in ("stages8", "one_acc", "stream", "popc"):
                 if not torch.equal(outs[name], outs["base"]):
                     raise SystemExit(f"{key} {name}: output differs from the kernel's")
             bound = 2 * q_n * n * 32 * words / 1979e12 * 1e3  # +-1 products at the s8 rate

@@ -20,7 +20,9 @@
 // block stages its rows word-major in shared memory (stride 1025 words, so
 // the lanes' reads of neighbouring rows are free of bank conflicts) and its
 // queries row-major (read as broadcasts). A warp takes the minimum
-// over its bucket with one __reduce_min_sync per query.
+// over its bucket with one __reduce_min_sync per query. Codes wider than
+// one staging holds (W > 53) run the chunked kernel below: the words in
+// chunks of 8, 16 queries a block, each partial distance in registers.
 //
 // Bounds on an H100. The work's: the same distances are 2 q n 32 W +-1
 // products (hamming_bucket_min_sm90.cu), 0.278 ms at the s8 rate at q=1024,
@@ -94,29 +96,114 @@ hamming_bucket_min_kernel(const uint32_t* __restrict__ q_codes,
   }
 }
 
+// The same minima for codes too wide for one staging (W > 53 words): the
+// block's rows and queries come in chunks of CW words, each (query, row)
+// partial distance stays in registers across the chunks, and the block
+// takes TQW queries, not TQ. Staging (static): CW x 1025 +
+// TQW x CW words, 33,312 bytes.
+constexpr int CW = 8;    // words per chunk
+constexpr int TQW = 16;  // queries per block
+
+__global__ void __launch_bounds__(THREADS)
+hamming_bucket_min_chunked_kernel(const uint32_t* __restrict__ q_codes,
+                                  const uint32_t* __restrict__ c_codes,
+                                  const int32_t* __restrict__ penalty,
+                                  int32_t* __restrict__ bmin, int q, int n, int words,
+                                  int q_tiles) {
+  __shared__ uint32_t cs[CW * LDW];  // [CW][LDW]
+  __shared__ uint32_t qs[TQW * CW];  // [TQW][CW]
+  const int q0 = (blockIdx.x % q_tiles) * TQW;
+  const int r0 = (blockIdx.x / q_tiles) * BLOCK_ROWS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_buckets = (n + BUCKET - 1) / BUCKET;
+  const int rb = warp * BUCKET + lane;  // this lane's rows: rb + 32 i
+
+  int d[TQW][ROWS_PER_LANE];
+#pragma unroll
+  for (int t = 0; t < TQW; ++t)
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_LANE; ++i) d[t][i] = 0;
+  for (int w0 = 0; w0 < words; w0 += CW) {
+    const int cw = min(CW, words - w0);
+    __syncthreads();  // the last chunk's reads are done
+    for (int i = threadIdx.x; i < BLOCK_ROWS * cw; i += THREADS) {
+      const int rr = i / cw, w = i % cw;
+      cs[w * LDW + rr] =
+          r0 + rr < n ? __ldg(c_codes + (size_t)(r0 + rr) * words + w0 + w) : 0u;
+    }
+    for (int i = threadIdx.x; i < TQW * CW; i += THREADS) {
+      const int t = i / CW, w = i % CW;
+      qs[i] = w < cw && q0 + t < q ? __ldg(q_codes + (size_t)(q0 + t) * words + w0 + w) : 0u;
+    }
+    __syncthreads();
+    // words past the chunk's last are zero on both sides: they add nothing
+    for (int w = 0; w < cw; ++w) {
+      uint32_t c[ROWS_PER_LANE];
+#pragma unroll
+      for (int i = 0; i < ROWS_PER_LANE; ++i) c[i] = cs[w * LDW + rb + 32 * i];
+#pragma unroll
+      for (int t = 0; t < TQW; ++t) {
+        const uint32_t qw = qs[t * CW + w];
+#pragma unroll
+        for (int i = 0; i < ROWS_PER_LANE; ++i) d[t][i] += __popc(qw ^ c[i]);
+      }
+    }
+  }
+
+  const int bucket = r0 / BUCKET + warp;
+  if (bucket >= n_buckets) return;  // no barrier follows
+  bool live[ROWS_PER_LANE];
+  int pen[ROWS_PER_LANE];
+#pragma unroll
+  for (int i = 0; i < ROWS_PER_LANE; ++i) {
+    const int row = r0 + rb + 32 * i;
+    live[i] = row < n;
+    pen[i] = live[i] && penalty != nullptr ? penalty[row] : 0;
+  }
+#pragma unroll
+  for (int t = 0; t < TQW; ++t) {
+    int m = INT_MAX;
+#pragma unroll
+    for (int i = 0; i < ROWS_PER_LANE; ++i)
+      if (live[i]) m = min(m, d[t][i] + pen[i]);
+    m = __reduce_min_sync(0xffffffffu, m);
+    if (lane == 0 && q0 + t < q) bmin[(size_t)(q0 + t) * n_buckets + bucket] = m;
+  }
+}
+
 }  // namespace
 
 // C interface, bound with ctypes (ops/_build.py). Pointers are device
 // pointers; penalty ([n] int32) may be null. q_codes: [q, words] int32;
-// c_codes: [n, words] int32; bmin: [q, ceil(n / 128)] int32. Launches on
+// c_codes: [n, words] int32, any words >= 1; bmin: [q, ceil(n / 128)] int32. Launches on
 // `stream`, returns the launch's cudaError_t (0 = success) and does not
 // synchronize.
 extern "C" int sss_hamming_bucket_min(const void* q_codes, const void* c_codes,
                                       const void* penalty, void* bmin, int q, int n,
                                       int words, void* stream) {
   if (q <= 0 || n <= 0) return 0;
+  if (words <= 0 || words > INT_MAX / 32) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qc = static_cast<const uint32_t*>(q_codes);
+  const auto* cc = static_cast<const uint32_t*>(c_codes);
+  const auto* pen = static_cast<const int32_t*>(penalty);
+  auto* out = static_cast<int32_t*>(bmin);
+  const long long row_blocks = (n + BLOCK_ROWS - 1) / BLOCK_ROWS;
+  if (words > MAX_SMEM / (4 * (LDW + TQ))) {  // one staging cannot hold the codes
+    const int q_tiles = (q + TQW - 1) / TQW;
+    if (q_tiles * row_blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    hamming_bucket_min_chunked_kernel<<<(unsigned)(q_tiles * row_blocks), THREADS, 0, s>>>(
+        qc, cc, pen, out, q, n, words, q_tiles);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int bytes = smem_bytes(words);
-  if (words <= 0 || bytes > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       hamming_bucket_min_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int q_tiles = (q + TQ - 1) / TQ;
-  const long long blocks = (long long)q_tiles * ((n + BLOCK_ROWS - 1) / BLOCK_ROWS);
+  const long long blocks = (long long)q_tiles * row_blocks;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  hamming_bucket_min_kernel<<<(unsigned)blocks, THREADS, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(q_codes), static_cast<const uint32_t*>(c_codes),
-      static_cast<const int32_t*>(penalty), static_cast<int32_t*>(bmin), q, n, words,
-      q_tiles);
+  hamming_bucket_min_kernel<<<(unsigned)blocks, THREADS, bytes, s>>>(qc, cc, pen, out, q, n,
+                                                                      words, q_tiles);
   return static_cast<int>(cudaGetLastError());
 }

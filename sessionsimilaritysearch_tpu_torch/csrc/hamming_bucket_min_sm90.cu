@@ -52,8 +52,8 @@
 //   async proxy before its warp arrives on the slot's full barrier (one
 //   arrival per warp). With the bucket's last slice it writes 16 W +
 //   penalty of the bucket's rows beside the slot.
-// - Consumer warpgroups (setmaxnreg up to 216) of two accumulators, 128
-//   queries each where the query tile fits (one, 64 queries, where not),
+// - Two consumer warpgroups (setmaxnreg up to 216) of two accumulators, 128
+//   queries each where the query tile fits (one, 64 queries each, where not),
 //   unpack their query rows into the A layout once per query tile and run
 //   wgmma m64n128k32 s8 over the bucket's slices, one group queued behind
 //   the running one; a slot is released once the group after it is issued.
@@ -67,12 +67,23 @@
 // Shared memory (bytes): ring STAGES x 16,384; query tile ceil(W / 4) x BQ
 // x 128 for BQ queries; raw buffers 2 x 512 (W + 1); the penalty beside the
 // ring STAGES x 512; barriers (2 STAGES + 8) x 8. The query tile is the
-// largest of 256 (two consumer warpgroups of two accumulators; W <= 16), 128
-// (of one; W <= 32) and 64 (one warpgroup; W <= 53) that fits beside a ring
-// of at least 3 slots (2 for 64), and the ring takes up to 4. At W = 8: 256
-// queries, 4 slots, 65,536 + 65,536 + 9,216 + 2,048 + 128 = 142,464. At
-// W = 53: 64 queries, 3 slots, 49,152 + 114,688 + 55,296 + 1,536 + 112 =
-// 220,784 (of 232,448).
+// larger of 256 (two accumulators a consumer warpgroup; W <= 16) and 128
+// (one; W <= 32) that fits beside a ring of at least 3 slots, and the ring
+// takes up to 4. At W = 8: 256 queries, 4 slots, 65,536 + 65,536 + 9,216 +
+// 2,048 + 128 = 142,464. At W = 32: 128 queries, 3 slots, 215,664 (of
+// 232,448).
+// - Codes of any wider width run hamming_bucket_min_stream_kernel: the same
+//   tiles of 256 queries, products and epilogue, with nothing of a tile
+//   resident across its K slices. The producer loads its lanes' words of
+//   each slice from device memory (L2), two slices ahead, with no raw
+//   buffers; each consumer warpgroup unpacks its own rows' query slice (4
+//   words a row) into a ring of 3 A buffers, one slice ahead of the
+//   products, and its accumulators add up all ceil(W / 4) slices of the
+//   bucket before the min (32 W < 2^31: exact). No partial distance leaves
+//   the registers. Shared memory: ring 4 x 16,384, A buffers 3 x 32,768,
+//   penalty 4 x 512, barriers 64: 165,952 at every width. (A resident tile
+//   of 64 queries, one consumer warpgroup, holds up to W = 64 but ran 1.5x
+//   the streamed kernel's time at W = 53 and 64 on an H100: PERF.md.)
 
 #include <climits>
 
@@ -87,7 +98,6 @@ constexpr int SLICE_WORDS = KS / 32;         // 4
 constexpr int SLOT_BYTES = BUCKET * KS;      // one unpacked [128 rows x 128] s8 slice
 constexpr int MAX_STAGES = 4;
 constexpr int RAW_BUFS = 2;                  // buckets of codes in flight to the producer
-constexpr int MAX_WORDS = 53;
 constexpr int MAX_SMEM = 232448;
 
 // one raw buffer: a bucket's codes [128][words] int32, then its penalty [128]
@@ -107,38 +117,6 @@ __host__ __device__ Layout layout(int rows, int words, int stages) {
   l.bar_off = l.pen_off + stages * BUCKET * 4;
   l.bytes = l.bar_off + (2 * stages + 4 * RAW_BUFS) * 8;  // full, empty, raw_full
   return l;
-}
-
-// Each byte of y: 0xFF where its top bit is set, else 0x00 (prmt's sign
-// replication, one instruction).
-__device__ __forceinline__ uint32_t top_bits_to_bytes(uint32_t y) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(y), "r"(0u), "r"(0xBA98u));
-  return r;
-}
-
-// One code word as the 32 s8 values of its bits, -1 for a set bit and +1
-// for a clear one, stored as the two 16-byte chunks of word `wi` of a K
-// slice's 128-byte row `r` (`row` points at it), at their positions in the
-// 128-byte swizzle. Value 4 g + k of the word's 32 is bit g + 8 k: shifted
-// left by 7 - g, bits g, g + 8, g + 16 and g + 24 of w are the top bits of
-// its four bytes. Queries and rows share the order and the signs, so each
-// product, and the dot, is that of bit 1 -> +1, bit 0 -> -1 in bit order.
-__device__ __forceinline__ void store_unpacked(unsigned char* row, int r, int wi, uint32_t w) {
-  uint32_t o[8];
-#pragma unroll
-  for (int g = 0; g < 8; ++g) o[g] = top_bits_to_bytes(w << (7 - g)) | 0x01010101u;
-  *reinterpret_cast<uint4*>(row + (((2 * wi) ^ (r & 7)) << 4)) =
-      make_uint4(o[0], o[1], o[2], o[3]);
-  *reinterpret_cast<uint4*>(row + (((2 * wi + 1) ^ (r & 7)) << 4)) =
-      make_uint4(o[4], o[5], o[6], o[7]);
-}
-
-// 32 zero bytes in place of word `wi`: K past the code's last word.
-__device__ __forceinline__ void store_zero(unsigned char* row, int r, int wi) {
-  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
-  *reinterpret_cast<uint4*>(row + (((2 * wi) ^ (r & 7)) << 4)) = z;
-  *reinterpret_cast<uint4*>(row + (((2 * wi + 1) ^ (r & 7)) << 4)) = z;
 }
 
 // int32 addition and subtraction that wrap, as torch's int32 ops do
@@ -207,6 +185,29 @@ __device__ __forceinline__ void bucket_min(int32_t (&acc)[64], const int32_t (&p
     for (int o = 1; o <= 2; o <<= 1) {
       m0 = min(m0, __shfl_xor_sync(0xffffffffu, m0, o));
       m1 = min(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+    }
+  }
+}
+
+// The M accumulators' bucket minima of a consumer thread's query rows
+// (row0 + 64 h and row0 + 64 h + 8 for accumulator h; the quad's lane 0
+// stores), written to out[row * n_buckets]: `valid` columns are rows.
+template <int M>
+__device__ __forceinline__ void store_bucket_min(int32_t (&acc)[M][64], const int32_t (&pcol)[32],
+                                                 bool has_pen, int valid, int half, int lane,
+                                                 int row0, int q, int32_t* __restrict__ out,
+                                                 int n_buckets) {
+#pragma unroll
+  for (int h = 0; h < M; ++h) {
+    int m0, m1;
+    if (has_pen)
+      bucket_min<true>(acc[h], pcol, valid, half, lane, m0, m1);
+    else
+      bucket_min<false>(acc[h], pcol, valid, half, lane, m0, m1);
+    const int row = row0 + 64 * h;
+    if (lane % 4 == 0) {
+      if (row < q) out[(size_t)row * n_buckets] = m0;
+      if (row + 8 < q) out[(size_t)(row + 8) * n_buckets] = m1;
     }
   }
 }
@@ -420,30 +421,264 @@ hamming_bucket_min_sm90_kernel(const uint32_t* __restrict__ q_codes,
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[held]);
       if (!active) continue;
-      const int valid = min(BUCKET, n - b * BUCKET);
-#pragma unroll
-      for (int h = 0; h < M; ++h) {
-        int m0, m1;
-        if (has_pen)
-          bucket_min<true>(acc[h], pcol, valid, half, lane, m0, m1);
-        else
-          bucket_min<false>(acc[h], pcol, valid, half, lane, m0, m1);
-        const int row = wq0 + 64 * h + r0;
-        if (lane % 4 == 0) {
-          if (row < q) bmin[(size_t)row * n_buckets + b] = m0;
-          if (row + 8 < q) bmin[(size_t)(row + 8) * n_buckets + b] = m1;
-        }
-      }
+      store_bucket_min<M>(acc, pcol, has_pen, min(BUCKET, n - b * BUCKET), half, lane,
+                          wq0 + r0, q, bmin + b, n_buckets);
     }
   }
 }
 
+// ---- the streamed layout: codes whose query tile does not fit ----
+
+constexpr int A_BUFS = 3;  // query slices in flight per consumer warpgroup
+
+struct StreamLayout {
+  int a_off, pen_off, bar_off, bytes;
+};
+
+// rows: the query rows of a tile; the ring, then A_BUFS query slices
+__host__ __device__ StreamLayout stream_layout(int rows, int stages) {
+  StreamLayout l;
+  l.a_off = stages * SLOT_BYTES;
+  l.pen_off = l.a_off + A_BUFS * rows * KS;
+  l.bar_off = l.pen_off + stages * BUCKET * 4;
+  l.bytes = l.bar_off + 2 * stages * 8;  // full, empty
+  return l;
+}
+
+// The same tiles, products and epilogue as hamming_bucket_min_sm90_kernel,
+// for codes of any width: nothing of a tile stays resident across its K
+// slices. The producer loads each lane's 4 words of a slice straight from
+// device memory (two slices ahead of its unpack) and unpacks them into the
+// ring as the resident kernel does. Each consumer warpgroup unpacks its own
+// query rows' K slice (4 words a row) into a ring of A_BUFS buffers, one
+// slice ahead of the products; the accumulators add up every slice of the
+// bucket before the epilogue. A buffer is rewritten two slices after the
+// products that read it were issued: every warp of the warpgroup has
+// passed wgmma_wait<1> for them before the named barrier that follows the
+// last unpack.
 template <int C, int M>
-cudaError_t launch(const void* q_codes, const void* c_codes, const void* penalty, void* bmin,
-                   int q, int n, int words, int stages, cudaStream_t stream) {
-  const int bytes = layout(C * 64 * M, words, stages).bytes;
-  cudaError_t err = cudaFuncSetAttribute(hamming_bucket_min_sm90_kernel<C, M>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+__global__ void __launch_bounds__((C + 1) * WG, 1)
+hamming_bucket_min_stream_kernel(const uint32_t* __restrict__ q_codes,
+                                 const uint32_t* __restrict__ c_codes,
+                                 const int32_t* __restrict__ penalty,
+                                 int32_t* __restrict__ bmin, int q, int n, int words,
+                                 int stages) {
+  constexpr int WQ = 64 * M;                   // queries per warpgroup
+  constexpr int BQ = C * WQ;                   // queries per tile
+  constexpr int QW = WQ * SLICE_WORDS / WG;    // query words a consumer thread unpacks a slice
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const StreamLayout l = stream_layout(BQ, stages);
+  unsigned char* slots = smem;         // the ring of unpacked slices
+  unsigned char* qa = smem + l.a_off;  // [A_BUFS][BQ rows][128 bytes], swizzled
+  int32_t* pen_slots = reinterpret_cast<int32_t*>(smem + l.pen_off);  // [stages][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + l.bar_off);
+  uint64_t* empty = full + stages;
+
+  const int n_buckets = n / BUCKET + (n % BUCKET != 0);
+  const int tiles = (int)(((long long)q + BQ - 1) / BQ * n_buckets);  // < 2^30 (host)
+  const int k_slices = (words + SLICE_WORDS - 1) / SLICE_WORDS;
+  const int half = 16 * words;  // h = 16 W - dot / 2
+  const bool has_pen = penalty != nullptr;
+  const int wg = threadIdx.x / WG;
+  const int stride = gridDim.x, dq = stride / n_buckets, db = stride % n_buckets;
+
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) % 1024 != 0) __trap();  // the 128-byte swizzle needs it
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 4);  // one arrival per producer warp
+      mbar_init(&empty[s], 4 * C);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == C) {
+    // ---- producer: corpus words in, unpacked slices out ----
+    if constexpr (C == 2) reg_dealloc<72>();
+    const int pt = threadIdx.x - C * WG, pw = pt / 32, lane = pt % 32;
+    // lane: word lane % 4 of each slice, rows 32 pw + lane / 4 + 8 m
+    const int wi = lane % SLICE_WORDS, r_lo = 32 * pw + lane / SLICE_WORDS;
+    // the lane's words of slice ks of bucket b; zero past n and past W
+    auto load = [&](int b, int ks, uint32_t (&v)[BUCKET / 32]) {
+      const int w = ks * SLICE_WORDS + wi;
+#pragma unroll
+      for (int m = 0; m < BUCKET / 32; ++m) {
+        const int row = b * BUCKET + r_lo + 8 * m;
+        v[m] = w < words && row < n ? __ldg(c_codes + (size_t)row * words + w) : 0u;
+      }
+    };
+    // the words of this slice (v), the next (v1) and the one after (v2, of
+    // the tile `aw`, slice aks): loads two slices ahead of their unpack
+    Walk tw(blockIdx.x, n_buckets), aw = tw;
+    int aks = 0;
+    auto step = [&] {
+      if (++aks == k_slices) {
+        aks = 0;
+        aw.next(stride, dq, db, n_buckets);
+      }
+    };
+    uint32_t v[BUCKET / 32], v1[BUCKET / 32];
+    load(tw.b, 0, v);
+    step();
+    load(aw.t < tiles ? aw.b : 0, aks, v1);
+    step();
+    Ring ring;
+    for (; tw.t < tiles; tw.next(stride, dq, db, n_buckets)) {
+      const int b = tw.b;
+      const int prow = b * BUCKET + pt;
+      const int pv = has_pen && prow < n ? __ldg(penalty + prow) : 0;
+      for (int ks = 0; ks < k_slices; ++ks) {
+        uint32_t v2[BUCKET / 32];
+        load(aw.t < tiles ? aw.b : 0, aks, v2);
+        step();
+        mbar_wait(&empty[ring.slot], ring.phase ^ 1);
+        unsigned char* dst = slots + ring.slot * SLOT_BYTES;
+        if (ks * SLICE_WORDS + wi < words) {
+#pragma unroll
+          for (int m = 0; m < BUCKET / 32; ++m) {
+            const int r = r_lo + 8 * m;
+            store_unpacked(dst + r * KS, r, wi, v[m]);
+          }
+        } else {
+#pragma unroll
+          for (int m = 0; m < BUCKET / 32; ++m) store_zero(dst + (r_lo + 8 * m) * KS, r_lo, wi);
+        }
+        if (has_pen && ks == k_slices - 1)
+          pen_slots[ring.slot * BUCKET + pt] = wrap_add(half, pv);
+        fence_proxy_async();  // each thread's stores before the wgmma reads
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&full[ring.slot]);
+        ring.advance(stages);
+#pragma unroll
+        for (int m = 0; m < BUCKET / 32; ++m) {
+          v[m] = v1[m];
+          v1[m] = v2[m];
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows wg * WQ .. wg * WQ + WQ - 1,
+    // accumulator h the 64 of them from wg * WQ + 64 h ----
+    if constexpr (C == 2) reg_alloc<216>();
+    const int tid = threadIdx.x % WG, lane = threadIdx.x % 32;
+    const int r0 = (tid / 32) * 16 + lane / 4;  // this thread's rows r0 and r0 + 8
+    // the thread's query words of a slice: word tid % 4 of the warpgroup's
+    // rows tid / 4 + 32 j
+    const int qwi = tid % SLICE_WORDS, qr = tid / SLICE_WORDS;
+    auto load_q = [&](int qt, int ks, uint32_t (&p)[QW]) {
+      const int w = ks * SLICE_WORDS + qwi;
+#pragma unroll
+      for (int j = 0; j < QW; ++j) {
+        const int row = qt * BQ + wg * WQ + qr + 32 * j;
+        p[j] = w < words && row < q ? __ldg(q_codes + (size_t)row * words + w) : 0u;
+      }
+    };
+    // slice ks of the warpgroup's query rows into A buffer `a`; rows past q
+    // hold +1s (their minima are not stored), words past W zeros
+    auto stage_q = [&](int a, int ks, const uint32_t (&p)[QW]) {
+      const bool real = ks * SLICE_WORDS + qwi < words;
+#pragma unroll
+      for (int j = 0; j < QW; ++j) {
+        const int r = qr + 32 * j;
+        unsigned char* row = qa + a * (BQ * KS) + (wg * WQ + r) * KS;
+        if (real)
+          store_unpacked(row, r, qwi, p[j]);
+        else
+          store_zero(row, r, qwi);
+      }
+      fence_proxy_async();
+      named_sync(1 + wg, WG);
+    };
+    Ring ring;
+    int32_t acc[M][64];
+#pragma unroll
+    for (int h = 0; h < M; ++h)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[h][i] = 0;
+    int32_t pcol[32];  // 16 W + penalty of this thread's 32 columns
+#pragma unroll
+    for (int i = 0; i < 32; ++i) pcol[i] = half;
+    Walk tw(blockIdx.x, n_buckets), nw = tw;  // this slice's tile, the next slice's
+    int nks = 0, a = 0;
+    uint32_t p[QW];
+    if (tw.t < tiles) {
+      load_q(tw.qt, 0, p);
+      stage_q(0, 0, p);
+    }
+    if (++nks == k_slices) {
+      nks = 0;
+      nw.next(stride, dq, db, n_buckets);
+    }
+    if (nw.t < tiles) load_q(nw.qt, nks, p);
+    for (; tw.t < tiles; tw.next(stride, dq, db, n_buckets)) {
+      const int wq0 = tw.qt * BQ + wg * WQ;
+      const bool active = wq0 < q;
+      // as in the resident kernel: one group queued, a warpgroup past q
+      // multiplies rows it does not store rather than branch around the wgmma
+      int held = -1;
+      for (int ks = 0; ks < k_slices; ++ks) {
+        mbar_wait(&full[ring.slot], ring.phase);
+        const uint64_t a_desc = desc_sw128(qa + a * (BQ * KS) + wg * WQ * KS);
+        const uint64_t b_desc = desc_sw128(slots + ring.slot * SLOT_BYTES);
+#pragma unroll
+        for (int h = 0; h < M; ++h) fence_regs(acc[h]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS / 32; ++kk)
+#pragma unroll
+          for (int h = 0; h < M; ++h)  // a step of 64 rows is 8 KB: 512 descriptor units
+            wgmma_m64n128k32_s8(acc[h], a_desc + 512 * h + 2 * kk, b_desc + 2 * kk,
+                                ks > 0 || kk > 0);
+        wgmma_commit();
+        if (has_pen && ks == k_slices - 1) {
+          const int32_t* ps = pen_slots + ring.slot * BUCKET + (lane % 4) * 2;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int2 pp = *reinterpret_cast<const int2*>(ps + j * 8);
+            pcol[2 * j] = pp.x;
+            pcol[2 * j + 1] = pp.y;
+          }
+        }
+        wgmma_wait<1>();
+        if (held >= 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[held]);
+        }
+        held = ring.slot;
+        ring.advance(stages);
+        // the next slice's queries into the next buffer, then the words of
+        // the slice after it
+        a = a + 1 == A_BUFS ? 0 : a + 1;
+        if (nw.t < tiles) {
+          stage_q(a, nks, p);
+          if (++nks == k_slices) {
+            nks = 0;
+            nw.next(stride, dq, db, n_buckets);
+          }
+          if (nw.t < tiles) load_q(nw.qt, nks, p);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < M; ++h) fence_regs(acc[h]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[held]);
+      if (!active) continue;
+      store_bucket_min<M>(acc, pcol, has_pen, min(BUCKET, n - tw.b * BUCKET), half, lane,
+                          wq0 + r0, q, bmin + tw.b, n_buckets);
+    }
+  }
+}
+
+// One launch of `kernel` (C consumer warpgroups of M accumulators) with
+// `bytes` of dynamic shared memory: a persistent grid of one block per SM.
+template <int C, int M>
+cudaError_t launch(void (*kernel)(const uint32_t*, const uint32_t*, const int32_t*, int32_t*, int,
+                                  int, int, int),
+                   int bytes, const void* q_codes, const void* c_codes, const void* penalty,
+                   void* bmin, int q, int n, int words, int stages, cudaStream_t stream) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -453,40 +688,64 @@ cudaError_t launch(const void* q_codes, const void* c_codes, const void* penalty
       ((long long)q + C * 64 * M - 1) / (C * 64 * M) * (((long long)n + BUCKET - 1) / BUCKET);
   if (tiles > INT_MAX / 2) return cudaErrorInvalidConfiguration;
   const int grid = (int)(tiles < sms ? tiles : sms);
-  hamming_bucket_min_sm90_kernel<C, M><<<grid, (C + 1) * WG, bytes, stream>>>(
+  kernel<<<grid, (C + 1) * WG, bytes, stream>>>(
       static_cast<const uint32_t*>(q_codes), static_cast<const uint32_t*>(c_codes),
       static_cast<const int32_t*>(penalty), static_cast<int32_t*>(bmin), q, n, words, stages);
   return cudaGetLastError();
+}
+
+template <int C, int M>
+cudaError_t launch_resident(const void* q_codes, const void* c_codes, const void* penalty,
+                            void* bmin, int q, int n, int words, int stages,
+                            cudaStream_t stream) {
+  return launch<C, M>(hamming_bucket_min_sm90_kernel<C, M>,
+                      layout(C * 64 * M, words, stages).bytes, q_codes, c_codes, penalty, bmin,
+                      q, n, words, stages, stream);
+}
+
+template <int C, int M>
+cudaError_t launch_stream(const void* q_codes, const void* c_codes, const void* penalty,
+                          void* bmin, int q, int n, int words, int stages, cudaStream_t stream) {
+  return launch<C, M>(hamming_bucket_min_stream_kernel<C, M>,
+                      stream_layout(C * 64 * M, stages).bytes, q_codes, c_codes, penalty, bmin,
+                      q, n, words, stages, stream);
 }
 
 }  // namespace
 
 // C interface, bound with ctypes (ops/_build.py). Pointers are device
 // pointers, each 16-byte aligned; penalty ([n] int32) may be null. q_codes:
-// [q, words] int32; c_codes: [n, words] int32, 1 <= words <= 53; bmin:
+// [q, words] int32; c_codes: [n, words] int32, any words >= 1; bmin:
 // [q, ceil(n / 128)] int32. Launches on `stream`, returns the launch's
 // cudaError_t (0 = success) and does not synchronize.
 extern "C" int sss_hamming_bucket_min_sm90(const void* q_codes, const void* c_codes,
                                            const void* penalty, void* bmin, int q, int n,
                                            int words, void* stream) {
   if (q <= 0 || n <= 0) return 0;
-  if (words <= 0 || words > MAX_WORDS || reinterpret_cast<uintptr_t>(q_codes) % 16 != 0 ||
+  if (words <= 0 || words > INT_MAX / 32 || reinterpret_cast<uintptr_t>(q_codes) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(c_codes) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(penalty) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the largest query tile that fits beside a ring of at least 3 slots: two
-  // consumer warpgroups of two accumulators (256 queries), of one (128), then
-  // one warpgroup of one (64, beside at least 2 slots); the ring as deep as
-  // fits, up to MAX_STAGES
-  for (int st = MAX_STAGES; st >= 3; --st)
-    if (layout(256, words, st).bytes <= MAX_SMEM)
-      return static_cast<int>(launch<2, 2>(q_codes, c_codes, penalty, bmin, q, n, words, st, s));
-  for (int st = MAX_STAGES; st >= 3; --st)
-    if (layout(128, words, st).bytes <= MAX_SMEM)
-      return static_cast<int>(launch<2, 1>(q_codes, c_codes, penalty, bmin, q, n, words, st, s));
+  // the larger resident query tile that fits beside a ring of at least 3
+  // slots: two consumer warpgroups of two accumulators (256 queries) or of
+  // one (128); the ring as deep as fits, up to MAX_STAGES. (No resident tile
+  // of 128 queries holds more than MAX_SMEM / (128 KS) K slices: wider codes
+  // skip the search.)
+  if (words <= MAX_SMEM / (128 * KS) * SLICE_WORDS) {
+    for (int st = MAX_STAGES; st >= 3; --st)
+      if (layout(256, words, st).bytes <= MAX_SMEM)
+        return static_cast<int>(
+            launch_resident<2, 2>(q_codes, c_codes, penalty, bmin, q, n, words, st, s));
+    for (int st = MAX_STAGES; st >= 3; --st)
+      if (layout(128, words, st).bytes <= MAX_SMEM)
+        return static_cast<int>(
+            launch_resident<2, 1>(q_codes, c_codes, penalty, bmin, q, n, words, st, s));
+  }
+  // no resident query tile fits: 256 queries a tile, their K slices streamed
   for (int st = MAX_STAGES; st >= 2; --st)
-    if (layout(64, words, st).bytes <= MAX_SMEM)
-      return static_cast<int>(launch<1, 1>(q_codes, c_codes, penalty, bmin, q, n, words, st, s));
+    if (stream_layout(256, st).bytes <= MAX_SMEM)
+      return static_cast<int>(
+          launch_stream<2, 2>(q_codes, c_codes, penalty, bmin, q, n, words, st, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -9,6 +9,8 @@
 //   in shared memory, tf32 m64n128k8 with A from registers) and its
 //   descriptor for the 128-byte swizzle, the layout TMA writes with
 //   CU_TENSOR_MAP_SWIZZLE_128B; the small part of the 3xTF32 split;
+// - the unpack of a 32-bit sign-code word into 32 s8 values of the 128-byte
+//   swizzled layout (K5, K4's streamed layout);
 // - the bucket epilogue both kernels run on a consumer warpgroup's f32
 //   accumulator: the valid_count mask, the penalty, the 128-row bucket max
 //   straight from registers (a quad of lanes holds a query row's columns),
@@ -282,6 +284,42 @@ template <int N> __device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
 __device__ __forceinline__ uint32_t tf32_small(float x) {
   const float big = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
   return (__float_as_uint(__fsub_rn(x, big)) + 0x1000u) & 0xffffe000u;
+}
+
+// ---- sign codes as +-1 s8 (K5, and K4's streamed layout) -------------------
+
+// Each byte of y: 0xFF where its top bit is set, else 0x00 (prmt's sign
+// replication, one instruction).
+__device__ __forceinline__ uint32_t top_bits_to_bytes(uint32_t y) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(y), "r"(0u), "r"(0xBA98u));
+  return r;
+}
+
+// One code word as the 32 s8 values of its bits, -1 for a set bit and +1
+// for a clear one, stored as the two 16-byte chunks of word `wi` of a K
+// slice's 128-byte row `r` (`row` points at it), at their positions in the
+// 128-byte swizzle. Value 4 g + k of the word's 32 is bit g + 8 k: shifted
+// left by 7 - g, bits g, g + 8, g + 16 and g + 24 of w are the top bits of
+// its four bytes. Queries and rows share the order and the signs, so each
+// product, and the dot, is that of bit 1 -> +1, bit 0 -> -1 in bit order
+// (K5's rows and queries; K4's rows, against queries stored in the same
+// order and negated).
+__device__ __forceinline__ void store_unpacked(unsigned char* row, int r, int wi, uint32_t w) {
+  uint32_t o[8];
+#pragma unroll
+  for (int g = 0; g < 8; ++g) o[g] = top_bits_to_bytes(w << (7 - g)) | 0x01010101u;
+  *reinterpret_cast<uint4*>(row + (((2 * wi) ^ (r & 7)) << 4)) =
+      make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(row + (((2 * wi + 1) ^ (r & 7)) << 4)) =
+      make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// 32 zero bytes in place of word `wi`: K past the code's last word.
+__device__ __forceinline__ void store_zero(unsigned char* row, int r, int wi) {
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  *reinterpret_cast<uint4*>(row + (((2 * wi) ^ (r & 7)) << 4)) = z;
+  *reinterpret_cast<uint4*>(row + (((2 * wi + 1) ^ (r & 7)) << 4)) = z;
 }
 
 // ---- the bucket epilogue ---------------------------------------------------

@@ -25,8 +25,7 @@ import torch
 
 from sessionsimilaritysearch_tpu_torch.ops import _build, mips
 
-TBLOCK = 2048    # rows per pack block: a layout property of the packed corpus
-MAX_BITS = 1536  # widest code the kernel's shared memory holds a query tile of
+TBLOCK = 2048  # rows per pack block: a layout property of the packed corpus
 INT32_MAX = 2**31 - 1
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -50,6 +49,10 @@ def unpack_bits_t(packed_t: torch.Tensor, block_rows: int = TBLOCK) -> torch.Ten
 
 
 def _check(queries, words, valid_count, penalty, score_dtype) -> int:
+    """The op's contract, shared by the plain version and the wrapper: any
+    positive multiple of 128 bits (``pallas_mips.py`` asserts only
+    ``bits % 128 == 0``). The kernel's shared-memory layout is its own
+    (``csrc/packed_scores_bmax.cu`` picks one for every width)."""
     if queries.dim() != 2 or words.dim() != 2:
         raise ValueError(
             f"queries and words must be 2-D, got {tuple(queries.shape)} and "
@@ -60,9 +63,9 @@ def _check(queries, words, valid_count, penalty, score_dtype) -> int:
         raise ValueError(
             f"width mismatch: queries {bits} columns, words {words.shape[1]}"
         )
-    if bits % 128 or not 0 < bits <= MAX_BITS:
+    if bits % 128 or bits < 128:
         raise ValueError(
-            f"padded code width must be a multiple of 128 up to {MAX_BITS}, got {bits}"
+            f"padded code width must be a positive multiple of 128, got {bits}"
         )
     if words.shape[0] % (TBLOCK // 32):
         raise ValueError(

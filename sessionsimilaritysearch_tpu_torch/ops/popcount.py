@@ -15,6 +15,13 @@ popcount (``pallas_mips.py:811-844``, XLA on the TPU, torch ops here).
 torch has no popcount op: :func:`popcount32` counts bits with the SWAR
 sums on int64.
 
+Codes of any width (W >= 1 words) are served, as JAX's ``hamming_topk``
+serves them: the op's contract (:func:`_check`) holds no width limit, and
+each kernel picks its own layout for wide codes (the ``wgmma`` variant
+streams the query's K slices beside the corpus slices once the query tile
+no longer fits in shared memory; the ``popc`` variant walks the words in
+chunks).
+
 :func:`hamming_bucket_min` takes the plain version for CPU tensors only. For
 a CUDA tensor it launches the chosen kernel or raises: no path falls back.
 """
@@ -30,7 +37,6 @@ from sessionsimilaritysearch_tpu_torch.ops import _build
 
 BUCKET = 128
 PENALTY = 1 << 20  # added to a dead row's distance: above any code's distance
-MAX_WORDS = 53     # widest code (in int32 words) the kernels' shared memory holds
 INT32_MAX = 2**31 - 1
 _REF_ELEMS = 1 << 25  # plain version: (query, row, word) triples per chunk
 
@@ -57,15 +63,18 @@ def hamming_distances(q_codes: torch.Tensor, c_codes: torch.Tensor) -> torch.Ten
 
 
 def _check(q_codes, c_codes, penalty) -> None:
+    """The op's contract, shared by the plain version and the wrapper. It
+    holds no width limit: the kernels' shared-memory layouts are their own
+    (chosen in ``csrc/``), not the op's."""
     if q_codes.dim() != 2 or c_codes.dim() != 2:
         raise ValueError(
             f"codes must be 2-D, got {tuple(q_codes.shape)} and {tuple(c_codes.shape)}"
         )
     w = q_codes.shape[1]
-    if c_codes.shape[1] != w or not 0 < w <= MAX_WORDS:
+    if c_codes.shape[1] != w or w < 1:
         raise ValueError(
-            f"codes must share a width of 1 to {MAX_WORDS} words, got "
-            f"{w} and {c_codes.shape[1]}"
+            f"codes must share a width of at least 1 word, got {w} and "
+            f"{c_codes.shape[1]}"
         )
     if q_codes.dtype != torch.int32 or c_codes.dtype != torch.int32:
         raise TypeError(f"codes must be int32, got {q_codes.dtype} and {c_codes.dtype}")
@@ -114,13 +123,13 @@ def hamming_bucket_min_ref(
 def k5_variant(device_type: str, words: int, aligned: bool) -> str:
     """Which K5 kernel a call runs: 'plain' for CPU tensors; on CUDA
     'wgmma' (``csrc/hamming_bucket_min_sm90.cu``) when every base pointer
-    (query codes, corpus codes and the penalty, if any) is 16-byte aligned,
-    at any width of 1 to ``MAX_WORDS`` words; else 'popc'
-    (``csrc/hamming_bucket_min.cu``: a misaligned view such as ``c[5:]``).
-    A width outside 1 to ``MAX_WORDS`` raises. A dispatch, not a fallback:
-    the chosen kernel launches or raises."""
-    if not 0 < words <= MAX_WORDS:
-        raise ValueError(f"codes must be 1 to {MAX_WORDS} words wide, got {words}")
+    (query codes, corpus codes and the penalty, if any) is 16-byte aligned;
+    else 'popc' (``csrc/hamming_bucket_min.cu``: a misaligned view such as
+    ``c[5:]``). Both take every width of at least 1 word; a width below 1
+    raises. A dispatch, not a fallback: the chosen kernel launches or
+    raises."""
+    if words < 1:
+        raise ValueError(f"codes must be at least 1 word wide, got {words}")
     if device_type == "cpu":
         return "plain"
     if device_type != "cuda":

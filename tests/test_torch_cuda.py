@@ -440,10 +440,13 @@ def test_packed_kernel_matches_plain(dev, n_bits):
 
 @pytest.mark.parametrize("score_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q_n", [37, 300])
-@pytest.mark.parametrize("bits", [128, 256, 384, 1536])
+@pytest.mark.parametrize("bits", [128, 256, 384, 1536, 1664, 2048, 4096])
 def test_packed_kernel_bit_equal_across_widths(dev, bits, q_n, score_dtype):
-    # every K-slice count, one and two consumer warpgroups, words staged in
-    # shared memory or read from L2; +-1 products are exact on both sides
+    # every K-slice count; the resident layout (128 bits, 256 with bf16
+    # scores: the pack block's words staged) and the streamed one (the
+    # corpus row-major, the query slices through the ring) at every other
+    # width, past the 1,536 bits the kernel once refused; +-1 products are
+    # exact on both sides
     g = torch.Generator(device=dev).manual_seed(bits + q_n)
     words = hamming.pack_bits_t(_signs(g, 6144, bits, dev))
     q = _signs(g, q_n, bits, dev).bfloat16()
@@ -483,8 +486,11 @@ def test_hamming_kernel_matches_plain(dev):
 
 @pytest.mark.parametrize("with_penalty", [False, True])
 @pytest.mark.parametrize("n", [1, 127, 5003, 6144])
-@pytest.mark.parametrize("words", [1, 3, 8, 13, 53])
+@pytest.mark.parametrize("words", [1, 3, 8, 13, 53, 54, 64, 128])
 def test_hamming_wgmma_kernel_matches_plain(dev, words, n, with_penalty):
+    # up to 32 words a resident query tile of 256 or 128 queries; from 33
+    # (53 and wider here) the query slices streamed, at 54, 64 and 128 words
+    # past the width the kernel once refused
     g = torch.Generator(device=dev).manual_seed(words * 7 + n)
     c = torch.randint(-2**31, 2**31 - 1, (n, words), generator=g, device=dev,
                       dtype=torch.int32)
@@ -525,6 +531,32 @@ def test_hamming_misaligned_view_runs_popc(dev, view):
     bmin = popcount.hamming_bucket_min(*args)
     assert (popcount.launch_count, popcount.wgmma_launch_count) == (before[0] + 1, before[1])
     assert torch.equal(bmin, popcount.hamming_bucket_min_ref(*args))
+
+
+@pytest.mark.parametrize("with_penalty", [False, True])
+@pytest.mark.parametrize("n", [127, 5003, 6144])
+@pytest.mark.parametrize("words", [54, 64, 128])
+def test_hamming_popc_wide_codes_match_plain(dev, words, n, with_penalty):
+    # codes wider than the popc kernel's one staging (53 words) walk their
+    # words in chunks; a corpus 4 bytes off a 16-byte boundary is the popc
+    # variant's input at every width
+    g = torch.Generator(device=dev).manual_seed(words * 11 + n)
+    flat = torch.randint(-2**31, 2**31 - 1, (n * words + 1,), generator=g, device=dev,
+                         dtype=torch.int32)
+    c = flat[1:].view(n, words)
+    q = torch.randint(-2**31, 2**31 - 1, (200, words), generator=g, device=dev,
+                      dtype=torch.int32)
+    pen = None
+    if with_penalty:
+        live = torch.rand(n, generator=g, device=dev) >= 0.1
+        live[int(0.9 * n) + 1:] = False
+        pen = torch.where(live, 0, popcount.PENALTY).to(torch.int32)
+    before = (popcount.launch_count, popcount.wgmma_launch_count)
+    for q_n in (1, 37, 200):
+        bmin = popcount.hamming_bucket_min(q[:q_n], c, pen)
+        torch.cuda.synchronize()
+        assert torch.equal(bmin, popcount.hamming_bucket_min_ref(q[:q_n], c, pen))
+    assert (popcount.launch_count, popcount.wgmma_launch_count) == (before[0] + 3, before[1])
 
 
 @pytest.mark.parametrize("mode", ["packed", "sign"])

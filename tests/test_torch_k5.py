@@ -2,8 +2,10 @@
 
 - ``popcount.k5_variant``: the plain version for CPU tensors; on CUDA the
   wgmma variant (``csrc/hamming_bucket_min_sm90.cu``) for 16-byte-aligned
-  bases at every width of 1 to 53 words, popc (``csrc/hamming_bucket_min.cu``)
-  for the others; a width outside 1 to 53 raises.
+  bases, popc (``csrc/hamming_bucket_min.cu``) for the others, at every
+  width of at least 1 word (54 words and wider too: the op holds no width
+  limit); a width of 0 words and a device other than the CPU or CUDA
+  raise.
 - The identity the wgmma variant computes by: over the 32 W bits of W words,
   bit 1 -> +1 and bit 0 -> -1 as s8, (32 W - <a, b>) / 2 is the Hamming
   distance, pad bits included, held against JAX's XLA
@@ -72,13 +74,14 @@ KERNEL_ORDER = np.array([g + 8 * k for g in range(8) for k in range(4)])
     ("cuda", 1, False, "popc"),
     ("cuda", 8, False, "popc"),
     ("cuda", 53, False, "popc"),
+    ("cuda", 54, True, "wgmma"),
+    ("cpu", 54, True, "plain"),
 ])
 def test_k5_variant(device, words, aligned, want):
     assert popcount.k5_variant(device, words, aligned) == want
 
 
-@pytest.mark.parametrize("device,words", [("cuda", 0), ("cuda", 54), ("cpu", 0),
-                                          ("cpu", 54), ("mps", 8)])
+@pytest.mark.parametrize("device,words", [("cuda", 0), ("cpu", 0), ("mps", 8)])
 def test_k5_variant_raises(device, words):
     with pytest.raises(ValueError):
         popcount.k5_variant(device, words, True)
