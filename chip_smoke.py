@@ -106,8 +106,9 @@ It builds the port's CUDA kernels from ``csrc/`` (nvcc, first use), then:
                shipped, with its drop buffer (nan_recovery) and with a host
                read of the loss between forward and backward, in
                alternating rounds; a torch.profiler breakdown of
-               make_train_step itself by its record_function spans (text
-               backbone, gnn, pooling, head + loss, backward, clip, adam:
+               make_train_step itself by its record_function spans
+               (sss.encoder.text, .gnn and .pooling, head + loss,
+               backward, clip, adam:
                the device time of the kernels launched inside each), with
                the device's busy share of the median step; the
                cached-tables step (title table over all titles, keyword
@@ -1848,7 +1849,8 @@ PRE_CACHED_RTOL = 1e-5
 # cosine
 PRE_CPU_LOSS_RTOL, PRE_CPU_GRAD_REL, PRE_CPU_UPDATE_COS = 1e-5, 1e-3, 0.9999
 PRE_NOISE_RMS = 1e-4  # a leaf's rms gradient over all gradients' rms: below, rounding noise
-PRE_SPANS = ("text backbone", "gnn", "pooling", "head + loss", "backward", "clip", "adam")
+PRE_SPANS = ("sss.encoder.text", "sss.encoder.gnn", "sss.encoder.pooling", "head + loss",
+             "backward", "clip", "adam")
 
 
 def percentile(xs, q) -> float:
@@ -1998,7 +2000,7 @@ def phase_pretrain(torch, mips, dev, card):
           f"torch.profiler): device busy {busy:.2f} ms a step ({sum(t for _, t, _ in kernels):.2f} "
           f"by the card's own events), {busy / med:.1%} of the median step {med:.2f} ms")
     for name in (*PRE_SPANS, "other"):
-        print(f"    {name:14s} device {spans['device'][name]:8.3f} ms"
+        print(f"    {name:19s} device {spans['device'][name]:8.3f} ms"
               + (f", host {spans['host'][name]:8.3f} ms in the span" if name in PRE_SPANS
                  else " (outside the spans: zero_grad, the draws, the loss read)"))
     for key, t, count in kernels[:10]:

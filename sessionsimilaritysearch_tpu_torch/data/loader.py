@@ -25,6 +25,7 @@ from sessionsimilaritysearch_tpu_torch.data.graph import (
     batch_graphs,
     build_graph_batch,
 )
+from sessionsimilaritysearch_tpu_torch.utils.profiling import attach, current, trace
 
 # --- multiprocess graph building -------------------------------------------
 # sequence_to_graph is ~1 ms/session of single-threaded Python; at corpus
@@ -161,7 +162,9 @@ class SessionGraphLoader:
             return
         for sel in selections:
             if self._cache is not None:
-                yield batch_graphs([self._cache[i] for i in sel])
+                with trace("sss.embed.build"):
+                    b = batch_graphs([self._cache[i] for i in sel])
+                yield b
                 continue
             if self.transform is not None:
                 pairs = [
@@ -169,13 +172,20 @@ class SessionGraphLoader:
                 ]
             else:
                 pairs = [self.data[int(i)] for i in sel]
-            yield build_graph_batch(
-                pairs, self.tokenizer, self.dims,
-                indices=[int(i) for i in sel],
-                ignore_query=self.ignore_query,
-            )
+            with trace("sss.embed.build"):
+                b = build_graph_batch(
+                    pairs, self.tokenizer, self.dims,
+                    indices=[int(i) for i in sel],
+                    ignore_query=self.ignore_query,
+                )
+            yield b
 
     def __iter__(self) -> Iterator[SessionGraph]:
+        """The batches; their ``sss.embed.build`` spans are children of the
+        span open where the iteration began (``utils.profiling``)."""
+        return self._iterate(current())
+
+    def _iterate(self, parent) -> Iterator[SessionGraph]:
         if self.prefetch <= 0:
             yield from self._batches()
             return
@@ -186,18 +196,19 @@ class SessionGraphLoader:
 
         def worker():
             try:
-                for b in self._batches():
-                    # bounded put that notices an abandoned consumer, so a
-                    # dropped iterator (e.g. next(iter(loader))) doesn't pin
-                    # the thread + its prefetched batches forever
-                    while not stop.is_set():
-                        try:
-                            q.put(b, timeout=0.1)
-                            break
-                        except queue.Full:
-                            continue
-                    if stop.is_set():
-                        return
+                with attach(parent):
+                    for b in self._batches():
+                        # bounded put that notices an abandoned consumer, so a
+                        # dropped iterator (e.g. next(iter(loader))) doesn't pin
+                        # the thread + its prefetched batches forever
+                        while not stop.is_set():
+                            try:
+                                q.put(b, timeout=0.1)
+                                break
+                            except queue.Full:
+                                continue
+                        if stop.is_set():
+                            return
             except BaseException as e:  # surfaced on the consumer side
                 err.append(e)
             finally:

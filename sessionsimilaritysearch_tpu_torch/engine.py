@@ -49,7 +49,7 @@ from sessionsimilaritysearch_tpu_torch.index.sharded import ShardedDenseIndex
 from sessionsimilaritysearch_tpu_torch.index.twostage import ShardedTwoStageIndex, TwoStageIndex
 from sessionsimilaritysearch_tpu_torch.ops.hamming import TBLOCK
 from sessionsimilaritysearch_tpu_torch.ops.topk import check_selection
-from sessionsimilaritysearch_tpu_torch.utils.profiling import PhaseTimer
+from sessionsimilaritysearch_tpu_torch.utils.profiling import PhaseTimer, counters, trace
 
 
 def _item_set(sess) -> frozenset:
@@ -284,7 +284,8 @@ class SessionSearchEngine:
         # with a mesh the index is sharded: stable global ids (tombstones in
         # place of compaction) and no device-side snapshot
         self._mesh = mesh
-        self.timer = PhaseTimer(self.device)
+        # host seconds: nothing on the request path waits for the device
+        self.timer = PhaseTimer(self.device, sync=False)
         self.sessions: List = []  # retained for metric reports and where=
         self._pipe = EmbeddingPipeline(
             cfg, tokenizer, encode_fn, device=self.device, batch_size=batch_size
@@ -361,7 +362,7 @@ class SessionSearchEngine:
     def embed(self, data: Sequence, out: str = "np"):
         """Embed raw sessions / (prefix, future) pairs. ``out='device'``
         keeps the embeddings on the device (the ingest and query paths)."""
-        with self.timer("encode"):
+        with self.timer("encode"), trace("sss.embed"):
             return self._pipe(data, out=out)
 
     def add_sessions(self, data: Sequence, stamp: Optional[float] = None) -> None:
@@ -380,7 +381,7 @@ class SessionSearchEngine:
             return
         pairs, self._pending = self._pending[:m], self._pending[m:]
         emb = self.embed([d for d, _ in pairs], out="device")
-        with self.timer("insert"):
+        with self.timer("insert"), trace("sss.insert"):
             self.index.add(emb)
         for d, ts in pairs:
             sess = _session_of(d)
@@ -623,28 +624,29 @@ class SessionSearchEngine:
                 f"metric={self.index.metric!r} scores are unbounded and the "
                 "alpha weighting would be meaningless (use metric='cos')"
             )
-        emb = self.embed(data, out="device")
-        t0 = time.perf_counter()
-        if hybrid_alpha is None:
-            D, I = self.search_embeddings(emb, k, dedup=dedup, where=where)
-        else:
-            m = min(max(overfetch * k, k), max(self.index.ntotal, 1))
-            D2, I2 = self.search_embeddings(emb, m, dedup=dedup, where=where)
-            D2 = np.asarray(D2, dtype=np.float32)
-            gid = np.asarray(I2, dtype=np.int64)
-            sessions = [_session_of(d) for d in data]
-            if hybrid_kind == "stan":
-                q_w = [_item_stan_weights(s) for s in sessions]
+        with trace("sss.search"):
+            emb = self.embed(data, out="device")
+            t0 = time.perf_counter()
+            if hybrid_alpha is None:
+                D, I = self.search_embeddings(emb, k, dedup=dedup, where=where)
             else:
-                q_w = []
-                for s in sessions:
-                    items = _item_set(s)
-                    w = 1.0 / (len(items) ** 0.5) if items else 0.0
-                    q_w.append({i: w for i in items})
-            D, I = self._hybrid_rerank(D2, gid, q_w, k, float(hybrid_alpha),
-                                       hybrid_kind, fusion=hybrid_fusion)
-        self.timer.totals["search"] += time.perf_counter() - t0
-        self.timer.counts["search"] += 1
+                m = min(max(overfetch * k, k), max(self.index.ntotal, 1))
+                D2, I2 = self.search_embeddings(emb, m, dedup=dedup, where=where)
+                D2 = np.asarray(D2, dtype=np.float32)
+                gid = np.asarray(I2, dtype=np.int64)
+                sessions = [_session_of(d) for d in data]
+                if hybrid_kind == "stan":
+                    q_w = [_item_stan_weights(s) for s in sessions]
+                else:
+                    q_w = []
+                    for s in sessions:
+                        items = _item_set(s)
+                        w = 1.0 / (len(items) ** 0.5) if items else 0.0
+                        q_w.append({i: w for i in items})
+                D, I = self._hybrid_rerank(D2, gid, q_w, k, float(hybrid_alpha),
+                                           hybrid_kind, fusion=hybrid_fusion)
+            self.timer.totals["search"] += time.perf_counter() - t0
+            self.timer.counts["search"] += 1
         return D, I
 
     def _hybrid_rerank(self, D2, gid, q_weights, k: int, alpha: float,
@@ -738,13 +740,14 @@ class SessionSearchEngine:
                           dedup: bool = False,
                           where: Optional[Callable] = None):
         k = k or self.cfg.retrieval_k
-        mask = None if where is None else self._where_mask(where)
-        if not dedup:
-            return self.index.search(emb, k, row_mask=mask)
-        # over-fetch so dropped duplicates can be backfilled
-        k2 = min(max(2 * k, k + 8), max(self.index.ntotal, 1))
-        D2, I2 = self.index.search(emb, k2, row_mask=mask)
-        return self._dedup_topk(D2, I2, k)
+        with trace("sss.search_embeddings"):
+            mask = None if where is None else self._where_mask(where)
+            if not dedup:
+                return self.index.search(emb, k, row_mask=mask)
+            # over-fetch so dropped duplicates can be backfilled
+            k2 = min(max(2 * k, k + 8), max(self.index.ntotal, 1))
+            D2, I2 = self.index.search(emb, k2, row_mask=mask)
+            return self._dedup_topk(D2, I2, k)
 
     def range_search(self, data: Sequence, radius: float, k0: int = 128,
                      where: Optional[Callable] = None):
@@ -826,9 +829,16 @@ class SessionSearchEngine:
         return self.index.reconstruct_batch(ids)
 
     def stats(self) -> dict:
+        """Per phase (``encode``, ``search``, ``insert``) its host seconds
+        (``total_s``, ``count``, ``mean_ms``): no phase waits for the device,
+        so a phase counts what the host spent, device work it waited on
+        included; ``ntotal`` and ``pending`` rows; ``counters``, the
+        process's ``utils.profiling`` counters (sessions embedded, bytes
+        uploaded, chunks and rows scanned, candidates re-ranked)."""
         s = self.timer.summary()
         s["ntotal"] = self.index.ntotal
         s["pending"] = len(self._pending)
+        s["counters"] = counters()
         return s
 
     # ------------------------------------------------------------------

@@ -38,6 +38,7 @@ from sessionsimilaritysearch_tpu_torch.index import sparse as sparse_index
 from sessionsimilaritysearch_tpu_torch.index.binary import BinaryIndex
 from sessionsimilaritysearch_tpu_torch.index.dense import build_index
 from sessionsimilaritysearch_tpu_torch.native_build import ensure_native_library
+from sessionsimilaritysearch_tpu_torch.utils.profiling import count, trace
 
 
 @dataclasses.dataclass
@@ -104,9 +105,15 @@ class EmbeddingPipeline:
     def encode_batch(self, batch: SessionGraph):
         """One host batch through ``encode_fn`` on the device."""
         prepare = getattr(self.encode_fn, "prepare", None)
-        extra = prepare(batch) if prepare is not None else {}
-        extra = {k: v if v is None else _upload(v, self.device) for k, v in extra.items()}
-        return self.encode_fn(to_device(batch, self.device), **extra)
+        with trace("sss.embed.prepare"):
+            extra = prepare(batch) if prepare is not None else {}
+        with trace("sss.embed.upload"):
+            count("embed.upload_bytes", sum(a.nbytes for a in batch)
+                  + sum(v.nbytes for v in extra.values() if v is not None))
+            extra = {k: v if v is None else _upload(v, self.device) for k, v in extra.items()}
+            graph = to_device(batch, self.device)
+        with trace("sss.embed.forward", device=self.device):
+            return self.encode_fn(graph, **extra)
 
     def __call__(self, data: Sequence, out: str = "np"):
         """``data``: (prefix, future) pairs or bare sessions. ``out``: 'np'
@@ -122,15 +129,24 @@ class EmbeddingPipeline:
             d if isinstance(d, tuple) and len(d) == 2 else (d, [])
             for d in data
         ]
+        count("embed.sessions", len(norm))
         loader = SessionGraphLoader(
             norm, self.tokenizer, self.cfg.dims, self.batch_size,
             shuffle=False, ignore_query=self.cfg.ignore_query, cache=False,
             prefetch=self.prefetch, workers=self.workers,
         )
+        batches = iter(loader)  # the loader's spans are children of this call's
+        parts = []
         try:
             with torch.inference_mode():
-                parts = [self.encode_batch(b) for b in loader]
+                while True:
+                    with trace("sss.embed.wait"):  # the first wait starts the loader
+                        b = next(batches, None)
+                    if b is None:
+                        break
+                    parts.append(self.encode_batch(b))
         finally:
+            batches.close()
             loader.close()
         emb = torch.cat(parts, dim=0)[: len(norm)]
         return emb if out == "device" else emb.float().cpu().numpy()

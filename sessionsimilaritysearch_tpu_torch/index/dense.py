@@ -39,6 +39,7 @@ import torch
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
 from sessionsimilaritysearch_tpu_torch.ops import mips_int8
 from sessionsimilaritysearch_tpu_torch.ops.topk import chunked_topk, check_selection, l2_normalize
+from sessionsimilaritysearch_tpu_torch.utils.profiling import trace
 
 _DTYPES = (torch.float32, torch.bfloat16)
 # dtype names as the snapshots store them (the JAX package's ``dtype.name``)
@@ -370,7 +371,8 @@ class DenseIndex:
             vals = sq_queries - vals  # ascending squared distances; missing +inf
         if out == "device":
             return vals, idx
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        with trace("sss.index.to_host"):
+            return vals.cpu().numpy(), idx.cpu().numpy()
 
     def range_search(self, queries, radius: float, k0: int = 128, row_mask=None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

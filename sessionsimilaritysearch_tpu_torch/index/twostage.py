@@ -68,6 +68,7 @@ from sessionsimilaritysearch_tpu_torch.ops.topk import (
 )
 from sessionsimilaritysearch_tpu_torch.parallel.collectives import sharded_twostage_topk
 from sessionsimilaritysearch_tpu_torch.parallel.mesh import Mesh
+from sessionsimilaritysearch_tpu_torch.utils.profiling import count, trace
 
 PREFILTERS = ("binary", "itq", "int8x8", "pca")
 # corpus rows per stage-1 chunk: a [q, chunk] bf16 score buffer (2 GiB at
@@ -367,8 +368,11 @@ class TwoStageIndex(_StageOne):
         qn = self._rows(queries)
         mask = (None if row_mask is None
                 else positional_mask(row_mask, self.size, self.capacity, self.device))
-        cand = self._stage1(qn, pool, row_mask=mask)
-        return rerank_topk(qn, self._buf, cand, k)
+        with trace("sss.index.stage1"):
+            cand = self._stage1(qn, pool, row_mask=mask)
+        count("index.rerank_candidates", cand.shape[0] * cand.shape[1])
+        with trace("sss.index.rerank"):
+            return rerank_topk(qn, self._buf, cand, k)
 
     def search(self, queries, k: int, pool: Optional[int] = None, row_mask=None
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -377,7 +381,8 @@ class TwoStageIndex(_StageOne):
         (length ``size`` or ``capacity``) applies inside stage 1, so the
         pool holds allowed rows only."""
         vals, idx = self.search_device(queries, k, pool, row_mask)
-        return vals.cpu().numpy(), idx.cpu().numpy()
+        with trace("sss.index.to_host"):
+            return vals.cpu().numpy(), idx.cpu().numpy()
 
     # --- persistence: the JAX index's npz, key for key (+ 'projection')
     def snapshot(self) -> dict:

@@ -31,7 +31,6 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from sessionsimilaritysearch_tpu_torch.config import Config
 from sessionsimilaritysearch_tpu_torch.device import resolve_device
@@ -50,6 +49,7 @@ from sessionsimilaritysearch_tpu_torch.models.pooling import (
     SRGNNPooling,
     masked_mean,
 )
+from sessionsimilaritysearch_tpu_torch.utils.profiling import trace
 
 
 def _embed_nodes(embedder, ids, typ, att, get_token: bool = False,
@@ -241,8 +241,9 @@ class UnifyPoolingGraphLevelEncoder(_NodeInputs):
     token branch's parameters only when its init traces it, so the
     pretrainer builds it only when ``token_w > 0``; without it ``get_token``
     returns no token embeddings, as in JAX. The stages run in
-    ``torch.profiler`` spans (``text backbone``: the node embeddings, table
-    gathers on the cached path; ``gnn``; ``pooling``)."""
+    ``utils.profiling`` spans (``sss.encoder.text``: the node embeddings,
+    table gathers on the cached path; ``sss.encoder.gnn``;
+    ``sss.encoder.pooling``)."""
 
     def __init__(self, query_node_embedder: TextEncoder,
                  product_node_embedder: Optional[NodeAsinEmbedding], gnn: HeteroGGNN,
@@ -262,11 +263,11 @@ class UnifyPoolingGraphLevelEncoder(_NodeInputs):
         ``title_table`` [asin_num, d_text] (and ``query_table`` + ``query_kw``)
         replace the text passes by gathers; they cannot serve ``get_token``,
         which needs the per-token embeddings."""
-        with record_function("text backbone"):
+        with trace("sss.encoder.text"):
             out = self.node_embeddings(graph, query_node_mask, product_node_mask, title_table,
                                        query_table, query_kw, get_token=get_token)
         emb, tok = out if get_token else (out, None)
-        with record_function("gnn"):
+        with trace("sss.encoder.gnn"):
             node_emb = self.gnn(emb, graph)
 
         token_emb = {}
@@ -280,7 +281,7 @@ class UnifyPoolingGraphLevelEncoder(_NodeInputs):
                                    (mask == 0).reshape(B * N, T),
                                    deterministic, generator).reshape(B, N, T, D)
 
-        with record_function("pooling"):
+        with trace("sss.encoder.pooling"):
             embedding = self.pooling(node_emb["query"], node_emb["product"], graph)
         if get_node and get_token:
             return embedding, node_emb, token_emb

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from sessionsimilaritysearch_tpu_torch.ops import mips, mips_int8
+from sessionsimilaritysearch_tpu_torch.utils.profiling import count, trace
 
 MODES = ("exact", "approx", "exact_cert", "sort")
 METRICS = ("ip", "cos", "l2")
@@ -179,20 +180,26 @@ def chunked_topk(
     vals = torch.full((nq, k), float("-inf"), device=dev)
     idx = torch.full((nq, k), -1, dtype=torch.int64, device=dev)
     for base in range(0, vc, chunk_size):  # rows past valid_count never rank
-        rows = slice(base, min(base + chunk_size, vc))
-        chunk = corpus[rows]
-        p = None if pen is None else pen[rows]
-        if metric == "l2":
-            c32 = chunk.float()
-            sq = -(c32 * c32).sum(dim=1)
-            p = sq if p is None else p + sq
-        scales = None if corpus_scales is None else corpus_scales[rows]
-        scores, bmax = _chunk_scores(queries, chunk, p, score_dtype, scales, int8x8)
-        c_vals, c_idx = _select(scores, bmax, k, mode)
-        if int8x8:
-            c_vals = c_vals * query_scales.float()[:, None]
-        c_idx = torch.where(c_idx >= 0, c_idx + base, c_idx)
-        vals, idx = merge_topk(vals, idx, c_vals, c_idx, k)
+        with trace("sss.index.chunk"):
+            rows = slice(base, min(base + chunk_size, vc))
+            chunk = corpus[rows]
+            p = None if pen is None else pen[rows]
+            if metric == "l2":
+                c32 = chunk.float()
+                sq = -(c32 * c32).sum(dim=1)
+                p = sq if p is None else p + sq
+            scales = None if corpus_scales is None else corpus_scales[rows]
+            with trace("sss.index.score"):
+                scores, bmax = _chunk_scores(queries, chunk, p, score_dtype, scales, int8x8)
+            with trace("sss.index.select"):
+                c_vals, c_idx = _select(scores, bmax, k, mode)
+            with trace("sss.index.merge"):
+                if int8x8:
+                    c_vals = c_vals * query_scales.float()[:, None]
+                c_idx = torch.where(c_idx >= 0, c_idx + base, c_idx)
+                vals, idx = merge_topk(vals, idx, c_vals, c_idx, k)
+    count("index.chunks", -(-vc // chunk_size))
+    count("index.rows_scanned", vc)
     vals, idx = ties_by_id(vals, idx)
     if sq_queries is not None:
         vals = vals - sq_queries  # -|q - c|^2; missing slots stay -inf
